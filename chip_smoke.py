@@ -4,25 +4,40 @@
 
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit; fails without a card;
-  2. build: compiles every CUDA kernel of the port from ``csrc/``;
-  3. kernel check: each kernel against its plain PyTorch version on the
-     card, at the shapes the main path gives it and at the Middlebury-F
-     width, with timings and the card's bound for the same work;
+  2. build: compiles every CUDA kernel of the port from ``csrc/``, one
+     ``nvcc`` each, all started together;
+  3. kernel checks: each kernel against its plain PyTorch version on the
+     card (TF32 off), at the shapes the main paths give it and at a few
+     ragged ones, with timings and the card's bound for the same work:
+     K1 (alt lookup, also at the Middlebury-F width) and K2 (fused step,
+     fp32 and bf16, with and without inp16, beside the unfused port step
+     at the same shape); faults planted in copies of K2's source must fail
+     the bf16 check;
   4. main path: ``raft_stereo_tpu_torch.demo.main`` with the
      raftstereo-middlebury preset (full width, 32 iterations, seeded random
      weights) on four synthetic 540x960 pairs; checks the outputs and that
-     every lookup went through the kernel;
-  5. path parity: one pair through the fp32 forward (TF32 off), every
+     every lookup went through K1;
+  5. main path, fused: the same with ``--fused_update``; every unmasked
+     step goes through K2 (4 x 31) and the masked one's lookup through K1
+     (4 x 1);
+  6. path parity: one pair through the fp32 forward (TF32 off), every
      lookup held to the plain version on the same inputs, and the whole
-     forward with the kernel held to the forward with the plain lookup.
+     forward with the kernel held to the forward with the plain lookup;
+  7. fused parity: the fp32 and the bf16 forward with ``fused_update``,
+     every K2 step held to the plain step on the same inputs, and the fp32
+     fused forward held to the unfused one;
+  8. early exit: the fused model with a ``converge_eps`` picked from the
+     per-step deltas of phase 7, which must stop where they say.
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -30,14 +45,47 @@ import time
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores, bf16 FLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 ALT_TOL = 1e-4  # fp32 sum-order differences between kernel and plain version
 PARITY_ATOL_LOWRES = 2e-3
 PARITY_ATOL_UP = 5e-3
 PARITY_RTOL = 1e-4
+# K2 against its plain step. fp32: summation order only, at coordinates on
+# a 1/64 grid; h' absolute (twice the 4.7e-5 measured at the slice shape,
+# where the GRU sums run over 3456 products), delta relative to its scale
+# (tests/test_fused_update.py's 2e-4). bf16: both versions round at the
+# same points, but fp32 sums in another order flip a few roundings of
+# cor/flo/cf2/m, and each flip moves h' and delta nearby. Those values
+# reach the hundreds (their bf16 ulp is 0.5-2), so a cluster of flips can
+# move an h' element by a tenth while 99% of h' stays bit-equal. So h' is
+# held to the share of its elements that differ at all, which a wrong
+# kernel raises, and to a max that catches a local fault; delta to three
+# bf16 ulps of its largest magnitude. On an H100 at the slice shape and
+# along the preset's bf16 forward: at most 1.6% of h' differing, by at
+# most 0.137; delta within 1.5 ulps. Each fault of K2_MUTANTS must fail.
+K2_FP32_TOL = {"h": 1e-4, "delta_rel": 2e-4}
+K2_BF16_TOL = {"h": 2.0 ** -2, "h_share": 0.03, "delta_ulps": 3.0}
+# Faults planted in a copy of csrc/fused_update.cu, each of which the bf16
+# check must catch: (name, source text, replacement).
+K2_MUTANTS = (
+    # the GRU convs read zeros for inp16's first 32 channels
+    ("inp16_chunk_dropped",
+     "const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W;",
+     "const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W && !(s == 2 && g < BK);"),
+    # convf1 reads the fp32 flow instead of its rounding to T
+    ("flow_cast_skipped",
+     "round_to<T>(__ldg(flow + p + dy * W + dx))", "__ldg(flow + p + dy * W + dx)"),
+    # the z gate rounded to T before the blend
+    ("z_cast_added",
+     "args.z[pm * dh + nn] = sigmoid(v + to_f(ctx[nn]));",
+     "args.z[pm * dh + nn] = round_to<T>(sigmoid(v + to_f(ctx[nn])));"),
+    # the 3x3 convs read zeros for the image's top row (a local fault)
+    ("top_row_dropped", "const bool valid = yy >= 0 &&", "const bool valid = yy >= 1 &&"),
+)
 SEED = 0
 
 
@@ -71,16 +119,22 @@ def phase_device():
 
 
 def phase_build():
-    from raft_stereo_tpu_torch.ops import _build
-    from raft_stereo_tpu_torch.ops.alt_corr import KERNEL
+    from raft_stereo_tpu_torch.ops import _build, alt_corr, fused_update
 
+    kernels = [alt_corr.KERNEL, fused_update.KERNEL]
     t0 = time.perf_counter()
-    _build.build([KERNEL])
+    _build.build(kernels)
     seconds = time.perf_counter() - t0
-    for line in _build.BUILD_INFO[KERNEL]["ptxas"]:
-        print(line, flush=True)
-    emit({"phase": "build", "kernels": [KERNEL], "seconds": seconds,
-          "nvcc_seconds": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()}})
+    regs = {}
+    for name in kernels:
+        regs[name] = sorted({ln.split("Used ")[1].split(",")[0]
+                             for ln in _build.BUILD_INFO[name]["ptxas"] if "Used " in ln})
+        for line in _build.BUILD_INFO[name]["ptxas"]:
+            if re.search(r"[1-9][0-9]* bytes spill", line):
+                print(line, flush=True)
+    emit({"phase": "build", "kernels": kernels, "seconds": seconds,
+          "nvcc_seconds": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
+          "registers": regs})
 
 
 def _alt_inputs(B, H, W1, D, levels, seed):
@@ -185,6 +239,226 @@ def phase_kernel_check():
     return checks
 
 
+def _fused_inputs(B, H, W, D, levels, radius, with_inp, dtype, seed):
+    """Seeded weights and step inputs at the scales the model gives them:
+    the port's update block with its seeded init and small random biases,
+    unit-variance features, disparities of up to 0.6 W on a 1/64 grid (so
+    the lookup's positions are exact, as in K1's check), tanh states."""
+    import torch
+
+    from raft_stereo_tpu_torch.models.layers import init_weights
+    from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+    from raft_stereo_tpu_torch.ops import fused_update
+    from raft_stereo_tpu_torch.ops.corr import pool_fmap_pyramid
+
+    block = BasicMultiUpdateBlock((128, 128, 128), 3 if with_inp else 1, 2, levels, radius)
+    init_weights(block, torch.Generator().manual_seed(seed))
+    gb = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=gb))
+    block = block.cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    f1 = rnd(B, H, W, D)
+    pyr = pool_fmap_pyramid(rnd(B, H, W, D), levels)
+    flow = -torch.rand((B, H, W), generator=g, device="cuda") * (0.6 * W)
+    flow = torch.round(flow * 64.0) / 64.0
+    h = torch.tanh(rnd(B, H, W, 128)).to(dtype)
+    inp = torch.tanh(rnd(B, H, W, 128)).to(dtype) if with_inp else None
+    ctx = (0.5 * rnd(B, H, W, 384)).to(dtype)
+    packed = fused_update.pack_fused_params(block, dtype)
+    return block, (packed, f1, pyr, flow, h, inp, ctx, radius)
+
+
+def _fused_work(args, dtype):
+    """Operations and bytes of one fused step on these inputs, and the
+    card's least time for them: the lookup (as K1 counts it) on fp32 FMA,
+    the convs at the compute dtype's peak; each input and output once."""
+    packed, f1, pyr, flow, h, inp, ctx, radius = args
+    B, H, W, D = f1.shape
+    P = B * H * W
+    dh = h.shape[-1]
+    din = packed["wzr"].shape[1]
+    lk = packed["wc1"].shape[0]
+    coords = flow + _x_grid(flow)
+    look = _alt_bound(f1, pyr, coords, radius)
+    conv_flops = 2 * P * (lk * 64 + 49 * 64 + 9 * 2 * 64 * 64 + 9 * 128 * 126
+                          + 9 * din * 3 * dh + 9 * dh * 256 + 9 * 256)
+    esize = 2 if dtype == "bfloat16" else 4
+    weights = sum(v.numel() * v.element_size() for v in packed.values())
+    n_bytes = (4 * (f1.numel() + sum(p.numel() for p in pyr) + flow.numel())
+               + esize * (h.numel() + ctx.numel() + (inp.numel() if inp is not None else 0))
+               + weights + esize * h.numel() + 4 * P)
+    t_ops = 1e3 * (look["flops"] / FP32_FLOPS
+                   + conv_flops / (BF16_FLOPS if dtype == "bfloat16" else FP32_FLOPS))
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    return {"flops": look["flops"] + conv_flops, "conv_flops": conv_flops,
+            "lookup_flops": look["flops"], "bytes": n_bytes,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _x_grid(flow):
+    import torch
+
+    return torch.arange(flow.shape[-1], device=flow.device, dtype=torch.float32)
+
+
+def _ulp_bf16(x: float) -> float:
+    """Spacing of bfloat16 values at magnitude |x|."""
+    return 2.0 ** (math.frexp(max(abs(x), 2.0 ** -126))[1] - 8)
+
+
+def k2_errors(got, want, dtype) -> dict:
+    """K2's (h', delta) against the plain step's on the same inputs, and
+    whether they agree within K2_FP32_TOL or K2_BF16_TOL (by ``dtype``,
+    the step's compute dtype)."""
+    import torch
+
+    (h_k, d_k), (h_p, d_p) = got, want
+    diff_h = (h_k.float() - h_p.float()).abs()
+    diff_d = (d_k - d_p).abs()
+    err_h, err_d = float(diff_h.max()), float(diff_d.max())
+    scale_d = float(d_p.abs().max())
+    res = {"err_h": err_h, "err_delta": err_d, "mean_err_h": float(diff_h.mean()),
+           "mean_err_delta": float(diff_d.mean()), "max_abs_delta": scale_d}
+    if dtype == torch.float32:
+        res.update(tol_h=K2_FP32_TOL["h"],
+                   tol_delta=K2_FP32_TOL["delta_rel"] * max(1.0, scale_d))
+        ok = True
+    else:
+        share = float((diff_h > 0).float().mean())
+        res.update(tol_h=K2_BF16_TOL["h"],
+                   tol_delta=K2_BF16_TOL["delta_ulps"] * _ulp_bf16(scale_d),
+                   h_share=share, tol_h_share=K2_BF16_TOL["h_share"])
+        ok = share <= K2_BF16_TOL["h_share"]
+    res["ok"] = ok and err_h <= res["tol_h"] and err_d <= res["tol_delta"]  # False on NaN
+    return res
+
+
+def phase_fused_check():
+    """K2 against ``reference_refine_step`` on the card. The slice shape is
+    the main path's (544x960 padded input at 1/4 resolution); bf16 is the
+    preset's compute dtype, fp32 the parity phase's."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    cases = [
+        # name, (B, H, W, D), levels, radius, inp16, dtype, reps
+        ("slice_544x960_bf16", (1, 136, 240, 256), 4, 4, True, "bfloat16", 50),
+        ("slice_544x960_fp32", (1, 136, 240, 256), 4, 4, True, "float32", 20),
+        ("ragged_b2_h37_w123_fp32", (2, 37, 123, 256), 4, 4, True, "float32", 20),
+        ("ragged_b2_h37_w123_bf16", (2, 37, 123, 256), 4, 4, True, "bfloat16", 20),
+        ("no_inp16_din256_fp32", (1, 136, 240, 256), 4, 4, False, "float32", 20),
+        ("no_inp16_din256_bf16", (1, 136, 240, 256), 4, 4, False, "bfloat16", 20),
+    ]
+    checks = []
+    with _fp32_checks(), tempfile.TemporaryDirectory(prefix="chip_smoke_k2_") as tmp:
+        for name, (B, H, W, D), levels, radius, with_inp, dname, reps in cases:
+            dtype = getattr(torch, dname)
+            block, args = _fused_inputs(B, H, W, D, levels, radius, with_inp, dtype,
+                                        seed=SEED + 10 + len(checks))
+            got = fused_update.fused_refine_step(*args, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            want = fused_update.reference_refine_step(*args, compute_dtype=dtype)
+            res = {"case": name, "shape": [B, H, W, D], "levels": levels, "radius": radius,
+                   "inp16": with_inp, "dtype": dname, **k2_errors(got, want, dtype)}
+            if not checks:  # the main path's case: the check must catch planted faults
+                faults = _k2_planted_faults(args, want, dtype, Path(tmp))
+            res["ms"] = _time_ms(lambda: fused_update.fused_refine_step(
+                *args, compute_dtype=dtype), reps)
+            res["plain_ms"] = _time_ms(lambda: fused_update.reference_refine_step(
+                *args, compute_dtype=dtype), 3, warmup=1)
+            res["unfused_port_step_ms"] = _time_ms(_unfused_step(block, args, dtype), reps)
+            res.update(_fused_work(args, dname))
+            emit({"phase": "kernel_check", "kernel": "fused_update", **res})
+            checks.append(res)
+            del block, args, got, want
+            torch.cuda.empty_cache()
+    emit({"phase": "k2_planted_faults", "case": cases[0][0], "faults": faults})
+    bad = [c["case"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"fused_update disagrees with its plain step in {bad}")
+    missed = [f["fault"] for f in faults if f["ok"]]
+    if missed:
+        raise AssertionError(f"the bf16 K2 check passes the planted faults {missed}")
+    return checks
+
+
+def _k2_planted_faults(args, want, dtype, tmp: Path):
+    """Each fault of K2_MUTANTS, planted in a copy of the kernel's source
+    (built into ``tmp``, one ``nvcc`` each, all started together), run on
+    the same inputs and held to the same plain step: each must fail."""
+    import ctypes
+
+    from raft_stereo_tpu_torch.ops import _build, fused_update
+
+    src = (_build.CSRC_DIR / f"{fused_update.KERNEL}.cu").read_text()
+    procs = []
+    try:
+        for name, old, new in K2_MUTANTS:
+            if src.count(old) != 1:
+                raise AssertionError(f"planted fault {name}: its text is not in the source once")
+            cu, so = tmp / f"{name}.cu", tmp / f"{name}.so"
+            cu.write_text(src.replace(old, new))
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                   "-o", str(so), str(cu)]
+            procs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True)))
+        saved = (_build._libs.pop(fused_update.KERNEL, None), fused_update._fn)
+        faults = []
+        try:
+            for name, so, proc in procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for planted fault {name}:\n{log}")
+                # the wrapper binds whatever library _build has loaded
+                _build._libs[fused_update.KERNEL] = ctypes.CDLL(str(so))
+                fused_update._fn = None
+                got = fused_update.fused_refine_step(*args, compute_dtype=dtype)
+                faults.append({"fault": name, **k2_errors(got, want, dtype)})
+        finally:
+            _build._libs.pop(fused_update.KERNEL, None)
+            if saved[0] is not None:
+                _build._libs[fused_update.KERNEL] = saved[0]
+            fused_update._fn = saved[1]
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return faults
+
+
+def _unfused_step(block, args, dtype):
+    """The port's unfused step at the same shape, for comparison (it is not
+    a library call): K1's lookup, then the update block's cuDNN convs."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops import alt_corr
+
+    packed, f1, pyr, flow, h, inp, ctx, radius = args
+    coords = flow + _x_grid(flow)
+    h_n = h.permute(0, 3, 1, 2).contiguous()
+    inp_n = None if inp is None else inp.permute(0, 3, 1, 2).contiguous()
+    cz, cr, cq = ctx.permute(0, 3, 1, 2).contiguous().chunk(3, dim=1)
+
+    @torch.no_grad()
+    def run():
+        corr = alt_corr.corr_lookup_alt(f1, pyr, coords, radius).to(dtype).permute(0, 3, 1, 2)
+        motion = block.encoder(flow[:, None].to(dtype), corr)
+        xs = (motion,) if inp_n is None else (motion, inp_n)
+        h_new = block.gru08(h_n, cz, cr, cq, *xs)
+        return h_new, block.flow_head(h_new)
+
+    return run
+
+
 def _write_pairs(root: Path, n: int, H: int = 540, W: int = 960, seed: int = SEED):
     """``n`` seeded synthetic stereo pairs: a smoothed random texture and a
     copy shifted by a per-pair disparity, as PNGs in ``root/pairK/im{0,1}``."""
@@ -207,34 +481,41 @@ def _write_pairs(root: Path, n: int, H: int = 540, W: int = 960, seed: int = SEE
         Image.fromarray(np.ascontiguousarray(right)).save(pair / "im1.png")
 
 
-def phase_main_path(tmp: Path, n_pairs: int = 4, iters: int = 32):
-    """The port's demo entry point, raftstereo-middlebury preset."""
+def phase_main_path(tmp: Path, fused: bool = False, n_pairs: int = 4, iters: int = 32):
+    """The port's demo entry point, raftstereo-middlebury preset; with
+    ``fused`` also ``--fused_update``. Every kernel count is set to 0 just
+    before the run and read just after."""
     import numpy as np
     import torch
 
     from raft_stereo_tpu_torch import demo
-    from raft_stereo_tpu_torch.ops import alt_corr
+    from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 
-    data, out = tmp / "pairs", tmp / "out"
-    _write_pairs(data, n_pairs)
+    data, out = tmp / "pairs", tmp / ("out_fused" if fused else "out")
+    if not data.exists():
+        _write_pairs(data, n_pairs)
     argv = ["--preset", "raftstereo-middlebury", "--valid_iters", str(iters),
             "--left_imgs", str(data / "*" / "im0.png"),
             "--right_imgs", str(data / "*" / "im1.png"),
             "--output_directory", str(out), "--save_numpy"]
+    if fused:
+        argv.append("--fused_update")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    alt_corr.LAUNCHES = 0
+    alt_corr.LAUNCHES = fused_update.LAUNCHES = 0
     t0 = time.perf_counter()
     seconds = demo.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = alt_corr.LAUNCHES
+    launches = {"alt_corr": alt_corr.LAUNCHES, "fused_update": fused_update.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
 
     if len(seconds) != n_pairs:
         raise AssertionError(f"demo served {len(seconds)} pairs, expected {n_pairs}")
-    if launches != n_pairs * iters:
-        raise AssertionError(f"alt_corr launched {launches} times, expected {n_pairs * iters}")
+    want = ({"alt_corr": n_pairs, "fused_update": n_pairs * (iters - 1)} if fused
+            else {"alt_corr": n_pairs * iters, "fused_update": 0})
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
     for k in range(n_pairs):
         disp = np.load(out / f"pair{k}.npy")
         if disp.shape != (540, 960) or not np.isfinite(disp).all():
@@ -243,9 +524,10 @@ def phase_main_path(tmp: Path, n_pairs: int = 4, iters: int = 32):
             raise AssertionError(f"pair{k}.png missing")
     steady = seconds[1:] or seconds
     res = {
-        "phase": "main_path", "entry": "raft_stereo_tpu_torch.demo.main",
-        "preset": "raftstereo-middlebury", "pairs": n_pairs, "input": [540, 960],
-        "padded": [544, 960], "iters": iters, "alt_corr_launches": launches,
+        "phase": "main_path_fused" if fused else "main_path",
+        "entry": "raft_stereo_tpu_torch.demo.main", "preset": "raftstereo-middlebury",
+        "fused_update": fused, "pairs": n_pairs, "input": [540, 960],
+        "padded": [544, 960], "iters": iters, "launches": launches,
         "first_pair_ms": seconds[0] * 1e3,
         "ms_per_pair": 1e3 * sum(steady) / len(steady),
         "pairs_per_s": len(steady) / sum(steady),
@@ -257,6 +539,38 @@ def phase_main_path(tmp: Path, n_pairs: int = 4, iters: int = 32):
     }
     emit(res)
     return res
+
+
+def _first_pair(tmp: Path):
+    """The first synthetic pair, padded to /32, on the card."""
+    import torch
+
+    from raft_stereo_tpu_torch.demo import load_image
+    from raft_stereo_tpu_torch.ops.pad import InputPadder
+
+    img1 = load_image(str(tmp / "pairs" / "pair0" / "im0.png"))
+    img2 = load_image(str(tmp / "pairs" / "pair0" / "im1.png"))
+    p1, p2 = InputPadder(img1.shape, divis_by=32).pad(img1, img2)
+    return torch.from_numpy(p1).cuda(), torch.from_numpy(p2).cuda()
+
+
+@contextlib.contextmanager
+def _fp32_checks():
+    """TF32 off, so the plain versions' convs and matmuls run in full fp32,
+    and the kernels' launch counts put back afterwards: launches made to
+    compare a kernel with its plain version do not count."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops import alt_corr, fused_update
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             alt_corr.LAUNCHES, fused_update.LAUNCHES)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         alt_corr.LAUNCHES, fused_update.LAUNCHES) = saved
 
 
 def _ulp32(x: float) -> float:
@@ -283,22 +597,15 @@ def phase_parity(tmp: Path, iters: int = 32, iters_checked: int = 2):
     import dataclasses
 
     import numpy as np
-    import torch
 
     from raft_stereo_tpu_torch.config import PRESETS
-    from raft_stereo_tpu_torch.demo import load_image
     from raft_stereo_tpu_torch.evaluate import load_model
     from raft_stereo_tpu_torch.ops import alt_corr
     from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
-    from raft_stereo_tpu_torch.ops.pad import InputPadder
 
     cfg = dataclasses.replace(PRESETS["raftstereo-middlebury"], mixed_precision=False)
     model = load_model(cfg, device="cuda", seed=SEED)
-    img1 = load_image(str(tmp / "pairs" / "pair0" / "im0.png"))
-    img2 = load_image(str(tmp / "pairs" / "pair0" / "im1.png"))
-    p1, p2 = InputPadder(img1.shape, divis_by=32).pad(img1, img2)
-    a = torch.from_numpy(p1).cuda()
-    b = torch.from_numpy(p2).cuda()
+    a, b = _first_pair(tmp)
     kernel_lookup = alt_corr.corr_lookup_alt
     lookups = []
 
@@ -313,30 +620,25 @@ def phase_parity(tmp: Path, iters: int = 32, iters_checked: int = 2):
         lookups.append({"err": err, "tol": tol})
         return got
 
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-             alt_corr.LAUNCHES)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     runs = {}
-    try:
-        alt_corr.corr_lookup_alt = checked_lookup
-        model(a, b, iters=iters)
-        for n in (1, iters_checked, 4, iters):
-            if n in runs:
-                continue
+    with _fp32_checks():
+        try:
+            alt_corr.corr_lookup_alt = checked_lookup
+            model(a, b, iters=iters)
+            for n in (1, iters_checked, 4, iters):
+                if n in runs:
+                    continue
+                alt_corr.corr_lookup_alt = kernel_lookup
+                before = alt_corr.LAUNCHES
+                low_k, up_k = model(a, b, iters=n)
+                if alt_corr.LAUNCHES - before != n:
+                    raise AssertionError(f"kernel forward launched alt_corr "
+                                         f"{alt_corr.LAUNCHES - before} times, expected {n}")
+                alt_corr.corr_lookup_alt = corr_lookup_alt_plain
+                low_p, up_p = model(a, b, iters=n)
+                runs[n] = [t.cpu().numpy() for t in (low_k, low_p, up_k, up_p)]
+        finally:
             alt_corr.corr_lookup_alt = kernel_lookup
-            before = alt_corr.LAUNCHES
-            low_k, up_k = model(a, b, iters=n)
-            if alt_corr.LAUNCHES - before != n:
-                raise AssertionError(f"kernel forward launched alt_corr "
-                                     f"{alt_corr.LAUNCHES - before} times, expected {n}")
-            alt_corr.corr_lookup_alt = corr_lookup_alt_plain
-            low_p, up_p = model(a, b, iters=n)
-            runs[n] = [t.cpu().numpy() for t in (low_k, low_p, up_k, up_p)]
-    finally:
-        alt_corr.corr_lookup_alt = kernel_lookup
-        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         alt_corr.LAUNCHES) = saved
     growth = {}
     for n, (lk, lp, uk, up) in runs.items():
         if not (np.isfinite(uk).all() and np.isfinite(up).all()):
@@ -365,6 +667,184 @@ def phase_parity(tmp: Path, iters: int = 32, iters_checked: int = 2):
     return res
 
 
+def phase_parity_fused(tmp: Path, iters: int = 32, iters_checked: int = 2):
+    """The fp32 forward with ``fused_update`` (TF32 off) on one pair.
+
+    (a) Along the 32 iterations, every K2 step is also run through the
+    plain step on the same inputs and held to it. The flows here are not on
+    a grid, so the plain lookup (one rounding of x/2^l + k per tap) and the
+    kernel's (one frac per level) sample positions up to half an ulp of
+    |x| + r apart, which moves a tap by up to that times the largest
+    difference between neighbouring taps (``shift``, as for K1). The
+    tolerance adds, to the fp32 one, ``shift`` times the step's own gain
+    from taps to outputs, measured on the same inputs: the plain step with
+    the flow moved by 2^-10 px, which moves every tap by up to 2^-10 times
+    the same tap difference, and the flow's other uses with it.
+    The same for the preset's bf16 forward, whose steps run the main path's
+    instantiation of K2, each held to K2_BF16_TOL.
+    (b) The fused forward is held to the unfused one after
+    ``iters_checked`` iterations (PARITY_ATOL_*); random weights do not
+    contract, so the difference is printed for 1, 2 and 32 iterations too.
+    Returns the fp32 per-step convergence signals for the early-exit phase.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.ops import alt_corr, fused_update
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
+
+    base = dataclasses.replace(PRESETS["raftstereo-middlebury"], mixed_precision=False)
+    fused_model = load_model(dataclasses.replace(base, fused_update=True), device="cuda",
+                             seed=SEED)
+    plain_model = load_model(base, device="cuda", seed=SEED)
+    a, b = _first_pair(tmp)
+    kernel_step = fused_update.fused_refine_step
+    plain_step = fused_update.reference_refine_step
+    steps = []
+    eps_flow = 2.0 ** -10
+
+    bf16_steps = []
+
+    def checked_step(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius,
+                     compute_dtype=torch.float32):
+        args = (packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius)
+        got = kernel_step(*args, compute_dtype=compute_dtype)
+        want = plain_step(*args, compute_dtype=compute_dtype)
+        res = k2_errors(got, want, compute_dtype)
+        if compute_dtype == torch.bfloat16:  # a moved tap is one more flipped rounding
+            bf16_steps.append(res)
+            return got
+        moved = plain_step(packed, fmap1, pyramid, flow_x + eps_flow, h, inp16, ctx, radius,
+                           compute_dtype=compute_dtype)
+        coords = flow_x + _x_grid(flow_x)
+        taps = corr_lookup_alt_plain(fmap1, pyramid, coords, radius)
+        step = float(taps.unflatten(-1, (len(pyramid), 2 * radius + 1)).diff(dim=-1).abs().max())
+        shift = _ulp32(float(coords.abs().max()) + radius) * step
+        # gain per unit of tap movement, from the 2^-10 px move
+        gain_h = float((moved[0] - want[0]).abs().max()) / (eps_flow * step)
+        gain_d = float((moved[1] - want[1]).abs().max()) / (eps_flow * step)
+        res["tol_h"] += gain_h * shift
+        res["tol_delta"] += gain_d * shift
+        res["ok"] = res["err_h"] <= res["tol_h"] and res["err_delta"] <= res["tol_delta"]
+        res["lookup_shift"] = shift
+        res["dnorm"] = float(fused_update.batch_max_delta((flow_x + got[1]) - flow_x))
+        steps.append(res)
+        return got
+
+    runs = {}
+    with _fp32_checks():
+        try:
+            fused_update.fused_refine_step = checked_step
+            fused_model(a, b, iters=iters)
+            # the preset's bf16 forward: the main path's instantiation of K2
+            bf16_model = load_model(dataclasses.replace(PRESETS["raftstereo-middlebury"],
+                                                        fused_update=True),
+                                    device="cuda", seed=SEED)
+            bf16_model(a, b, iters=iters)
+            del bf16_model
+            fused_update.fused_refine_step = kernel_step
+            for n in (1, iters_checked, iters):
+                if n in runs:
+                    continue
+                before = (fused_update.LAUNCHES, alt_corr.LAUNCHES)
+                low_f, up_f = fused_model(a, b, iters=n)
+                got = (fused_update.LAUNCHES - before[0], alt_corr.LAUNCHES - before[1])
+                if got != (n - 1, 1):
+                    raise AssertionError(f"fused forward launched (K2, K1) {got}, expected {(n - 1, 1)}")
+                low_p, up_p = plain_model(a, b, iters=n)
+                runs[n] = [t.cpu().numpy() for t in (low_f, low_p, up_f, up_p)]
+        finally:
+            fused_update.fused_refine_step = kernel_step
+    growth = {}
+    for n, (lf, lp, uf, up) in runs.items():
+        if not (np.isfinite(uf).all() and np.isfinite(up).all()):
+            raise AssertionError(f"non-finite disparity in the fused parity forwards at {n} iterations")
+        growth[str(n)] = {"max_abs_err_lowres": float(np.abs(lf - lp).max()),
+                          "max_abs_err_up": float(np.abs(uf - up).max()),
+                          "max_abs_disp": float(np.abs(up).max())}
+    lf, lp, uf, up = runs[iters_checked]
+    worst = max(steps, key=lambda x: max(x["err_h"] / x["tol_h"], x["err_delta"] / x["tol_delta"]))
+    res = {"phase": "parity_fused", "dtype": "float32", "cudnn_allow_tf32": False,
+           "matmul_allow_tf32": False, "shape": list(uf.shape), "steps_checked": len(steps),
+           "step_max_err_h": max(x["err_h"] for x in steps),
+           "step_max_err_delta": max(x["err_delta"] for x in steps),
+           "step_worst_err_over_tol": max(worst["err_h"] / worst["tol_h"],
+                                          worst["err_delta"] / worst["tol_delta"]),
+           "step_worst": worst, "steps": steps,
+           "bf16_steps_checked": len(bf16_steps),
+           "bf16_step_max_err_h": max(x["err_h"] for x in bf16_steps),
+           "bf16_step_max_h_share": max(x["h_share"] for x in bf16_steps),
+           "bf16_step_worst_delta_over_tol": max(x["err_delta"] / x["tol_delta"]
+                                                 for x in bf16_steps),
+           "bf16_steps": bf16_steps,
+           "iters_checked": iters_checked, **growth[str(iters_checked)], "by_iters": growth,
+           "atol_lowres": PARITY_ATOL_LOWRES, "atol_up": PARITY_ATOL_UP, "rtol": PARITY_RTOL}
+    emit(res)
+    if len(steps) != iters - 1 or len(bf16_steps) != iters - 1:
+        raise AssertionError(f"{len(steps)} fp32 and {len(bf16_steps)} bf16 fused steps "
+                             f"checked, expected {iters - 1} each")
+    bad = ([f"fp32 {i}" for i, x in enumerate(steps) if not x["ok"]]
+           + [f"bf16 {i}" for i, x in enumerate(bf16_steps) if not x["ok"]])
+    if bad:
+        raise AssertionError(f"fused_update disagrees with the plain step at steps {bad}")
+    np.testing.assert_allclose(lf, lp, atol=PARITY_ATOL_LOWRES, rtol=PARITY_RTOL)
+    np.testing.assert_allclose(uf, up, atol=PARITY_ATOL_UP, rtol=PARITY_RTOL)
+    return [x["dnorm"] for x in steps]
+
+
+def phase_early_exit(tmp: Path, dnorms, iters: int = 32):
+    """The fp32 fused model with ``converge_eps`` half-way between two of
+    phase 7's per-step signals: the first step whose signal is below every
+    earlier one, and the smallest earlier one. It must stop after that
+    step, launch K2 once a step and K1 once, and give the fixed loop's
+    result for that many iterations."""
+    import dataclasses
+
+    import torch
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.ops import alt_corr, fused_update
+
+    k = next((i for i in range(1, len(dnorms)) if dnorms[i] < min(dnorms[:i])), 1)
+    eps = 0.5 * (min(dnorms[:k]) + dnorms[k])
+    # the loop runs steps while the last signal is >= eps
+    ran = next((i + 1 for i, d in enumerate(dnorms) if d < eps), len(dnorms))
+    expected = ran + 1
+    margin = min(abs(d - eps) for d in dnorms[:ran]) / eps
+    cfg = dataclasses.replace(PRESETS["raftstereo-middlebury"], mixed_precision=False,
+                              fused_update=True)
+    with _fp32_checks():
+        early = load_model(dataclasses.replace(cfg, converge_eps=eps), device="cuda", seed=SEED)
+        fixed = load_model(cfg, device="cuda", seed=SEED)
+        a, b = _first_pair(tmp)
+        alt_corr.LAUNCHES = fused_update.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        low_e, up_e, n = early(a, b, iters=iters)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {"alt_corr": alt_corr.LAUNCHES, "fused_update": fused_update.LAUNCHES}
+        low_x, up_x = fixed(a, b, iters=n)
+    err = float((up_e - up_x).abs().max())
+    res = {"phase": "early_exit", "dtype": "float32", "converge_eps": eps, "iters": iters,
+           "iters_executed": n, "expected": expected, "eps_relative_margin": margin,
+           "launches": launches, "forward_ms": ms, "max_abs_diff_vs_fixed_loop": err,
+           "dnorms": dnorms}
+    emit(res)
+    if n != expected:
+        raise AssertionError(f"early exit ran {n} iterations, expected {expected}")
+    if launches != {"alt_corr": 1, "fused_update": n - 1}:
+        raise AssertionError(f"early exit launched {launches} for {n} iterations")
+    if not (torch.isfinite(up_e).all() and err <= 1e-4):
+        raise AssertionError(f"early exit result differs from the fixed loop by {err}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -375,25 +855,46 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     checks = phase_kernel_check()
+    fused_checks = phase_fused_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_res = phase_main_path(Path(tmp))
+        fused_res = phase_main_path(Path(tmp), fused=True)
         phase_parity(Path(tmp))
-    slice_check = checks[0]
-    emit({"kernels": [{
-        "name": "alt_corr",
-        "route": "cuda",
-        "source": "raft_stereo_tpu_torch/csrc/alt_corr.cu",
-        "replaces": "raft_stereo_tpu/ops/pallas_corr.py:67",
-        "launches": main_res["alt_corr_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "tol": ALT_TOL,
-        "ms": slice_check["ms"],
-        "plain_ms": slice_check["plain_ms"],
-        "bound_ms": slice_check["bound_ms"],
-        "bound_by": slice_check["bound_by"],
-        "library_ms": None,
-        "checks": checks,
-    }]})
+        dnorms = phase_parity_fused(Path(tmp))
+        phase_early_exit(Path(tmp), dnorms)
+    by_path = {"main_path": main_res["launches"], "main_path_fused": fused_res["launches"]}
+    for path, counts in by_path.items():
+        used = ["alt_corr", "fused_update"] if path == "main_path_fused" else ["alt_corr"]
+        if any(counts[k] < 1 for k in used):
+            raise AssertionError(f"{path}: a kernel of the path never launched: {counts}")
+    k1, k2 = checks[0], fused_checks[0]  # the main paths' shapes (K2: bf16, the preset's)
+    emit({"kernels": [
+        {
+            "name": "alt_corr", "route": "cuda",
+            "source": "raft_stereo_tpu_torch/csrc/alt_corr.cu",
+            "replaces": "raft_stereo_tpu/ops/pallas_corr.py:67",
+            "launches": main_res["launches"]["alt_corr"],
+            "launches_by_path": {p: c["alt_corr"] for p, c in by_path.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in checks), "tol": ALT_TOL,
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+            "bound_by": k1["bound_by"], "library_ms": None, "checks": checks,
+        },
+        {
+            "name": "fused_update", "route": "cuda",
+            "source": "raft_stereo_tpu_torch/csrc/fused_update.cu",
+            "replaces": "raft_stereo_tpu/ops/pallas_fused_update.py:137",
+            "launches": fused_res["launches"]["fused_update"],
+            "launches_by_path": {p: c["fused_update"] for p, c in by_path.items()},
+            "max_abs_err": max(max(c["err_h"], c["err_delta"]) for c in fused_checks),
+            "tol": {c["case"]: {"h": c["tol_h"], "delta": c["tol_delta"],
+                                **({"h_share": c["tol_h_share"]} if "h_share" in c else {})}
+                    for c in fused_checks},
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+            "bound_by": k2["bound_by"], "library_ms": None,
+            "unfused_port_step_ms": k2["unfused_port_step_ms"],
+            "checks": fused_checks,
+        },
+    ]})
     print(dev["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"], "count": dev["count"]}})
     return 0

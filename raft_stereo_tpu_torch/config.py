@@ -42,6 +42,16 @@ class RAFTStereoConfig:
     slow_fast_gru: bool = False
     n_gru_layers: int = 3
     mixed_precision: bool = False  # bf16 compute for the convs
+    # Each test-mode refinement step but the last (masked) one runs as one
+    # fused step (ops/fused_update.py): the lookup, the motion encoder, the
+    # finest ConvGRU and the flow head. On CUDA the kernel runs or the call
+    # raises. The correlation state is then always ``alt``.
+    fused_update: bool = False
+    # Batch-level convergence exit of the refinement loop: when > 0, the
+    # loop stops once the largest per-sample mean |delta| of a step falls
+    # below this (ops.fused_update.batch_max_delta), and the forward
+    # returns a third element, the number of iterations run. 0 disables it.
+    converge_eps: float = 0.0
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_dims", tuple(self.hidden_dims))
@@ -54,6 +64,13 @@ class RAFTStereoConfig:
             raise ValueError("hidden_dims entries must be uniform")
         if self.context_norm not in ("group", "batch", "instance", "none"):
             raise ValueError(f"bad context_norm {self.context_norm!r}")
+        if not math.isfinite(self.converge_eps) or self.converge_eps < 0.0:
+            # NaN would make the exit test (dnorm >= eps) always False:
+            # every batch would silently run one refinement step
+            raise ValueError(
+                f"converge_eps must be finite and >= 0 (0 disables the "
+                f"early exit), got {self.converge_eps}"
+            )
         canonical_corr_implementation(self.corr_implementation)
 
     @property
@@ -113,4 +130,5 @@ def config_from_args(args) -> RAFTStereoConfig:
         slow_fast_gru=args.slow_fast_gru,
         n_gru_layers=args.n_gru_layers,
         mixed_precision=args.mixed_precision,
+        fused_update=args.fused_update,
     )

@@ -17,7 +17,8 @@
 // each level touches 2r+2 rows and forms 2r+2 dot products (warp butterfly
 // reductions); rows outside [0, W2_l) are not loaded. Whole correlation
 // rows are never built: f1 is read once, and neighbouring pixels of a row
-// re-read the same f2 rows from L1/L2.
+// re-read the same f2 rows from L1/L2. The per-warp device code lives in
+// alt_corr_lookup.cuh, which the fused refinement step shares.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32) at the 544x960 slice
 // shape (H=136, W1=240, D=256, L=4, r=4): bytes f1 33.4 MB + f2 pyramid
@@ -30,15 +31,14 @@
 
 #include <cuda_runtime.h>
 
+#include "alt_corr_lookup.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;
+using rst::kMaxLevels;
+using rst::Pyramid;
 
-struct Pyramid {
-  const float* f2[kMaxLevels];
-  int w2[kMaxLevels];
-};
+constexpr int kWarpsPerBlock = 8;
 
 // NV: float4 chunks of the f1 row held by each lane (D <= 128 * NV).
 // R: window radius.
@@ -48,7 +48,6 @@ alt_corr_kernel(const float* __restrict__ f1, Pyramid pyr, int levels,
                 const float* __restrict__ coords, float* __restrict__ out,
                 long long n_pix, int W1, int D, float inv_sqrt_d) {
   constexpr int K = 2 * R + 1;
-  constexpr int NP = 2 * R + 2;
   const int lane = threadIdx.x & 31;
   const long long p =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -57,57 +56,21 @@ alt_corr_kernel(const float* __restrict__ f1, Pyramid pyr, int levels,
   const long long row = p / W1;  // b*H + h
 
   float4 a[NV];
-  const float4* f1p = reinterpret_cast<const float4*>(f1 + p * D);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int c = lane + 32 * v;
-    a[v] = c < D4 ? __ldg(f1p + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  rst::load_f1_row<NV>(f1 + p * D, D4, lane, a);
   const float x = __ldg(coords + p);
   float* outp = out + p * (long long)(levels * K);
 
   for (int l = 0; l < levels; ++l) {
     const int W2 = pyr.w2[l];
     const float xl = x * (1.0f / (float)(1 << l));  // exact power-of-two scale
-    const float x0 = floorf(xl);
-    const float frac = xl - x0;
-    // Clamp before the int conversion: a window wholly outside stays
-    // wholly outside.
-    const float first = fminf(fmaxf(x0 - (float)R, -(float)(NP + 1)),
-                              (float)W2 + 1.0f);
-    const int base = (int)first;
-    const float* f2l = pyr.f2[l] + row * (long long)W2 * D;
-
-    float c[NP];
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int pos = base + j;
-      float s = 0.f;
-      if (pos >= 0 && pos < W2) {  // uniform across the warp
-        const float4* q = reinterpret_cast<const float4*>(f2l + (long long)pos * D);
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          const int cc = lane + 32 * v;
-          if (cc < D4) {
-            const float4 b = __ldg(q + cc);
-            s = fmaf(a[v].x, b.x, s);
-            s = fmaf(a[v].y, b.y, s);
-            s = fmaf(a[v].z, b.z, s);
-            s = fmaf(a[v].w, b.w, s);
-          }
-        }
-      }
-      c[j] = s;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int j = 0; j < NP; ++j) c[j] += __shfl_xor_sync(0xffffffffu, c[j], off);
-    }
+    float c[K + 1];
+    float frac;
+    rst::level_dots<NV, R>(a, pyr.f2[l] + row * (long long)W2 * D, W2, D, D4, xl, lane, c,
+                           frac);
     float val = 0.f;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (lane == k) val = ((1.f - frac) * c[k] + frac * c[k + 1]) * inv_sqrt_d;
+      if (lane == k) val = rst::window_tap(c[k], c[k + 1], frac, inv_sqrt_d);
     }
     if (lane < K) outp[l * K + lane] = val;
   }

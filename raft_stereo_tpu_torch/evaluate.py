@@ -74,8 +74,9 @@ def make_forward(model: RAFTStereo, iters: int) -> Callable:
     def forward(img1, img2) -> torch.Tensor:
         a = torch.as_tensor(img1, dtype=torch.float32, device=dev)
         b = torch.as_tensor(img2, dtype=torch.float32, device=dev)
-        _, disp = model(a, b, iters=iters)
-        return disp
+        # the forward returns (lowres, disp_up) or, with converge_eps,
+        # (lowres, disp_up, iters_executed)
+        return model(a, b, iters=iters)[1]
 
     return forward
 
@@ -97,4 +98,11 @@ def add_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["group", "batch", "instance", "none"])
     parser.add_argument("--slow_fast_gru", action="store_true")
     parser.add_argument("--n_gru_layers", type=int, default=3)
+    parser.add_argument(
+        "--fused_update", action="store_true",
+        help="run each test-mode refinement step but the last as one fused step "
+        "(correlation lookup, motion encoder, finest ConvGRU and flow head); on "
+        "CUDA the hand-written kernel runs or the call raises, on the CPU its "
+        "plain PyTorch version runs",
+    )
     return parser

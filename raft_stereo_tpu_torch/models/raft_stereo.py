@@ -18,8 +18,9 @@ from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.models.layers import ResidualBlock, conv
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.ops import fused_update
 from raft_stereo_tpu_torch.ops.corr import make_corr_fn
-from raft_stereo_tpu_torch.ops.sampling import convex_upsample, coords_grid
+from raft_stereo_tpu_torch.ops.sampling import convex_upsample, coords_grid, interp_bilinear
 
 # Above this many input pixels the fnet runs one image at a time: the
 # batched pair would hold both images' full-resolution activations at once.
@@ -29,7 +30,9 @@ TWO_CALL_FNET_PIXELS = 2_000_000
 class RAFTStereo(nn.Module):
     """``forward(image1, image2, iters)`` → ``(lowres [B, H, W, 2] with
     y = 0, disp_up [B, f·H, f·W, 1])``, the x-flow at 1/f resolution and
-    convex-upsampled (negate it for positive disparity)."""
+    convex-upsampled (negate it for positive disparity). With
+    ``config.converge_eps > 0`` a third element follows: the number of
+    refinement iterations run, the masked final one included."""
 
     def __init__(self, config: RAFTStereoConfig = RAFTStereoConfig()):
         super().__init__()
@@ -78,32 +81,92 @@ class RAFTStereo(nn.Module):
             for zqr, o in zip(self.context_zqr_convs, cnet_list)
         ]
 
-        corr_fn = make_corr_fn(cfg.corr_backend, fmap1.permute(0, 2, 3, 1),
-                               fmap2.permute(0, 2, 3, 1), cfg.corr_levels, cfg.corr_radius)
+        # The fused step recomputes correlation from the alt state, and the
+        # masked final step then looks up through the same alt backend, so
+        # with fused_update the corr state is alt whatever corr_backend says.
+        corr_fn = make_corr_fn("alt" if cfg.fused_update else cfg.corr_backend,
+                               fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1),
+                               cfg.corr_levels, cfg.corr_radius)
         B, _, H, W = net[0].shape
         coords0_x = coords_grid(B, H, W, device=net[0].device)[..., 0]
         flow_x = torch.zeros((B, H, W), dtype=torch.float32, device=net[0].device)
         if flow_init is not None:
             flow_x = flow_x + flow_init[..., 0].float()
 
-        up_mask = None
-        for it in range(iters):
-            last = it == iters - 1
+        fused = None
+        if cfg.fused_update:
+            # weights in the compute dtype and ctx = cz|cr|cq channel-last,
+            # once a forward
+            fused = (fused_update.pack_fused_params(self.update_block, dtype),
+                     torch.cat(inp[0], dim=1).permute(0, 2, 3, 1).contiguous())
+
+        def step(net, flow_x, with_mask):
+            """One refinement iteration → (net, flow_x, up_mask or None)."""
+            if fused is not None and not with_mask:
+                return self._fused_step(net, inp, flow_x, corr_fn, fused, dtype)
             corr = corr_fn(coords0_x + flow_x).to(dtype).permute(0, 3, 1, 2)
             flow = flow_x[:, None].to(dtype)
-            if n_layers == 3 and cfg.slow_fast_gru:
-                net = self.update_block(net, inp, iter32=True, iter16=False,
-                                        iter08=False, update=False)
-            if n_layers >= 2 and cfg.slow_fast_gru:
-                net = self.update_block(net, inp, iter32=n_layers == 3, iter16=True,
-                                        iter08=False, update=False)
+            net = self._slow_fast(net, inp)
             net, up_mask, delta = self.update_block(
                 net, inp, corr, flow, iter32=n_layers == 3, iter16=n_layers >= 2,
-                with_mask=last,
+                with_mask=with_mask,
             )
-            flow_x = flow_x + delta[:, 0].float()
+            return net, flow_x + delta[:, 0].float(), up_mask
 
+        # iters-1 unmasked steps, then the masked one. With converge_eps > 0,
+        # a batch-level exit: stop the unmasked steps once the largest
+        # per-sample mean |Δflow| is below eps. Reading that signal costs
+        # one host sync per iteration.
+        ran = 0
+        while ran < iters - 1:
+            net, new_flow, _ = step(net, flow_x, with_mask=False)
+            converged = cfg.converge_eps > 0 and (
+                float(fused_update.batch_max_delta(new_flow - flow_x)) < cfg.converge_eps)
+            flow_x = new_flow
+            ran += 1
+            if converged:
+                break
+        net, flow_x, up_mask = step(net, flow_x, with_mask=True)
+        outputs = self._outputs(flow_x, up_mask)
+        return (*outputs, ran + 1) if cfg.converge_eps > 0 else outputs
+
+    def _slow_fast(self, net, inp):
+        """The slow-fast schedule's extra coarse-level GRU updates."""
+        n_layers = self.config.n_gru_layers
+        if self.config.slow_fast_gru:
+            if n_layers == 3:
+                net = self.update_block(net, inp, iter32=True, iter16=False, iter08=False,
+                                        update=False)
+            if n_layers >= 2:
+                net = self.update_block(net, inp, iter32=n_layers == 3, iter16=True,
+                                        iter08=False, update=False)
+        return net
+
+    def _fused_step(self, net, inp, flow_x, corr_fn, fused, dtype):
+        """An unmasked iteration through the fused step (the JAX
+        ``_RefinementStep``'s fused branch): the coarse GRU levels first,
+        as in the unfused order, then lookup, motion encoder, finest GRU and
+        flow head in ``fused_update.fused_refine_step``."""
+        n_layers = self.config.n_gru_layers
+        net = self._slow_fast(net, inp)
+        if n_layers >= 2:
+            net = self.update_block(net, inp, iter32=n_layers == 3, iter16=True,
+                                    iter08=False, update=False)
+        packed, ctx = fused
+        inp16 = None
+        if n_layers > 1:
+            inp16 = interp_bilinear(net[1], net[0].shape[-2:]).permute(0, 2, 3, 1)
+        # h' comes back channel-last; net[0] keeps it as an NCHW view, so
+        # the next step passes it to the kernel without a copy.
+        h_new, delta = fused_update.fused_refine_step(
+            packed, corr_fn.fmap1, corr_fn.fmap2_pyramid, flow_x, net[0].permute(0, 2, 3, 1),
+            inp16, ctx, self.config.corr_radius, compute_dtype=dtype,
+        )
+        net = [h_new.permute(0, 3, 1, 2)] + list(net[1:])
+        return net, flow_x + delta, None
+
+    def _outputs(self, flow_x, up_mask):
         disp_up = convex_upsample(flow_x[..., None], up_mask.float().permute(0, 2, 3, 1),
-                                  cfg.downsample_factor)
+                                  self.config.downsample_factor)
         lowres = torch.stack([flow_x, torch.zeros_like(flow_x)], dim=-1)
         return lowres, disp_up

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first CUDA use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/raft_stereo_tpu_torch/``
 at the root of the checkout, under a name that carries the hash of its
-source and flags (an edited source rebuilds), and loaded with ``ctypes``.
+source, of every ``csrc/*.cuh`` it includes (directly or through another
+header) and of the flags, so an edited source or header rebuilds; then it
+is loaded with ``ctypes``.
 Nothing is built when the package is imported.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +48,31 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, transitively,
+    in a fixed order."""
+    seen: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _ptxas_lines(log: str) -> List[str]:

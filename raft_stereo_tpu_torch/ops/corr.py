@@ -142,7 +142,8 @@ def make_corr_fn(backend: str, fmap1: torch.Tensor, fmap2: torch.Tensor,
         pyramid = [corr_volume(fmap1, f2p) for f2p in pool_fmap_pyramid(fmap2, num_levels)]
         return CorrFn(backend=backend, radius=radius, pyramid=pyramid)
     if backend in ("alt", "alt_pallas"):
-        pyramid = [f2p.float() for f2p in pool_fmap_pyramid(fmap2, num_levels)]
-        return CorrFn(backend=backend, radius=radius, fmap1=fmap1.float(),
+        # dense rows once here, so the kernels do not copy on every call
+        pyramid = [f2p.float().contiguous() for f2p in pool_fmap_pyramid(fmap2, num_levels)]
+        return CorrFn(backend=backend, radius=radius, fmap1=fmap1.float().contiguous(),
                       fmap2_pyramid=pyramid)
     raise ValueError(f"unknown corr backend {backend!r}")

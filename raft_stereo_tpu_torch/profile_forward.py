@@ -1,10 +1,11 @@
 """Where one test-mode forward spends its time on the card.
 
-    python -m raft_stereo_tpu_torch.profile_forward
+    python -m raft_stereo_tpu_torch.profile_forward [--fused_update]
 
-Builds the raftstereo-middlebury preset model (seeded random weights), runs
-one 544x960 pair (the padded 540x960 shape) for 32 iterations once to warm
-up, then once under ``torch.profiler``. Prints one JSON line: the forward's
+Builds the raftstereo-middlebury preset model (seeded random weights), with
+``--fused_update`` its fused refinement path, runs one 544x960 pair (the
+padded 540x960 shape) for 32 iterations once to warm up, then once under
+``torch.profiler``. Prints one JSON line: the forward's
 host-clock time, the summed device time and count of its kernels, the
 device's busy share of the forward, and the kernels that take the most
 device time.
@@ -13,6 +14,8 @@ Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import time
 
@@ -22,8 +25,10 @@ from raft_stereo_tpu_torch.config import PRESETS
 from raft_stereo_tpu_torch.evaluate import load_model
 
 
-def main(height: int = 544, width: int = 960, iters: int = 32, top: int = 15) -> dict:
-    model = load_model(PRESETS["raftstereo-middlebury"], seed=0)
+def main(height: int = 544, width: int = 960, iters: int = 32, top: int = 15,
+         fused_update: bool = False) -> dict:
+    cfg = dataclasses.replace(PRESETS["raftstereo-middlebury"], fused_update=fused_update)
+    model = load_model(cfg, seed=0)
     g = torch.Generator(device="cuda").manual_seed(0)
     a = torch.rand((1, height, width, 3), generator=g, device="cuda") * 255
     b = torch.rand((1, height, width, 3), generator=g, device="cuda") * 255
@@ -41,7 +46,7 @@ def main(height: int = 544, width: int = 960, iters: int = 32, top: int = 15) ->
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     res = {
         "device": torch.cuda.get_device_name(0),
-        "shape": [height, width], "iters": iters,
+        "shape": [height, width], "iters": iters, "fused_update": fused_update,
         "forward_ms": wall * 1e3,
         "device_kernel_ms": device_us / 1e3,
         "kernel_launches": sum(e.count for e in kernels),
@@ -56,4 +61,6 @@ def main(height: int = 544, width: int = 960, iters: int = 32, top: int = 15) ->
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--fused_update", action="store_true")
+    main(fused_update=parser.parse_args().fused_update)

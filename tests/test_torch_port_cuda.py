@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: the alt-correlation kernel against its
-plain version, the wrapper's checks and launch count, and the forward with
-the kernel against the forward with the plain lookup.
+"""The port's CUDA kernels on the card: the alt-correlation kernel (K1) and
+the fused refinement step (K2) against their plain versions, the wrappers'
+checks and launch counts, and the forwards with the kernels against the
+forwards with the plain versions.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -14,9 +15,11 @@ import dataclasses
 import pytest
 import torch
 
+from chip_smoke import k2_errors
 from raft_stereo_tpu_torch.config import PRESETS
 from raft_stereo_tpu_torch.evaluate import load_model
-from raft_stereo_tpu_torch.ops import alt_corr
+from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain, pool_fmap_pyramid
 
 pytestmark = pytest.mark.gpu
@@ -108,3 +111,109 @@ def test_forward_with_kernel_matches_plain_lookup(monkeypatch):
     low_p, up_p = model(a, b, iters=3)
     torch.testing.assert_close(low_k, low_p, rtol=1e-4, atol=2e-3)
     torch.testing.assert_close(up_k, up_p, rtol=1e-4, atol=5e-3)
+
+
+# K2 against its plain version. fp32: summation order only (TF32 off for
+# the plain version's convs; coordinates on a 1/64 grid, as for K1); the
+# tolerances of tests/test_fused_update.py. bf16: chip_smoke.py's check
+# (K2_BF16_TOL there), the one the smoke run holds the kernel to.
+K2_FP32_ATOL = {"h": 5e-5, "delta": 2e-4}
+
+
+def _fused_case(B, H, W, D, levels, radius, with_inp, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    block = BasicMultiUpdateBlock((128, 128, 128), 3 if with_inp else 1, 2, levels, radius)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(rnd(*p.shape, scale=0.1))
+    packed = fused_update.pack_fused_params(block.cuda(), dtype)
+    f1 = rnd(B, H, W, D, scale=0.5)
+    pyr = pool_fmap_pyramid(rnd(B, H, W, D, scale=0.5), levels)
+    flow = torch.round(rnd(B, H, W, scale=2.0) * 64) / 64
+    h = torch.tanh(rnd(B, H, W, 128)).to(dtype)
+    inp = rnd(B, H, W, 128, scale=0.5).to(dtype) if with_inp else None
+    ctx = rnd(B, H, W, 384, scale=0.5).to(dtype)
+    return packed, f1, pyr, flow, h, inp, ctx, radius
+
+
+@pytest.mark.parametrize(
+    "B,H,W,D,levels,radius,with_inp,dtype",
+    [(1, 10, 16, 32, 4, 4, True, torch.float32), (2, 37, 23, 64, 4, 4, True, torch.float32),
+     (1, 10, 16, 32, 4, 4, False, torch.float32), (1, 6, 77, 100, 3, 2, True, torch.float32),
+     (2, 37, 23, 64, 4, 4, True, torch.bfloat16), (1, 9, 40, 256, 4, 4, False, torch.bfloat16)],
+)
+def test_fused_kernel_matches_plain(monkeypatch, B, H, W, D, levels, radius, with_inp, dtype):
+    _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args = _fused_case(B, H, W, D, levels, radius, with_inp, dtype)
+    before = fused_update.LAUNCHES
+    h_k, d_k = fused_update.fused_refine_step(*args, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_update.LAUNCHES == before + 1
+    h_p, d_p = fused_update.reference_refine_step(*args, compute_dtype=dtype)
+    assert h_k.shape == (B, H, W, 128) and h_k.dtype == dtype
+    assert d_k.shape == (B, H, W) and d_k.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(h_k, h_p, rtol=0, atol=K2_FP32_ATOL["h"])
+        torch.testing.assert_close(d_k, d_p, rtol=0, atol=K2_FP32_ATOL["delta"])
+    else:
+        res = k2_errors((h_k, d_k), (h_p, d_p), dtype)
+        assert res["ok"], res
+
+
+@pytest.mark.parametrize(
+    "change,err",
+    [
+        (lambda a: (a[0], *a[1:4], a[4].double(), *a[5:]), TypeError),  # h not in fp32
+        (lambda a: (*a[:7], 5), ValueError),  # radius
+        (lambda a: (a[0], a[1][..., :6], [p[..., :6] for p in a[2]], *a[3:]), ValueError),
+        (lambda a: (a[0], a[1], [p.cpu() for p in a[2]], *a[3:]), ValueError),
+        (lambda a: (*a[:5], None, *a[6:]), ValueError),  # packed for inp16, none given
+        (lambda a: (a[0], *a[1:4], a[4][..., :96], a[5], a[6][..., :288], a[7]), ValueError),
+    ],
+)
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(change, err):
+    _cuda()
+    args = _fused_case(1, 4, 16, 32, 4, 4, True, torch.float32, seed=1)
+    before = fused_update.LAUNCHES
+    with pytest.raises(err):
+        fused_update.fused_refine_step(*change(args))
+    assert fused_update.LAUNCHES == before
+
+
+def test_fused_forward_matches_plain_step_forward(monkeypatch):
+    """fp32, TF32 off, few iterations: the fused path launches K2 for the
+    unmasked steps and K1 once, for the masked step."""
+    dev = _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(PRESETS["raftstereo-middlebury"], mixed_precision=False,
+                              fused_update=True)
+    model = load_model(cfg, seed=3)
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.rand((1, 64, 128, 3), generator=g, device=dev) * 255
+    b = torch.rand((1, 64, 128, 3), generator=g, device=dev) * 255
+    before = (fused_update.LAUNCHES, alt_corr.LAUNCHES)
+    low_k, up_k = model(a, b, iters=3)
+    assert (fused_update.LAUNCHES, alt_corr.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    monkeypatch.setattr(fused_update, "fused_refine_step", fused_update.reference_refine_step)
+    low_p, up_p = model(a, b, iters=3)
+    torch.testing.assert_close(low_k, low_p, rtol=1e-4, atol=2e-3)
+    torch.testing.assert_close(up_k, up_p, rtol=1e-4, atol=5e-3)
+
+
+def test_fused_early_exit_launches_once_a_step():
+    dev = _cuda()
+    cfg = dataclasses.replace(PRESETS["raftstereo-middlebury"], fused_update=True,
+                              converge_eps=1e9)
+    model = load_model(cfg, seed=4)
+    a = torch.full((1, 64, 96, 3), 100.0, device=dev)
+    before = fused_update.LAUNCHES
+    low, up, n = model(a, a, iters=5)
+    assert n == 2 and fused_update.LAUNCHES == before + 1
+    assert torch.isfinite(up).all()

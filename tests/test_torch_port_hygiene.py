@@ -10,6 +10,7 @@ import ast
 import json
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -70,6 +71,7 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "raft_stereo_tpu_torch.ops.alt_corr" in loaded
+    assert "raft_stereo_tpu_torch.ops.fused_update" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -134,3 +136,39 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_library_name_hashes_every_header_a_kernel_includes(tmp_path, monkeypatch):
+    """An edited header rebuilds every kernel that includes it, directly or
+    through another header, and no other (no nvcc needed: only the
+    library's name is computed)."""
+    from raft_stereo_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    assert [p.name for p in _build._sources("fused_update")] == [
+        "fused_update.cu", "alt_corr_lookup.cuh"]
+    names = ("alt_corr", "fused_update")
+
+    def paths():
+        return {k: _build._lib_path(k) for k in names}
+
+    before = paths()
+    (csrc / "unused.cuh").write_text("// included by no kernel\n")
+    assert paths() == before
+    header = csrc / "alt_corr_lookup.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    edited = paths()
+    assert all(edited[k] != before[k] for k in names)
+    src = csrc / "fused_update.cu"
+    src.write_text(src.read_text() + "// edited\n")
+    assert paths()["alt_corr"] == edited["alt_corr"]
+    assert paths()["fused_update"] != edited["fused_update"]
+    # through a header that includes another
+    (csrc / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// v1\n")
+    (csrc / "probe.cu").write_text('#include "outer.cuh"\n')
+    first = _build._lib_path("probe")
+    (csrc / "inner.cuh").write_text("// v2\n")
+    assert _build._lib_path("probe") != first
