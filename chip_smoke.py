@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
      K1 (alt lookup, also at the Middlebury-F width) and K2 (fused step,
      fp32 and bf16, with and without inp16, beside the unfused port step
      at the same shape); faults planted in copies of K2's source must fail
-     the bf16 check;
+     the bf16 check; K3 (the packed stage's 3x3x64 conv, fp32 and bf16,
+     with and without its prologue, beside cuDNN's conv at the same
+     shape), whose planted faults must fail the bf16 check too;
   4. main path: ``raft_stereo_tpu_torch.demo.main`` with the
      raftstereo-middlebury preset (full width, 32 iterations, seeded random
      weights) on four synthetic 540x960 pairs; checks the outputs and that
@@ -20,14 +22,21 @@ Phases, each printing one JSON line:
   5. main path, fused: the same with ``--fused_update``; every unmasked
      step goes through K2 (4 x 31) and the masked one's lookup through K1
      (4 x 1);
-  6. path parity: one pair through the fp32 forward (TF32 off), every
+  6. main path, realtime: the raftstereo-realtime preset (7 iterations)
+     on the same pairs, with the packed encoder stage off (4 x 7 K1
+     launches, no K3) and on (also 4 x 4 K3 launches: layer1's convs on the
+     stacked pair);
+  7. path parity: one pair through the fp32 forward (TF32 off), every
      lookup held to the plain version on the same inputs, and the whole
      forward with the kernel held to the forward with the plain lookup;
-  7. fused parity: the fp32 and the bf16 forward with ``fused_update``,
+  8. fused parity: the fp32 and the bf16 forward with ``fused_update``,
      every K2 step held to the plain step on the same inputs, and the fp32
      fused forward held to the unfused one;
-  8. early exit: the fused model with a ``converge_eps`` picked from the
-     per-step deltas of phase 7, which must stop where they say.
+  9. early exit: the fused model with a ``converge_eps`` picked from the
+     per-step deltas of phase 8, which must stop where they say;
+ 10. packed parity: the realtime forward with the packed stage, fp32 and
+     bf16, every K3 call held to the plain version on the same inputs, and
+     the fp32 forward held to the one without the stage.
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -86,6 +95,47 @@ K2_MUTANTS = (
     # the 3x3 convs read zeros for the image's top row (a local fault)
     ("top_row_dropped", "const bool valid = yy >= 0 &&", "const bool valid = yy >= 1 &&"),
 )
+# K3 against its plain version. fp32: summation order only over 576
+# products, held to K3_FP32_TOL times the output's scale (max(1, |plain|
+# max)); measured on an H100 at the encoder shape: 1.5e-6 of the scale.
+# bf16: kernel and plain round at the same points (the prologue after its
+# multiply and its add, the output once), the products of bf16 values are
+# exact in fp32, and the two fp32 sums differ only in order. So an element
+# differs by one bf16 ulp where the two sums straddle a rounding boundary,
+# plus the sums' own difference where the sum cancels to near zero (there
+# a bf16 ulp is smaller than that difference). Two orders of one fp32 sum
+# differ by a multiple of eps32 = 2^-24 times the sum of the magnitudes of
+# its terms, S = sum |x·w| (the conv of |prologue(x)| with |w|, computed
+# by the plain version), so each element is held to one ulp at its
+# magnitude plus K3_BF16_TOL["sum_eps"]·eps32·S, its own allowance. The
+# measured ratio, printed as "order_ratio", is (|got - plain| - ulp)/
+# (eps32·S) in bf16 and |got - plain|/(eps32·S) in fp32; on an H100 over
+# the four cases and along the realtime forward it reached 1.01 in bf16
+# (where the ulp hides most of the sums' difference) and 9.84 in fp32
+# (another pair of orders), so sum_eps is 32, about 3x the larger. The
+# share of elements that differ at all is held to 3x the largest share
+# measured over the four bf16 cases (0.033%). Each fault of K3_MUTANTS must
+# fail.
+K3_FP32_TOL = 2e-5
+K3_BF16_TOL = {"ulps": 1.0, "sum_eps": 32.0, "share": 0.001}
+# Faults planted in a copy of csrc/packed_conv.cu, each of which the bf16
+# check must catch on the prologue case: (name, source text, replacement).
+K3_MUTANTS = (
+    # the prologue also maps the SAME padding's zeros (to relu(shift))
+    ("prologue_on_padding",
+     "if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;  // padding: no prologue",
+     "// padding: prologue too"),
+    # x·scale kept in fp32 up to the add: one rounding instead of two
+    ("prologue_mul_rounding_skipped",
+     "float u = round_to<T>(__fmul_rn(to_f(v[e]), to_f(sc[lane + e])));",
+     "float u = __fmul_rn(to_f(v[e]), to_f(sc[lane + e]));"),
+    # the halo loader reads zeros for the image's bottom row (a local fault)
+    ("bottom_row_dropped",
+     "const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W;",
+     "const bool valid = yy >= 0 && yy < H - 1 && xx >= 0 && xx < W;"),
+)
+# Layer1's 3x3 convs a forward of the packed stage: 2 blocks x 2 convs.
+K3_PER_TRUNK = 4
 SEED = 0
 
 
@@ -119,9 +169,10 @@ def phase_device():
 
 
 def phase_build():
+    from raft_stereo_tpu_torch.experiments import packed_conv
     from raft_stereo_tpu_torch.ops import _build, alt_corr, fused_update
 
-    kernels = [alt_corr.KERNEL, fused_update.KERNEL]
+    kernels = [alt_corr.KERNEL, fused_update.KERNEL, packed_conv.KERNEL]
     t0 = time.perf_counter()
     _build.build(kernels)
     seconds = time.perf_counter() - t0
@@ -391,17 +442,28 @@ def phase_fused_check():
 
 
 def _k2_planted_faults(args, want, dtype, tmp: Path):
-    """Each fault of K2_MUTANTS, planted in a copy of the kernel's source
-    (built into ``tmp``, one ``nvcc`` each, all started together), run on
-    the same inputs and held to the same plain step: each must fail."""
+    """Each fault of K2_MUTANTS, run on the same inputs and held to the
+    same plain step: each must fail."""
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    return _planted_faults(fused_update, K2_MUTANTS,
+                           lambda: fused_update.fused_refine_step(*args, compute_dtype=dtype),
+                           lambda got: k2_errors(got, want, dtype), tmp)
+
+
+def _planted_faults(module, mutants, run, errors, tmp: Path):
+    """Each (name, text, replacement) of ``mutants`` planted in a copy of
+    ``module``'s kernel source (built into ``tmp``, one ``nvcc`` each, all
+    started together); ``run()`` calls the wrapper with the mutant bound
+    and ``errors(got)`` holds its result."""
     import ctypes
 
-    from raft_stereo_tpu_torch.ops import _build, fused_update
+    from raft_stereo_tpu_torch.ops import _build
 
-    src = (_build.CSRC_DIR / f"{fused_update.KERNEL}.cu").read_text()
+    src = (_build.CSRC_DIR / f"{module.KERNEL}.cu").read_text()
     procs = []
     try:
-        for name, old, new in K2_MUTANTS:
+        for name, old, new in mutants:
             if src.count(old) != 1:
                 raise AssertionError(f"planted fault {name}: its text is not in the source once")
             cu, so = tmp / f"{name}.cu", tmp / f"{name}.so"
@@ -410,7 +472,7 @@ def _k2_planted_faults(args, want, dtype, tmp: Path):
                    "-o", str(so), str(cu)]
             procs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                      stderr=subprocess.STDOUT, text=True)))
-        saved = (_build._libs.pop(fused_update.KERNEL, None), fused_update._fn)
+        saved = (_build._libs.pop(module.KERNEL, None), module._fn)
         faults = []
         try:
             for name, so, proc in procs:
@@ -418,21 +480,168 @@ def _k2_planted_faults(args, want, dtype, tmp: Path):
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed for planted fault {name}:\n{log}")
                 # the wrapper binds whatever library _build has loaded
-                _build._libs[fused_update.KERNEL] = ctypes.CDLL(str(so))
-                fused_update._fn = None
-                got = fused_update.fused_refine_step(*args, compute_dtype=dtype)
-                faults.append({"fault": name, **k2_errors(got, want, dtype)})
+                _build._libs[module.KERNEL] = ctypes.CDLL(str(so))
+                module._fn = None
+                faults.append({"fault": name, **errors(run())})
         finally:
-            _build._libs.pop(fused_update.KERNEL, None)
+            _build._libs.pop(module.KERNEL, None)
             if saved[0] is not None:
-                _build._libs[fused_update.KERNEL] = saved[0]
-            fused_update._fn = saved[1]
+                _build._libs[module.KERNEL] = saved[0]
+            module._fn = saved[1]
     finally:
         for _, _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     return faults
+
+
+def k3_inputs(B, H, W, dtype, prologue=None, seed=0):
+    """Seeded K3 arguments ``(xp, weight, scale, shift, relu_prologue)``:
+    unit-variance activations in ``dtype`` as the packed view of
+    channels-last storage, the conv weight at the port's init scale
+    (kaiming, fan_out 576) packed HWIO in ``dtype``, and for ``prologue`` "relu" (scale in
+    [0.5, 1.5) drawn per lane, so the two column parities differ, and a
+    positive shift, then relu) or "affine" (the same scale, a shift of
+    both signs, no relu)."""
+    import torch
+
+    from raft_stereo_tpu_torch.experiments.packed_conv import pack_weight, pack_x
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, H, W, 64), generator=g, device="cuda").to(dtype)
+    weight = torch.randn((64, 64, 3, 3), generator=g, device="cuda") * math.sqrt(2.0 / 576)
+    weight = pack_weight(weight, dtype)
+    scale = shift = None
+    if prologue is not None:
+        scale = 0.5 + torch.rand((B, 128), generator=g, device="cuda")
+        shift = torch.rand((B, 128), generator=g, device="cuda")
+        shift = 0.1 + 0.5 * shift if prologue == "relu" else shift - 0.5
+    return pack_x(x), weight, scale, shift, prologue == "relu"
+
+
+def _k3_work(xp, scale):
+    """Operations and bytes of one K3 call on these inputs, and the
+    card's least time for them: the products of the taps that fall inside
+    the image ((3H-2)(3W-2) (pixel, tap) pairs an image, 64x64 MACs each)
+    at the dtype's peak; the input, the weight, scale and shift read once
+    and the output written once."""
+    import torch
+
+    B, H, W2, _ = xp.shape
+    W = 2 * W2
+    esize = xp.element_size()
+    flops = 2 * 64 * 64 * B * (3 * H - 2) * (3 * W - 2)
+    n_bytes = esize * (2 * xp.numel() + 9 * 64 * 64 + (0 if scale is None else 2 * B * 128))
+    t_ops = 1e3 * flops / (BF16_FLOPS if xp.dtype == torch.bfloat16 else FP32_FLOPS)
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    return {"flops": flops, "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k3_abs_sums(xp, weight, scale=None, shift=None, relu_prologue=False):
+    """S = sum |x·w| over each output's 576 products, in fp32: the plain
+    conv of |prologue(x)| (the dtype's values) with |weight|."""
+    from raft_stereo_tpu_torch.experiments import packed_conv
+
+    x = xp if scale is None else packed_conv.prologue(xp, scale, shift, relu_prologue)
+    return packed_conv.packed_conv3x3_plain(x.abs().float(), weight.abs().float())
+
+
+def k3_errors(got, want, sums) -> dict:
+    """K3's output against the plain version's on the same inputs, and
+    whether they agree within K3_FP32_TOL or K3_BF16_TOL (by the dtype);
+    ``sums`` is :func:`k3_abs_sums` of those inputs."""
+    import torch
+
+    tiny = 1e-30  # keeps 0/0 at 0 where an allowance is 0
+    diff = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    unit = 2.0 ** -24 * sums  # eps32·S
+    res = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+           "max_abs_out": scale, "max_abs_sum": float(sums.max())}
+    if want.dtype == torch.float32:
+        res.update(tol=K3_FP32_TOL * max(1.0, scale),
+                   order_ratio=float((diff / unit.clamp_min(tiny)).max()))
+        res["ok"] = res["max_abs_err"] <= res["tol"]  # False on NaN
+        return res
+    # one bf16 ulp at each plain value's magnitude (values in
+    # [2^(e-1), 2^e) are 2^(e-8) apart; none at an exact zero), plus the
+    # element's own order allowance
+    w = want.float()
+    ulp = torch.where(w == 0, 0.0, torch.exp2((torch.frexp(w).exponent - 8).float()))
+    rounding = K3_BF16_TOL["ulps"] * ulp
+    tol = rounding + K3_BF16_TOL["sum_eps"] * unit
+    excess = (diff - rounding).clamp_min(0) / unit.clamp_min(tiny)
+    res.update(max_ulps=float(torch.where(ulp > 0, diff / ulp.clamp_min(tiny), 0.0).max()),
+               max_err_over_tol=float((diff / tol.clamp_min(tiny)).max()),
+               order_ratio=float(excess.max()), share=float((diff > 0).float().mean()),
+               tol_ulps=K3_BF16_TOL["ulps"], tol_sum_eps=K3_BF16_TOL["sum_eps"],
+               tol_share=K3_BF16_TOL["share"])
+    res["ok"] = res["max_err_over_tol"] <= 1.0 and res["share"] <= res["tol_share"]
+    return res
+
+
+# name, (B, H, W), prologue, reps
+K3_CASES = (
+    ("encoder_2x272x480", (2, 272, 480), None, 100),
+    ("encoder_prologue_relu", (2, 272, 480), "relu", 50),
+    ("encoder_prologue_affine", (2, 272, 480), "affine", 50),
+    ("ragged_b1_37x122", (1, 37, 122), "relu", 50),
+)
+
+
+def phase_packed_conv_check():
+    """K3 against its plain version on the card, each case in bf16 (the
+    preset's dtype) and fp32 (TF32 off); the first case is the realtime
+    main path's shape (the stacked 544x960 pair after the stride-2 stem).
+    Beside each: cuDNN's conv (``F.conv2d`` on the same channels-last
+    input, no prologue), the library call that computes K3's no-prologue
+    form. The bf16 check must fail every fault of K3_MUTANTS on the
+    prologue case."""
+    import torch
+    import torch.nn.functional as F
+
+    from raft_stereo_tpu_torch.experiments import packed_conv
+
+    checks, faults = [], []
+    with _fp32_checks(), tempfile.TemporaryDirectory(prefix="chip_smoke_k3_") as tmp:
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            for name, (B, H, W), prologue, reps in K3_CASES:
+                args = k3_inputs(B, H, W, dtype, prologue, seed=SEED + 20 + len(checks))
+                got = packed_conv.packed_conv3x3(*args)
+                torch.cuda.synchronize()
+                want = packed_conv.packed_conv3x3_plain(*args)
+                sums = k3_abs_sums(*args)
+                res = {"case": name, "shape": [B, H, W, 64], "dtype": dname,
+                       "prologue": prologue, **k3_errors(got, want, sums)}
+                if dtype == torch.bfloat16 and prologue == "relu" and not faults:
+                    faults = _planted_faults(packed_conv, K3_MUTANTS,
+                                             lambda: packed_conv.packed_conv3x3(*args),
+                                             lambda out: k3_errors(out, want, sums), Path(tmp))
+                res["ms"] = _time_ms(lambda: packed_conv.packed_conv3x3(*args), reps)
+                res["plain_ms"] = _time_ms(lambda: packed_conv.packed_conv3x3_plain(*args), 5,
+                                           warmup=1)
+                x = packed_conv.unpack_x(args[0]).permute(0, 3, 1, 2)  # channels-last NCHW
+                # the same weight as OIHW, laid out as cuDNN takes it (outside the timing,
+                # as K3's is)
+                w = args[1].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                res["library_ms"] = _time_ms(lambda: F.conv2d(x, w, padding=1), reps)
+                res["library_call"] = "torch.nn.functional.conv2d (cuDNN), no prologue"
+                res.update(_k3_work(args[0], args[2]))
+                emit({"phase": "kernel_check", "kernel": "packed_conv", **res})
+                checks.append(res)
+                del args, got, want, sums, x, w
+                torch.cuda.empty_cache()
+    emit({"phase": "k3_planted_faults", "case": "encoder_prologue_relu bfloat16", "faults": faults})
+    bad = [f"{c['case']} {c['dtype']}" for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"packed_conv disagrees with its plain version in {bad}")
+    missed = [f["fault"] for f in faults if f["ok"]]
+    if len(faults) != len(K3_MUTANTS) or missed:
+        raise AssertionError(f"the bf16 K3 check passes the planted faults {missed}")
+    return checks
 
 
 def _unfused_step(block, args, dtype):
@@ -481,20 +690,26 @@ def _write_pairs(root: Path, n: int, H: int = 540, W: int = 960, seed: int = SEE
         Image.fromarray(np.ascontiguousarray(right)).save(pair / "im1.png")
 
 
-def phase_main_path(tmp: Path, fused: bool = False, n_pairs: int = 4, iters: int = 32):
-    """The port's demo entry point, raftstereo-middlebury preset; with
-    ``fused`` also ``--fused_update``. Every kernel count is set to 0 just
-    before the run and read just after."""
+def phase_main_path(tmp: Path, fused: bool = False, n_pairs: int = 4, iters: int = 32,
+                    preset: str = "raftstereo-middlebury", packed: bool = False):
+    """The port's demo entry point with ``preset``; with ``fused`` also
+    ``--fused_update``, with ``packed`` the packed encoder stage
+    (``models.extractor._ENABLE_PACKED``, put back afterwards). Every
+    kernel count is set to 0 just before the run and read just after."""
     import numpy as np
     import torch
 
     from raft_stereo_tpu_torch import demo
+    from raft_stereo_tpu_torch.experiments import packed_conv
+    from raft_stereo_tpu_torch.models import extractor
     from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 
-    data, out = tmp / "pairs", tmp / ("out_fused" if fused else "out")
+    name = "main_path" + ("_realtime" if preset == "raftstereo-realtime" else "")
+    name += ("_fused" if fused else "") + ("_packed" if packed else "")
+    data, out = tmp / "pairs", tmp / f"out_{name}"
     if not data.exists():
         _write_pairs(data, n_pairs)
-    argv = ["--preset", "raftstereo-middlebury", "--valid_iters", str(iters),
+    argv = ["--preset", preset, "--valid_iters", str(iters),
             "--left_imgs", str(data / "*" / "im0.png"),
             "--right_imgs", str(data / "*" / "im1.png"),
             "--output_directory", str(out), "--save_numpy"]
@@ -502,18 +717,26 @@ def phase_main_path(tmp: Path, fused: bool = False, n_pairs: int = 4, iters: int
         argv.append("--fused_update")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    alt_corr.LAUNCHES = fused_update.LAUNCHES = 0
-    t0 = time.perf_counter()
-    seconds = demo.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"alt_corr": alt_corr.LAUNCHES, "fused_update": fused_update.LAUNCHES}
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = packed
+    try:
+        alt_corr.LAUNCHES = fused_update.LAUNCHES = packed_conv.LAUNCHES = 0
+        t0 = time.perf_counter()
+        seconds = demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"alt_corr": alt_corr.LAUNCHES, "fused_update": fused_update.LAUNCHES,
+                    "packed_conv": packed_conv.LAUNCHES}
+    finally:
+        extractor._ENABLE_PACKED = saved
     peak = torch.cuda.max_memory_allocated()
 
     if len(seconds) != n_pairs:
         raise AssertionError(f"demo served {len(seconds)} pairs, expected {n_pairs}")
     want = ({"alt_corr": n_pairs, "fused_update": n_pairs * (iters - 1)} if fused
             else {"alt_corr": n_pairs * iters, "fused_update": 0})
+    # the realtime preset's shared backbone: one packed trunk a stacked pair
+    want["packed_conv"] = n_pairs * K3_PER_TRUNK if packed else 0
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     for k in range(n_pairs):
@@ -524,9 +747,9 @@ def phase_main_path(tmp: Path, fused: bool = False, n_pairs: int = 4, iters: int
             raise AssertionError(f"pair{k}.png missing")
     steady = seconds[1:] or seconds
     res = {
-        "phase": "main_path_fused" if fused else "main_path",
-        "entry": "raft_stereo_tpu_torch.demo.main", "preset": "raftstereo-middlebury",
-        "fused_update": fused, "pairs": n_pairs, "input": [540, 960],
+        "phase": name,
+        "entry": "raft_stereo_tpu_torch.demo.main", "preset": preset,
+        "fused_update": fused, "packed_stage": packed, "pairs": n_pairs, "input": [540, 960],
         "padded": [544, 960], "iters": iters, "launches": launches,
         "first_pair_ms": seconds[0] * 1e3,
         "ms_per_pair": 1e3 * sum(steady) / len(steady),
@@ -561,16 +784,17 @@ def _fp32_checks():
     compare a kernel with its plain version do not count."""
     import torch
 
+    from raft_stereo_tpu_torch.experiments import packed_conv
     from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-             alt_corr.LAUNCHES, fused_update.LAUNCHES)
+             alt_corr.LAUNCHES, fused_update.LAUNCHES, packed_conv.LAUNCHES)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         alt_corr.LAUNCHES, fused_update.LAUNCHES) = saved
+         alt_corr.LAUNCHES, fused_update.LAUNCHES, packed_conv.LAUNCHES) = saved
 
 
 def _ulp32(x: float) -> float:
@@ -845,6 +1069,109 @@ def phase_early_exit(tmp: Path, dnorms, iters: int = 32):
     return res
 
 
+def phase_parity_packed(tmp: Path, iters: int = 7, iters_checked: int = 2):
+    """The raftstereo-realtime forward with the packed stage on one pair.
+
+    (a) Each K3 call of the fp32 forward (TF32 off) and of the preset's
+    bf16 forward is also run through the plain version on the same inputs
+    and held to ``k3_errors``.
+    (b) The fp32 forward with the stage is held to the forward without it
+    after ``iters_checked`` iterations (PARITY_ATOL_*); random weights do
+    not contract, so the difference is printed for 1, 2 and 7 iterations.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.experiments import packed_conv
+    from raft_stereo_tpu_torch.models import extractor
+
+    preset = PRESETS["raftstereo-realtime"]
+    model = load_model(dataclasses.replace(preset, mixed_precision=False), device="cuda",
+                       seed=SEED)
+    a, b = _first_pair(tmp)
+    kernel = packed_conv.packed_conv3x3
+    calls = []
+
+    def checked(xp, weight, scale=None, shift=None, relu_prologue=False):
+        got = kernel(xp, weight, scale, shift, relu_prologue)
+        want = packed_conv.packed_conv3x3_plain(xp, weight, scale, shift, relu_prologue)
+        sums = k3_abs_sums(xp, weight, scale, shift, relu_prologue)
+        calls.append({"dtype": str(xp.dtype).removeprefix("torch."),
+                      "shape": list(xp.shape), **k3_errors(got, want, sums)})
+        return got
+
+    runs = {}
+    saved = extractor._ENABLE_PACKED
+    with _fp32_checks():
+        try:
+            extractor._ENABLE_PACKED = True
+            packed_conv.packed_conv3x3 = checked
+            model(a, b, iters=1)
+            bf16_model = load_model(preset, device="cuda", seed=SEED)
+            bf16_model(a, b, iters=1)  # K3 runs in the encoder, before the iterations
+            del bf16_model
+            packed_conv.packed_conv3x3 = kernel
+            for n in (1, iters_checked, iters):
+                if n in runs:
+                    continue
+                extractor._ENABLE_PACKED = True
+                before = packed_conv.LAUNCHES
+                low_k, up_k = model(a, b, iters=n)
+                if packed_conv.LAUNCHES - before != K3_PER_TRUNK:
+                    raise AssertionError(f"packed forward launched packed_conv "
+                                         f"{packed_conv.LAUNCHES - before} times, "
+                                         f"expected {K3_PER_TRUNK}")
+                extractor._ENABLE_PACKED = False
+                low_p, up_p = model(a, b, iters=n)
+                runs[n] = [t.cpu().numpy() for t in (low_k, low_p, up_k, up_p)]
+        finally:
+            packed_conv.packed_conv3x3 = kernel
+            extractor._ENABLE_PACKED = saved
+    growth = {}
+    for n, (lk, lp, uk, up) in runs.items():
+        if not (np.isfinite(uk).all() and np.isfinite(up).all()):
+            raise AssertionError(f"non-finite disparity in the packed parity forwards at {n} iterations")
+        growth[str(n)] = {"max_abs_err_lowres": float(np.abs(lk - lp).max()),
+                          "max_abs_err_up": float(np.abs(uk - up).max()),
+                          "max_abs_disp": float(np.abs(up).max())}
+    lk, lp, uk, up = runs[iters_checked]
+    fp32 = [c for c in calls if c["dtype"] == "float32"]
+    bf16 = [c for c in calls if c["dtype"] == "bfloat16"]
+    res = {"phase": "parity_realtime_packed", "cudnn_allow_tf32": False,
+           "matmul_allow_tf32": False, "shape": list(uk.shape),
+           "k3_calls_checked": {"float32": len(fp32), "bfloat16": len(bf16)},
+           "k3_fp32_max_abs_err": max(c["max_abs_err"] for c in fp32),
+           "k3_fp32_worst_err_over_tol": max(c["max_abs_err"] / c["tol"] for c in fp32),
+           "k3_bf16_max_ulps": max(c["max_ulps"] for c in bf16),
+           "k3_bf16_max_share": max(c["share"] for c in bf16),
+           "k3_bf16_max_order_ratio": max(c["order_ratio"] for c in bf16),
+           "k3_calls": calls, "iters_checked": iters_checked, **growth[str(iters_checked)],
+           "by_iters": growth, "atol_lowres": PARITY_ATOL_LOWRES, "atol_up": PARITY_ATOL_UP,
+           "rtol": PARITY_RTOL}
+    emit(res)
+    if len(fp32) != K3_PER_TRUNK or len(bf16) != K3_PER_TRUNK:
+        raise AssertionError(f"{len(fp32)} fp32 and {len(bf16)} bf16 K3 calls checked, "
+                             f"expected {K3_PER_TRUNK} each")
+    bad = [f"{c['dtype']} {i}" for i, c in enumerate(calls) if not c["ok"]]
+    if bad:
+        raise AssertionError(f"packed_conv disagrees with its plain version at calls {bad}")
+    np.testing.assert_allclose(lk, lp, atol=PARITY_ATOL_LOWRES, rtol=PARITY_RTOL)
+    np.testing.assert_allclose(uk, up, atol=PARITY_ATOL_UP, rtol=PARITY_RTOL)
+    return res
+
+
+# The kernels each main path must launch.
+PATH_KERNELS = {
+    "main_path": ("alt_corr",),
+    "main_path_fused": ("alt_corr", "fused_update"),
+    "main_path_realtime": ("alt_corr",),
+    "main_path_realtime_packed": ("alt_corr", "packed_conv"),
+}
+
+
 def main() -> int:
     import torch
 
@@ -856,18 +1183,25 @@ def main() -> int:
     phase_build()
     checks = phase_kernel_check()
     fused_checks = phase_fused_check()
+    k3_checks = phase_packed_conv_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_res = phase_main_path(Path(tmp))
-        fused_res = phase_main_path(Path(tmp), fused=True)
+        paths = [
+            phase_main_path(Path(tmp)),
+            phase_main_path(Path(tmp), fused=True),
+            phase_main_path(Path(tmp), iters=7, preset="raftstereo-realtime"),
+            phase_main_path(Path(tmp), iters=7, preset="raftstereo-realtime", packed=True),
+        ]
         phase_parity(Path(tmp))
         dnorms = phase_parity_fused(Path(tmp))
         phase_early_exit(Path(tmp), dnorms)
-    by_path = {"main_path": main_res["launches"], "main_path_fused": fused_res["launches"]}
+        phase_parity_packed(Path(tmp))
+    by_path = {r["phase"]: r["launches"] for r in paths}
     for path, counts in by_path.items():
-        used = ["alt_corr", "fused_update"] if path == "main_path_fused" else ["alt_corr"]
-        if any(counts[k] < 1 for k in used):
+        if any(counts[k] < 1 for k in PATH_KERNELS[path]):
             raise AssertionError(f"{path}: a kernel of the path never launched: {counts}")
-    k1, k2 = checks[0], fused_checks[0]  # the main paths' shapes (K2: bf16, the preset's)
+    main_res, fused_res = paths[0], paths[1]
+    # the main paths' shapes (K2, K3: bf16, the presets' dtype)
+    k1, k2, k3 = checks[0], fused_checks[0], k3_checks[0]
     emit({"kernels": [
         {
             "name": "alt_corr", "route": "cuda",
@@ -893,6 +1227,18 @@ def main() -> int:
             "bound_by": k2["bound_by"], "library_ms": None,
             "unfused_port_step_ms": k2["unfused_port_step_ms"],
             "checks": fused_checks,
+        },
+        {
+            "name": "packed_conv", "route": "cuda",
+            "source": "raft_stereo_tpu_torch/csrc/packed_conv.cu",
+            "replaces": "raft_stereo_tpu/experiments/pallas_packed_conv.py:46",
+            "launches": by_path["main_path_realtime_packed"]["packed_conv"],
+            "launches_by_path": {p: c["packed_conv"] for p, c in by_path.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in k3_checks),
+            "tol": {"float32": f"{K3_FP32_TOL} x max(1, |plain| max)", "bfloat16": K3_BF16_TOL},
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+            "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+            "library_call": k3["library_call"], "checks": k3_checks,
         },
     ]})
     print(dev["smi"], flush=True)

@@ -12,7 +12,15 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from raft_stereo_tpu_torch.experiments import packed_encoder
 from raft_stereo_tpu_torch.models.layers import ResidualBlock, conv, make_norm
+
+# The packed encoder stage (experiments/packed_encoder.py) is off by
+# default, as in the JAX package. With _ENABLE_PACKED set, a trunk whose
+# geometry passes the JAX package's gate runs stem, norm1 and layer1
+# channels-last with layer1's 3x3 convs through the CUDA kernel K3. The
+# flag is read at forward time; the parameters are the same either way.
+_ENABLE_PACKED = False
 
 
 class _Trunk(nn.Module):
@@ -39,8 +47,11 @@ class _Trunk(nn.Module):
         return nn.Sequential(*layers)
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.relu1(self.norm1(self.conv1(x)))
-        return self.layer3(self.layer2(self.layer1(x)))
+        if _ENABLE_PACKED and packed_encoder.packable(x, self.norm_fn, self.conv1.stride[0]):
+            x = packed_encoder.packed_stage(self, x)
+        else:
+            x = self.layer1(self.relu1(self.norm1(self.conv1(x))))
+        return self.layer3(self.layer2(x))
 
 
 class BasicEncoder(_Trunk):

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: the alt-correlation kernel (K1) and
-the fused refinement step (K2) against their plain versions, the wrappers'
-checks and launch counts, and the forwards with the kernels against the
-forwards with the plain versions.
+"""The port's CUDA kernels on the card: the alt-correlation kernel (K1), the
+fused refinement step (K2) and the packed stage's 3x3x64 conv (K3) against
+their plain versions, the wrappers' checks and launch counts, and the
+forwards with the kernels against the forwards with the plain versions.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -15,9 +15,11 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import k2_errors
+from chip_smoke import K3_PER_TRUNK, k2_errors, k3_abs_sums, k3_errors, k3_inputs
 from raft_stereo_tpu_torch.config import PRESETS
 from raft_stereo_tpu_torch.evaluate import load_model
+from raft_stereo_tpu_torch.experiments import packed_conv
+from raft_stereo_tpu_torch.models import extractor
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
 from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain, pool_fmap_pyramid
@@ -217,3 +219,74 @@ def test_fused_early_exit_launches_once_a_step():
     low, up, n = model(a, a, iters=5)
     assert n == 2 and fused_update.LAUNCHES == before + 1
     assert torch.isfinite(up).all()
+
+
+# K3 against its plain version, held by chip_smoke.k3_errors (the check the
+# smoke run holds it to): fp32 summation order only, bf16 within one ulp
+# plus each element's own order allowance, with a bounded share of
+# differing elements.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,H,W,prologue",
+    [(2, 12, 128, None), (2, 12, 128, "relu"), (1, 9, 64, "affine"), (1, 37, 122, "relu"),
+     (3, 5, 6, None), (1, 3, 34, "relu")],
+)
+def test_packed_conv_matches_plain(monkeypatch, B, H, W, prologue, dtype):
+    _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    args = k3_inputs(B, H, W, dtype, prologue, seed=B * H + W)
+    before = packed_conv.LAUNCHES
+    got = packed_conv.packed_conv3x3(*args)
+    torch.cuda.synchronize()
+    assert packed_conv.LAUNCHES == before + 1
+    assert got.shape == (B, H, W // 2, 128) and got.dtype == dtype
+    res = k3_errors(got, packed_conv.packed_conv3x3_plain(*args), k3_abs_sums(*args))
+    assert res["ok"], res
+
+
+def test_packed_conv_prologue_takes_64_or_128_lanes():
+    _cuda()
+    xp, w, scale, shift, _ = k3_inputs(1, 6, 40, torch.float32, "affine", seed=7)
+    tiled = packed_conv.packed_conv3x3(xp, w, scale[:, :64].repeat(1, 2), shift[:, :64].repeat(1, 2))
+    half = packed_conv.packed_conv3x3(xp, w, scale[:, :64], shift[:, :64])
+    torch.testing.assert_close(half, tiled, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "make,err",
+    [
+        (lambda xp, w: (xp[..., :96], w), ValueError),  # C = 48, not 64
+        (lambda xp, w: (packed_conv.pack_x(packed_conv.unpack_x(xp)[:, :, :-1]), w),
+         ValueError),  # odd W
+        (lambda xp, w: (xp.half(), w), TypeError),
+        (lambda xp, w: (xp.double(), w), TypeError),
+        (lambda xp, w: (xp, w[:, :, :32]), ValueError),
+        (lambda xp, w: (xp, w.float()), TypeError),  # not in xp's dtype
+        (lambda xp, w: (xp, w.cpu()), ValueError),
+    ],
+)
+def test_packed_conv_refuses_what_the_kernel_does_not_take(make, err):
+    _cuda()
+    xp, w, _, _, _ = k3_inputs(1, 4, 16, torch.bfloat16, seed=8)
+    before = packed_conv.LAUNCHES
+    with pytest.raises(err):
+        packed_conv.packed_conv3x3(*make(xp, w))
+    assert packed_conv.LAUNCHES == before
+
+
+def test_packed_forward_launches_k3_four_times_a_pair(monkeypatch):
+    """The realtime preset with the packed stage: layer1's 4 convs of the
+    shared trunk on the stacked pair go through K3; the stage off, none."""
+    dev = _cuda()
+    model = load_model(PRESETS["raftstereo-realtime"], seed=5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.rand((1, 64, 128, 3), generator=g, device=dev) * 255
+    b = torch.rand((1, 64, 128, 3), generator=g, device=dev) * 255
+    before = packed_conv.LAUNCHES
+    _, up_off = model(a, b, iters=2)
+    assert packed_conv.LAUNCHES == before
+    monkeypatch.setattr(extractor, "_ENABLE_PACKED", True)
+    for _ in range(2):
+        _, up_on = model(a, b, iters=2)
+    assert packed_conv.LAUNCHES == before + 2 * K3_PER_TRUNK
+    assert torch.isfinite(up_on).all() and up_on.shape == up_off.shape
