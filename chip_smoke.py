@@ -5,16 +5,20 @@
 Phases, each printing one JSON line:
   1. device: the card's name, count and power limit; fails without a card;
   2. build: compiles every CUDA kernel of the port from ``csrc/``, one
-     ``nvcc`` each, all started together;
+     ``nvcc`` each, all started together, and reports what ``-Xptxas -v``
+     says of K2's and K3's wgmma kernels (registers, shared memory,
+     spills, the compiler's notes);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card (TF32 off), at the shapes the main paths give it and at a few
      ragged ones, with timings and the card's bound for the same work:
      K1 (alt lookup, also at the Middlebury-F width) and K2 (fused step,
      fp32 and bf16, with and without inp16, beside the unfused port step
-     at the same shape); faults planted in copies of K2's source must fail
-     the bf16 check; K3 (the packed stage's 3x3x64 conv, fp32 and bf16,
-     with and without its prologue, beside cuDNN's conv at the same
-     shape), whose planted faults must fail the bf16 check too;
+     at the same shape; on the slice case each of its 7 launches timed
+     under torch.profiler, each conv launch beside its own bound and
+     cuDNN's conv at its channel counts); faults planted in copies of K2's
+     source must fail the bf16 check; K3 (the packed stage's 3x3x64 conv,
+     fp32 and bf16, with and without its prologue, beside cuDNN's conv at
+     the same shape), whose planted faults must fail the bf16 check too;
   4. main path: ``raft_stereo_tpu_torch.demo.main`` with the
      raftstereo-middlebury preset (full width, 32 iterations, seeded random
      weights) on four synthetic 540x960 pairs; checks the outputs and that
@@ -75,25 +79,28 @@ PARITY_RTOL = 1e-4
 # kernel raises, and to a max that catches a local fault; delta to three
 # bf16 ulps of its largest magnitude. On an H100 at the slice shape and
 # along the preset's bf16 forward: at most 1.6% of h' differing, by at
-# most 0.137; delta within 1.5 ulps. Each fault of K2_MUTANTS must fail.
+# most 0.137; delta within 1.5 ulps (the WMMA convs); with the wgmma convs
+# at most 1.22%, 0.145 and 1.6 ulps, so the limits stand. Each fault of
+# K2_MUTANTS must fail.
 K2_FP32_TOL = {"h": 1e-4, "delta_rel": 2e-4}
 K2_BF16_TOL = {"h": 2.0 ** -2, "h_share": 0.03, "delta_ulps": 3.0}
 # Faults planted in a copy of csrc/fused_update.cu, each of which the bf16
 # check must catch: (name, source text, replacement).
 K2_MUTANTS = (
-    # the GRU convs read zeros for inp16's first 32 channels
+    # the bf16 GRU convs read zeros for inp16's first 32 channels
     ("inp16_chunk_dropped",
-     "const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W;",
-     "const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W && !(s == 2 && g < BK);"),
+     "const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;",
+     "const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W"
+     " && !(args.nseg == 3 && k.src == args.seg[2].ptr && k.ch + ch < 32);"),
     # convf1 reads the fp32 flow instead of its rounding to T
     ("flow_cast_skipped",
      "round_to<T>(__ldg(flow + p + dy * W + dx))", "__ldg(flow + p + dy * W + dx)"),
-    # the z gate rounded to T before the blend
+    # the z gate rounded to bf16 before the blend
     ("z_cast_added",
-     "args.z[pm * dh + nn] = sigmoid(v + to_f(ctx[nn]));",
-     "args.z[pm * dh + nn] = round_to<T>(sigmoid(v + to_f(ctx[nn])));"),
-    # the 3x3 convs read zeros for the image's top row (a local fault)
-    ("top_row_dropped", "const bool valid = yy >= 0 &&", "const bool valid = yy >= 1 &&"),
+     "for (int e = 0; e < 8; ++e) zz[e] = sigmoid_fast(o[e] + g[e]);",
+     "for (int e = 0; e < 8; ++e) zz[e] = round_to<bf16>(sigmoid_fast(o[e] + g[e]));"),
+    # the bf16 3x3 convs read zeros for the image's top row (a local fault)
+    ("top_row_dropped", "const bool inside = yy >= 0 &&", "const bool inside = yy >= 1 &&"),
 )
 # K3 against its plain version. fp32: summation order only over 576
 # products, held to K3_FP32_TOL times the output's scale (max(1, |plain|
@@ -111,11 +118,11 @@ K2_MUTANTS = (
 # measured ratio, printed as "order_ratio", is (|got - plain| - ulp)/
 # (eps32·S) in bf16 and |got - plain|/(eps32·S) in fp32; on an H100 over
 # the four cases and along the realtime forward it reached 1.01 in bf16
-# (where the ulp hides most of the sums' difference) and 9.84 in fp32
-# (another pair of orders), so sum_eps is 32, about 3x the larger. The
-# share of elements that differ at all is held to 3x the largest share
-# measured over the four bf16 cases (0.033%). Each fault of K3_MUTANTS must
-# fail.
+# (where the ulp hides most of the sums' difference; the WMMA kernel and
+# the wgmma one alike) and 9.84 in fp32 (another pair of orders), so
+# sum_eps is 32, about 3x the larger. The share of elements that differ at
+# all is held to 3x the largest share measured over the four bf16 cases
+# (0.033%, both kernels). Each fault of K3_MUTANTS must fail.
 K3_FP32_TOL = 2e-5
 K3_BF16_TOL = {"ulps": 1.0, "sum_eps": 32.0, "share": 0.001}
 # Faults planted in a copy of csrc/packed_conv.cu, each of which the bf16
@@ -123,16 +130,17 @@ K3_BF16_TOL = {"ulps": 1.0, "sum_eps": 32.0, "share": 0.001}
 K3_MUTANTS = (
     # the prologue also maps the SAME padding's zeros (to relu(shift))
     ("prologue_on_padding",
-     "if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;  // padding: no prologue",
-     "// padding: prologue too"),
+     "if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;  // the SAME padding stays zero",
+     "// the SAME padding mapped too"),
     # x·scale kept in fp32 up to the add: one rounding instead of two
     ("prologue_mul_rounding_skipped",
-     "float u = round_to<T>(__fmul_rn(to_f(v[e]), to_f(sc[lane + e])));",
-     "float u = __fmul_rn(to_f(v[e]), to_f(sc[lane + e]));"),
-    # the halo loader reads zeros for the image's bottom row (a local fault)
+     "float u = round_to<bf16>(__fmul_rn(__bfloat162float(v[e]), __bfloat162float(sc[lane + e])));",
+     "float u = __fmul_rn(__bfloat162float(v[e]), __bfloat162float(sc[lane + e]));"),
+    # the halo's tensor map reads zeros for the image's bottom row (a local
+    # fault: that row taken for padding)
     ("bottom_row_dropped",
-     "const bool valid = yy >= 0 && yy < H && xx >= 0 && xx < W;",
-     "const bool valid = yy >= 0 && yy < H - 1 && xx >= 0 && xx < W;"),
+     "const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)B};",
+     "const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)a.W, (cuuint64_t)a.H - 1, (cuuint64_t)B};"),
 )
 # Layer1's 3x3 convs a forward of the packed stage: 2 blocks x 2 convs.
 K3_PER_TRUNK = 4
@@ -168,7 +176,53 @@ def phase_device():
     return dev
 
 
+def _demangle(names):
+    """C++ names as c++filt gives them (unchanged where it is missing)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_table(lines):
+    """Each entry function of ``nvcc -Xptxas -v`` output: its registers,
+    static shared memory, spill stores and loads, and the compiler's notes
+    (e.g. wgmma serialisation)."""
+    table, fn, notes = [], None, {}
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = {"function": m[1], "registers": None, "static_smem": 0,
+                  "spill_stores": 0, "spill_loads": 0}
+            table.append(fn)
+            continue
+        m = re.search(r"\((C\d+)\) .* in (?:the )?function '([^']+)'", ln)
+        if m:  # ptxas may print a function's notes before its entry
+            notes.setdefault(m[2], set()).add(m[1])
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            fn["spill_stores"], fn["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            fn["registers"] = int(m[1])
+            sm = re.search(r"(\d+) bytes smem", ln)
+            fn["static_smem"] = int(sm[1]) if sm else 0
+    for f, name in zip(table, _demangle([f["function"] for f in table])):
+        f["notes"] = sorted(notes.get(f["function"], ()))
+        f["function"] = name
+    return table
+
+
 def phase_build():
+    """Builds the kernels; the line gives, for each of K2's and K3's wgmma
+    kernels, what ``-Xptxas -v`` says (registers, spills, notes) and the
+    dynamic shared memory it launches with, and for every kernel its
+    register counts."""
     from raft_stereo_tpu_torch.experiments import packed_conv
     from raft_stereo_tpu_torch.ops import _build, alt_corr, fused_update
 
@@ -176,16 +230,23 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build(kernels)
     seconds = time.perf_counter() - t0
-    regs = {}
+    regs, sm90 = {}, {}
     for name in kernels:
-        regs[name] = sorted({ln.split("Used ")[1].split(",")[0]
-                             for ln in _build.BUILD_INFO[name]["ptxas"] if "Used " in ln})
-        for line in _build.BUILD_INFO[name]["ptxas"]:
-            if re.search(r"[1-9][0-9]* bytes spill", line):
-                print(line, flush=True)
+        table = ptxas_table(_build.BUILD_INFO[name]["ptxas"])
+        regs[name] = sorted({f["registers"] for f in table if f["registers"] is not None})
+        sm90[name] = [f for f in table if "_sm90" in f["function"]]
+        for f in table:
+            if f["spill_stores"] or f["spill_loads"]:
+                print(f"spills: {f}", flush=True)
+    lib_fused, lib_packed = _build.load(fused_update.KERNEL), _build.load(packed_conv.KERNEL)
+    for f in sm90[fused_update.KERNEL]:
+        m = re.search(r"conv_sm90<(\d+)", f["function"])
+        f["dynamic_smem"] = lib_fused.fused_update_conv_smem(int(m[1])) if m else None
+    for f in sm90[packed_conv.KERNEL]:
+        f["dynamic_smem"] = lib_packed.packed_conv_smem()
     emit({"phase": "build", "kernels": kernels, "seconds": seconds,
           "nvcc_seconds": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
-          "registers": regs})
+          "registers": regs, "wgmma_kernels": sm90})
 
 
 def _alt_inputs(B, H, W1, D, levels, seed):
@@ -388,6 +449,91 @@ def k2_errors(got, want, dtype) -> dict:
                    h_share=share, tol_h_share=K2_BF16_TOL["h_share"])
         ok = share <= K2_BF16_TOL["h_share"]
     res["ok"] = ok and err_h <= res["tol_h"] and err_d <= res["tol_delta"]  # False on NaN
+    return res
+
+
+# K2's five conv launches at the slice shape (dh 128, 128 inp16 channels):
+# name, the bf16 kernel each runs as the profiler names it (N, epilogue),
+# input and output channels, groups, and the bytes a pixel that the launch
+# must read and write once (inputs, ctx, h, z; outputs).
+K2_CONVS = (
+    ("convc2|convf2", "conv_sm90<128, 0>", 128, 128, 2, 2 * 128, 2 * 128),
+    ("motion", "conv_sm90<128, 1>", 128, 128, 1, 2 * 128 + 4, 2 * 128),
+    ("z|r", "conv_sm90<256, 2>", 384, 256, 1, 2 * 384 + 2 * 256, 4 * 128 + 2 * 128),
+    ("q", "conv_sm90<128, 3>", 384, 128, 1, 2 * 384 + 2 * 128 + 2 * 128 + 4 * 128, 2 * 128),
+    ("flow_head_conv1", "conv_sm90<256, 0>", 128, 256, 1, 2 * 128, 2 * 256),
+)
+
+
+def _device_ms_by_kernel(run, reps):
+    """torch.profiler over ``reps`` calls of ``run``: device ms a launch by
+    kernel name, for the kernels launched at least once a call (empty if
+    the profiler saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+        if us > 0 and e.count >= reps and "Memcpy" not in e.key and "Memset" not in e.key:
+            out[e.key] = us / e.count / 1e3
+    return out
+
+
+def phase_k2_launches(reps: int = 20):
+    """K2's 7 launches on the slice case (bf16, inp16), timed one by one:
+    device ms each (torch.profiler, grouped by kernel name); for each conv
+    launch its own bound and, as a yardstick the port never calls, cuDNN's
+    F.conv2d at the same channel counts (channels-last bf16, no epilogue).
+    Run after the other kernels' timings, so that the profiler cannot slow
+    them."""
+    import torch
+    import torch.nn.functional as F
+
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    dtype = torch.bfloat16
+    _, args = _fused_inputs(1, 136, 240, 256, 4, 4, True, dtype, seed=SEED + 10)
+    with _fp32_checks():
+        times = _device_ms_by_kernel(
+            lambda: fused_update.fused_refine_step(*args, compute_dtype=dtype), reps)
+    B, H, W, _ = args[1].shape
+    P = B * H * W
+    launches = {}
+    for key, ms in times.items():
+        m = re.search(r"conv_sm90<[^0-9>]*(\d+)[^0-9>]+(\d+)>", key)
+        name = next((c[0] for c in K2_CONVS if m and c[1] == f"conv_sm90<{m[1]}, {m[2]}>"), None)
+        if name is None:
+            name = ("motion_in (lookup, convc1, convf1)" if "motion_in_kernel" in key
+                    else "head_out (flow head conv2)" if "head_out_kernel" in key else None)
+        if name is not None:
+            launches[name] = {"kernel": key, "ms": ms}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, _, cin, cout, groups, in_px, out_px in K2_CONVS:
+        flops = 2 * P * 9 * cin * cout // groups
+        n_bytes = P * (in_px + out_px) + 2 * 9 * cin * cout // groups
+        t_ops, t_bytes = 1e3 * flops / BF16_FLOPS, 1e3 * n_bytes / HBM_BYTES_PER_S
+        x = torch.randn((B, cin, H, W), generator=g, device="cuda").to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = torch.randn((cout, cin // groups, 3, 3), generator=g, device="cuda")
+        w = (0.05 * w).to(dtype).contiguous(memory_format=torch.channels_last)
+        entry = launches.setdefault(name, {"kernel": None, "ms": None})
+        entry.update(gflop=flops / 1e9, bytes=n_bytes, bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     library_ms=_time_ms(lambda: F.conv2d(x, w, padding=1, groups=groups), 50),
+                     library_call="torch.nn.functional.conv2d (cuDNN), channels-last bf16, "
+                                  "no epilogue")
+        if entry["ms"]:
+            entry["tflops"] = flops / entry["ms"] / 1e9
+    res = {"profiler_saw_device_time": bool(times), "launches": launches}
+    emit({"phase": "k2_launches", "case": "slice_544x960_bf16", **res})
     return res
 
 
@@ -1184,6 +1330,7 @@ def main() -> int:
     checks = phase_kernel_check()
     fused_checks = phase_fused_check()
     k3_checks = phase_packed_conv_check()
+    fused_checks[0]["by_launch"] = phase_k2_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = [
             phase_main_path(Path(tmp)),
@@ -1226,6 +1373,11 @@ def main() -> int:
             "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"], "library_ms": None,
             "unfused_port_step_ms": k2["unfused_port_step_ms"],
+            "launch_ms": {n: v["ms"] for n, v in k2["by_launch"]["launches"].items()},
+            "conv_bound_ms": {c[0]: k2["by_launch"]["launches"][c[0]]["bound_ms"]
+                              for c in K2_CONVS},
+            "conv_library_ms": {c[0]: k2["by_launch"]["launches"][c[0]]["library_ms"]
+                                for c in K2_CONVS},
             "checks": fused_checks,
         },
         {

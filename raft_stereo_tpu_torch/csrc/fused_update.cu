@@ -35,15 +35,31 @@
 //   1. motion_in_kernel: one warp per pixel does the lookup (the device
 //      code of K1, alt_corr_lookup.cuh), convc1 + relu and convf1 + relu,
 //      writing cor|flo;
-//   2-6. conv_kernel: one implicit-GEMM NHWC 3x3 conv (128 pixels, or 64
-//      in fp32, x 64 output channels a block; K in chunks of 32 input
-//      channels, copied two stages deep with cp.async; inputs concatenated
-//      from up to three tensors without a copy), with bf16 tensor cores
-//      through WMMA (fp32 accumulate) or fp32 FMA (never TF32), and a
-//      fused epilogue: bias+relu (convc2|convf2 as two groups,
-//      flow head conv1), bias+relu plus the flow channel (motion conv), the
-//      sigmoid gates writing z and r·h (z/r conv), tanh and the GRU blend
-//      (q conv);
+//   2-6. one 3x3 SAME conv each, with inputs concatenated from up to
+//      three tensors without a copy and a fused epilogue: bias+relu
+//      (convc2|convf2 as two groups, flow head conv1), bias+relu plus the
+//      flow channel (motion conv), the sigmoid gates writing z and r·h
+//      (z/r conv), tanh and the GRU blend (q conv).
+//      bf16 (conv_sm90, on the mainloop of conv3x3_sm90.cuh): what bounds
+//      these launches is arithmetic (121 GFLOP a step, 0.12 ms at the bf16
+//      rate), so the design keeps the tensor cores fed and gathers each
+//      input byte as few times as it can. A block owns 8 x 16 output pixels
+//      x all the launch's output channels (up to 256, one m64nNk16 wgmma a
+//      warpgroup and k16 step), so the input is gathered once for every
+//      output channel; for each 64-channel input chunk the tile's
+//      10 x 18-pixel halo is copied into shared memory once (cp.async)
+//      and all 9 taps read it (A from registers through ldmatrix at the
+//      tap's shift); the (tap, chunk) weight slabs stream by TMA through a
+//      5-slot ring, 3 steps ahead; the epilogue works from the
+//      accumulators (16-byte loads and stores, the gates on the hardware's
+//      exp2 and reciprocal). What still holds them back (PERF.md): each
+//      block re-streams the launch's weights from L2 (1.8 MB for z/r) and
+//      pays a barrier and the copies' issue every step, so the tensor
+//      cores idle about half of the z/r launch.
+//      fp32 (conv_kernel, the parity phases' type): 64 pixels x 64 output
+//      channels a block on FMA (never TF32), K in chunks of 32 input
+//      channels copied two stages deep with cp.async, the epilogue from an
+//      fp32 tile in shared memory;
 //   7. head_out_kernel: the x-only flow head conv2 as a 2304-term reduction,
 //      one warp per pixel.
 // Zero padding at every image edge, the TPU kernel's per-stage row mask,
@@ -56,9 +72,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <type_traits>
 
 #include "alt_corr_lookup.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -97,6 +115,14 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// The bf16 epilogues' gates: the same functions through the hardware's
+// approximate exp2 and reciprocal (a few fp32 ulps from the above, far
+// below the bf16 rounding of h' they feed).
+__device__ __forceinline__ float sigmoid_fast(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+__device__ __forceinline__ float tanh_fast(float v) {
+  return 1.f - __fdividef(2.f, __expf(2.f * v) + 1.f);
+}
 
 // ---------------------------------------------------------------- stage 1
 // One warp per pixel: the L(2r+1) window taps (K1's device code), rounded
@@ -193,14 +219,13 @@ struct ConvArgs {
   int dh;
 };
 
-// Shared-memory tiles of one block: two stages of A (pixels x input
+// Shared-memory tiles of one fp32 block: two stages of A (pixels x input
 // channels) and B (input channels x output channels), and, over them once
-// the K loop is done, the fp32 result tile for the epilogue. BM output
-// pixels a block: 128 for bf16 (each of the 4 warps a 64x32 tile on the
-// tensor cores), 64 for fp32 (8x4 a thread on the FMA units).
+// the K loop is done, the fp32 result tile for the epilogue. BM = 64 output
+// pixels a block, 8x4 a thread on the FMA units.
 template <typename T>
 struct Tiles {
-  static constexpr int BM = sizeof(T) == 2 ? 128 : 64;
+  static constexpr int BM = 64;
   static constexpr int VEC = 16 / sizeof(T);  // elements in a 16-byte chunk
   static constexpr int ALD = BK + VEC;        // padded row lengths
   static constexpr int BLD = BN + VEC;
@@ -227,13 +252,9 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group landed
 }
 
-// The block's BM x 64 fp32 product, accumulated chunk by chunk.
-template <typename T>
-struct Mma;
-
-// fp32: FMA, each thread an 8x4 register tile (rows 8 ty.., cols 4 tx..).
-template <>
-struct Mma<float> {
+// The fp32 block's BM x 64 product, accumulated chunk by chunk: FMA, each
+// thread an 8x4 register tile (rows 8 ty.., cols 4 tx..).
+struct Mma {
   using Tl = Tiles<float>;
   float acc[8][4];
   __device__ void zero() {
@@ -263,50 +284,6 @@ struct Mma<float> {
     for (int i = 0; i < 8; ++i)
       *reinterpret_cast<float4*>(&s.c[ty * 8 + i][tx * 4]) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-};
-
-// bf16: tensor cores through WMMA 16x16x16 (fp32 accumulate); the 4 warps
-// tile the 128x64 block 2x2, each warp 64x32 (4x2 fragments).
-template <>
-struct Mma<bf16> {
-  using Tl = Tiles<bf16>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[4][2];
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-  __device__ void step(const Tl::Stage& s) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], &s.a[wm * 64 + i * 16][kk], Tl::ALD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &s.b[kk][wn * 32 + j * 16], Tl::BLD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  __device__ void store(Tl::Smem& s) {
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(&s.c[wm * 64 + i * 16][wn * 32 + j * 16], acc[i][j],
-                                        Tl::CLD, nvcuda::wmma::mem_row_major);
   }
 };
 
@@ -382,7 +359,7 @@ __global__ void __launch_bounds__(kConvThreads) conv_kernel(const ConvArgs args)
     }
   };
 
-  Mma<T> mma;
+  Mma mma;
   mma.zero();
   load(0, 0);
   cp_async_commit();
@@ -426,6 +403,314 @@ __global__ void __launch_bounds__(kConvThreads) conv_kernel(const ConvArgs args)
       const float hv = to_f(static_cast<const T*>(args.h)[pm * dh + nn]);
       const float zz = args.z[pm * dh + nn];
       static_cast<T*>(args.out)[pm * args.ldo + nn] = from_f<T>((1.f - zz) * hv + zz * q);
+    }
+  }
+}
+
+// --------------------------------------------------------- the conv, bf16
+// One block a spatial tile of kTileH x kTileW output pixels x N output
+// channels (all of the launch's, up to 256), on the mainloop of
+// conv3x3_sm90.cuh. K runs as steps (input chunk c, tap t): for each chunk
+// of 64 input channels (a 32-channel tail allowed) the tile's halo is
+// copied into shared memory once and all 9 taps read it; tap t's weight
+// slab [kc][N] streams through a ring of kStages slots, kAhead steps
+// ahead, by TMA (one 64 x 64 box an N block, completing the slot's
+// mbarrier). One barrier a step; a step's products run on through the next
+// step's barrier and copies.
+namespace tc {
+constexpr int kTileH = 8, kTileW = 16;                   // 2 row blocks of 64 pixels
+constexpr int kHaloH = kTileH + 2, kHaloW = kTileW + 2;  // its halo
+constexpr int kThreads = 256;        // 2 warpgroups, one row block each
+constexpr int kChunk = 64;           // input channels a chunk
+constexpr int kStages = 5;           // weight ring slots
+constexpr int kAhead = kStages - 2;  // steps whose copies are in flight
+constexpr int kHalo = kHaloH * kHaloW * sm90::kHaloPitch;
+constexpr int kBlock = kChunk * 128;  // a slab's 64-wide N block: 64 K-rows of 128 bytes
+constexpr int kBatch = 4;            // epilogue iterations loaded together
+template <int N>
+__host__ __device__ constexpr int slab_bytes() { return N * kChunk * 2; }
+template <int N>
+__host__ __device__ constexpr int smem_bytes() {
+  // the ring, the halos, an mbarrier a slot and the slack to align the ring
+  return kStages * slab_bytes<N>() + 2 * kHalo + kStages * 8 + 1024;
+}
+}  // namespace tc
+
+// Input chunk c: channels 64c .. 64c + kc of the concatenated input, which
+// are channels ch .. of one input tensor (src, row length ld); its weight
+// rows start at wrow; a grouped conv's chunk feeds only group ``group``'s
+// output channels.
+struct Chunk {
+  const bf16* src;
+  int ld, ch, kc, wrow, group;
+};
+
+__device__ __forceinline__ Chunk chunk_at(const ConvArgs& a, int c) {
+  const int g = c * tc::kChunk;
+  int s = 0, rest = g;
+  while (s < a.nseg - 1 && rest >= a.seg[s].ch) {
+    rest -= a.seg[s].ch;
+    ++s;
+  }
+  Chunk k;
+  k.src = static_cast<const bf16*>(a.seg[s].ptr);
+  k.ld = a.seg[s].ld;
+  k.ch = rest;
+  k.kc = min(tc::kChunk, a.seg[s].ch - rest);
+  k.group = a.group_cout ? g / a.cin : 0;
+  k.wrow = g - k.group * a.cin;
+  return k;
+}
+
+template <int N, int EPI>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+conv_sm90(const ConvArgs args, int tiles_x, int tiles_y,
+          const __grid_constant__ CUtensorMap wmap) {
+  using namespace tc;
+  constexpr int kSlab = slab_bytes<N>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_ring = (sm90::smem_addr(smem) + 1023) & ~1023u;  // slab atoms 1024-aligned
+  const uint32_t s_halo = s_ring + kStages * kSlab;
+  const uint32_t s_full = s_halo + 2 * kHalo;  // a slot's slab has landed
+  const int tid = threadIdx.x;
+  const int H = args.H, W = args.W;
+  const int x0 = (blockIdx.x % tiles_x) * kTileW;
+  const int y0 = (blockIdx.x / tiles_x % tiles_y) * kTileH;
+  const int b = blockIdx.x / tiles_x / tiles_y;
+  const int n0 = blockIdx.y * N;
+  int total = 0;
+  for (int s = 0; s < args.nseg; ++s) total += args.seg[s].ch;
+  const int n_steps = 9 * ((total + kChunk - 1) / kChunk);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) sm90::mbar_init(s_full + i * 8, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Starts the copies of step s: tap t's weight slab into ring slot
+  // s % kStages and, on tap 0, chunk c's halo into buffer c % 2.
+  auto issue = [&](int s) {
+    if (s >= n_steps) return;
+    const int c = s / 9, t = s - 9 * c;
+    const Chunk k = chunk_at(args, c);
+    if (t == 0) {
+      const uint32_t dst = s_halo + (c & 1) * kHalo;
+      const int cpp = k.kc / 8;  // 16-byte copies a pixel
+      for (int i = tid; i < kHaloH * kHaloW * cpp; i += kThreads) {
+        const int px = i / cpp, ch = (i - px * cpp) * 8;
+        const int yy = y0 - 1 + px / kHaloW, xx = x0 - 1 + px % kHaloW;
+        const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;
+        const bf16* src =
+            inside ? k.src + (((long long)b * H + yy) * W + xx) * k.ld + k.ch + ch : k.src;
+        sm90::cp_async16(dst + px * sm90::kHaloPitch + ch * 2, src, inside);
+      }
+    }
+    if (tid == 0) {  // the slab: one 64 x 64 TMA box an N block, 64 rows even for a tail
+      const uint32_t slot = s_ring + (s % kStages) * kSlab, bar = s_full + (s % kStages) * 8;
+      sm90::mbar_expect_tx(bar, kSlab);
+#pragma unroll
+      for (int nb = 0; nb < N / 64; ++nb) {
+        const int x = n0 + nb * 64;
+        // a grouped conv's other groups read zero weights: a box past the last column
+        const bool live = !args.group_cout || x / args.group_cout == k.group;
+        sm90::tma_load_2d(slot + nb * kBlock, &wmap, live ? x : args.cout,
+                          t * args.cin + k.wrow, bar);
+      }
+    }
+  };
+
+  const int wgp = tid >> 7;
+  const int pm_row = wgp * 64 + sm90::a_row();  // this lane's ldmatrix row
+  const uint32_t row_off =
+      ((pm_row / kTileW) * kHaloW + pm_row % kTileW) * sm90::kHaloPitch + sm90::a_col_bytes();
+  float acc[1][N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[0][i] = 0.f;
+  // A fragments, two sets: step s loads set s & 1 while step s-1's
+  // products still read the other (a 32-channel tail uses half of one).
+  uint32_t a4[2][1][4][4];
+
+  for (int s = 0; s < kAhead; ++s) {
+    issue(s);
+    sm90::cp_async_commit();
+  }
+  // Step s, on fragment set P = s & 1. One barrier: after it, step s's
+  // copies are visible to every thread and every warpgroup's step s-2 is
+  // done, so its ring slot takes step s + kAhead's copies. Step s-1's
+  // products run on through the barrier and the copies' issue.
+  auto run_step = [&](auto par, int s) {
+    constexpr int P = decltype(par)::value;
+    sm90::cp_async_wait<kAhead - 1>();  // this thread's halo copies of step s landed
+    sm90::wgmma_wait<1>();  // this warpgroup's step s-2 is done
+    sm90::keep(acc);
+    sm90::keep(a4[P]);
+    __syncthreads();
+    issue(s + kAhead);
+    sm90::cp_async_commit();
+    const int c = s / 9, t = s - 9 * c;
+    const uint32_t rows[1] = {s_halo + (c & 1) * kHalo + row_off};
+    const uint32_t shift = sm90::tap_shift(t, kHaloW);
+    const uint32_t slab = s_ring + (s % kStages) * kSlab;
+    sm90::mbar_wait(s_full + (s % kStages) * 8, (s / kStages) & 1);  // step s's slab landed
+    sm90::load_a(a4[P], rows, shift);
+    sm90::keep(acc);
+    sm90::wgmma_fence();
+    if (total - c * kChunk >= kChunk) {
+      sm90::mma_a<N, 1, 4>(acc, a4[P], slab, kBlock);
+    } else {  // a 32-channel tail
+      sm90::mma_a<N, 1, 4, 2>(acc, a4[P], slab, kBlock);
+    }
+    sm90::wgmma_commit();
+  };
+  for (int s = 0; s < n_steps; s += 2) {
+    run_step(std::integral_constant<int, 0>{}, s);
+    if (s + 1 < n_steps) run_step(std::integral_constant<int, 1>{}, s + 1);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::keep(acc);
+  sm90::keep(a4[0]);
+  sm90::keep(a4[1]);
+  sm90::cp_async_wait<0>();
+
+  // The fused epilogue, 8 channels of a pixel a lane at a time. The
+  // inputs of kBatch iterations are loaded before any of them is stored,
+  // so their latencies overlap.
+  const int dh = args.dh;
+  const bf16* ctx = static_cast<const bf16*>(args.ctx);
+  const bf16* hin = static_cast<const bf16*>(args.h);
+#pragma unroll
+  for (int i0 = 0; i0 < N / 16; i0 += kBatch) {
+    long long px[kBatch];
+    bool live[kBatch];
+    uint4 in0[kBatch], in1[kBatch];
+    float4 zi[kBatch][2];
+    float fl[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int pm = wgp * 64 + sm90::epi_row(i0 + j);
+      const int yy = y0 + pm / kTileW, xx = x0 + pm % kTileW;
+      live[j] = yy < H && xx < W;
+      px[j] = live[j] ? ((long long)b * H + yy) * W + xx : 0;
+      const int nn = n0 + sm90::epi_col(i0 + j);
+      const long long p = px[j];
+      if constexpr (EPI == kEpiMotion) {
+        fl[j] = args.flow[p];
+      } else if constexpr (EPI == kEpiGates) {
+        if (nn < dh) {  // 8 channels of z (dh % 64 == 0: a group never straddles)
+          in0[j] = *reinterpret_cast<const uint4*>(ctx + p * 3 * dh + nn);
+        } else {  // 8 channels of r
+          in0[j] = *reinterpret_cast<const uint4*>(ctx + p * 3 * dh + nn);
+          in1[j] = *reinterpret_cast<const uint4*>(hin + p * dh + nn - dh);
+        }
+      } else if constexpr (EPI == kEpiGru) {
+        in0[j] = *reinterpret_cast<const uint4*>(ctx + p * 3 * dh + 2 * dh + nn);
+        in1[j] = *reinterpret_cast<const uint4*>(hin + p * dh + nn);
+        zi[j][0] = *reinterpret_cast<const float4*>(args.z + p * dh + nn);
+        zi[j][1] = *reinterpret_cast<const float4*>(args.z + p * dh + nn + 4);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (!live[j]) continue;
+      const long long p = px[j];
+      const int nn = n0 + sm90::epi_col(i0 + j);
+      float v[8], o[8];
+      sm90::take8<N>(acc[0], i0 + j, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = v[e] + args.bias[nn + e];
+      if constexpr (EPI == kEpiRelu) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = fmaxf(o[e], 0.f);
+        sm90::store8(static_cast<bf16*>(args.out) + p * args.ldo + nn, o);
+      } else if constexpr (EPI == kEpiMotion) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[e] = fmaxf(o[e], 0.f);
+          if (nn + e == kFlowCh) o[e] += fl[j];
+        }
+        sm90::store8(static_cast<bf16*>(args.out) + p * args.ldo + nn, o);
+      } else if constexpr (EPI == kEpiGates) {
+        float g[8], zz[8];
+        sm90::unpack8(in0[j], g);
+        if (nn < dh) {
+          for (int e = 0; e < 8; ++e) zz[e] = sigmoid_fast(o[e] + g[e]);
+          float4* zp = reinterpret_cast<float4*>(args.z + p * dh + nn);
+          zp[0] = make_float4(zz[0], zz[1], zz[2], zz[3]);
+          zp[1] = make_float4(zz[4], zz[5], zz[6], zz[7]);
+        } else {  // written as r·h
+          float hv[8];
+          sm90::unpack8(in1[j], hv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) zz[e] = sigmoid_fast(o[e] + g[e]) * hv[e];
+          sm90::store8(static_cast<bf16*>(args.rh) + p * dh + nn - dh, zz);
+        }
+      } else {  // kEpiGru
+        float cq[8], hv[8];
+        sm90::unpack8(in0[j], cq);
+        sm90::unpack8(in1[j], hv);
+        const float zz[8] = {zi[j][0].x, zi[j][0].y, zi[j][0].z, zi[j][0].w,
+                             zi[j][1].x, zi[j][1].y, zi[j][1].z, zi[j][1].w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float q = tanh_fast(o[e] + cq[e]);
+          o[e] = (1.f - zz[e]) * hv[e] + zz[e] * q;
+        }
+        sm90::store8(static_cast<bf16*>(args.out) + p * args.ldo + nn, o);
+      }
+    }
+  }
+}
+
+// The weight [9 cin rows][cout] as a TMA tensor map: 64 x 64 boxes, the
+// 128-byte swizzle, zeros outside (sm90::tensor_map_encoder).
+cudaError_t weight_map(const ConvArgs& a, CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  const cudaError_t err = sm90::tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.cout, (cuuint64_t)(9 * a.cin)};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.cout * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)tc::kChunk}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a.w), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int N, int EPI>
+cudaError_t launch_sm90(const ConvArgs& a, cudaStream_t st) {
+  static bool attr_set = false;  // above 48 KB only after opting in
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_sm90<N, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::smem_bytes<N>());
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  CUtensorMap wmap;
+  const cudaError_t err = weight_map(a, &wmap);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (a.W + tc::kTileW - 1) / tc::kTileW;
+  const int tiles_y = (a.H + tc::kTileH - 1) / tc::kTileH;
+  const int B = a.P / (a.H * a.W);
+  const dim3 grid((unsigned)(B * tiles_x * tiles_y), (unsigned)(a.cout / N));
+  conv_sm90<N, EPI><<<grid, tc::kThreads, tc::smem_bytes<N>(), st>>>(a, tiles_x, tiles_y, wmap);
+  return cudaGetLastError();
+}
+
+// The widest N the launch's output channels split into: all of them up to
+// 256. The motion conv has 128; flow head conv1 256; convc2|convf2 128;
+// the gates 2 dh and the GRU dh, with dh % 64 == 0.
+template <int EPI>
+cudaError_t launch_conv_bf16(const ConvArgs& a, cudaStream_t st) {
+  if constexpr (EPI == kEpiMotion) {
+    return launch_sm90<128, EPI>(a, st);
+  } else {
+    if (a.cout % 256 == 0) return launch_sm90<256, EPI>(a, st);
+    if constexpr (EPI == kEpiGru) {
+      if (a.cout % 128 == 0) return launch_sm90<128, EPI>(a, st);
+      return launch_sm90<64, EPI>(a, st);
+    } else {
+      return launch_sm90<128, EPI>(a, st);
     }
   }
 }
@@ -481,10 +766,14 @@ void launch_motion_in(int radius, dim3 grid, dim3 block, cudaStream_t st, const 
 
 template <typename T, int EPI>
 cudaError_t launch_conv(const ConvArgs& a, cudaStream_t st) {
-  constexpr int BM = Tiles<T>::BM;
-  const dim3 grid((unsigned)((a.P + BM - 1) / BM), (unsigned)(a.cout / BN));
-  conv_kernel<T, EPI><<<grid, kConvThreads, 0, st>>>(a);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return launch_conv_bf16<EPI>(a, st);
+  } else {
+    constexpr int BM = Tiles<T>::BM;
+    const dim3 grid((unsigned)((a.P + BM - 1) / BM), (unsigned)(a.cout / BN));
+    conv_kernel<T, EPI><<<grid, kConvThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 Seg seg_of(const void* ptr, int ch) { return Seg{ptr, ch, ch}; }
@@ -639,3 +928,9 @@ extern "C" int fused_update_step(int use_bf16, const void* const* ptrs, const vo
 
 // The number of pointer slots fused_update_step reads, for the wrapper's check.
 extern "C" int fused_update_slots() { return kSlots; }
+
+// Dynamic shared memory of the bf16 conv kernel at n output channels a
+// block (64, 128 or 256), for the build report.
+extern "C" int fused_update_conv_smem(int n) {
+  return n == 256 ? tc::smem_bytes<256>() : n == 128 ? tc::smem_bytes<128>() : tc::smem_bytes<64>();
+}

@@ -25,19 +25,36 @@
 // output (20 us at 3.35 TB/s), so bf16 sits on the boundary; fp32 (FMA,
 // never TF32) is bound by arithmetic at 0.29 ms.
 //
-// Design (simple first; wgmma/TMA come later). A block owns a tile of TH
-// output rows x 64 columns of one image. It copies the tile's input halo,
-// (TH+2) x 66 pixels x 64 channels, into shared memory once with 16-byte
-// cp.async copies (zero-filled outside the image), applies the prologue
-// in place to the in-image pixels it copied, and then runs the 3x3 as an
-// implicit GEMM over the 9 taps: M = the tile's pixels, N = 64 output
-// channels, K = 64 input channels a tap. Tap t's 64x64 weight slab
-// streams through two shared-memory stages, so the copy of tap t+1
-// overlaps tap t's products. bf16 runs on the tensor cores through WMMA
-// (fp32 accumulate; TH=4, 8 warps, each one output row x 32 channels); the
-// halo's pixel pitch is 80 elements (160 bytes) so that an A fragment
-// starting at any pixel shift stays 32-byte aligned. fp32 runs on the FMA
-// units (TH=1, 128 threads, 8 pixels x 4 channels a thread).
+// bf16 design (conv3x3_sm90.cuh holds the mainloop it shares with K2's
+// convs). What bounds it: at 64 output channels every product is
+// m64n64k16, whose operands (2 KB of A and 2 KB of B a product) come from
+// shared memory at about the rate the tensor cores consume them, and the
+// input and output bytes alone take 20 us. So the design moves no byte
+// twice that it need not:
+//  - persistent blocks, one an SM (211 KB of shared memory), whose 2
+//    warpgroups each walk their own 8 x 16-pixel output tiles (W = 480
+//    and H = 272 split into whole tiles; halo overhead 10 x 18 / 128 =
+//    1.41) and synchronise only among themselves (named barriers), so one
+//    warpgroup's copies and epilogue overlap the other's products;
+//  - the 9 x 64 x 64 weights loaded into shared memory once a block, in
+//    the layout wgmma reads B from;
+//  - each tile's input halo copied by TMA over a 4-D NHWC tensor map,
+//    whose zero fill outside the image is the SAME padding, into one of its
+//    warpgroup's three buffers, two tiles ahead (the 128-byte swizzle keeps
+//    ldmatrix free of bank conflicts); the prologue then runs in place on
+//    the in-image pixels;
+//  - a tile's two 64-pixel row blocks: all 9 taps on wgmma with A from
+//    registers (ldmatrix at the tap's shift), the next tap's ldmatrix
+//    overlapping this tap's products;
+//  - the epilogue from the accumulators to 16-byte bf16 stores.
+// What still holds it back (PERF.md): operand traffic in shared memory
+// (ldmatrix for A and wgmma's reads of B, both 2 KB a product at N = 64)
+// and the warpgroups' phases that do not overlap.
+//
+// fp32 (FMA, the parity phases' type) keeps its first design: a block owns
+// 1 output row x 64 columns, copies its (1+2) x 66-pixel halo once with
+// cp.async, and streams tap t's weight slab through two stages, 128
+// threads each 8 pixels x 4 channels.
 //
 // Interface: plain C, loaded with ctypes. ``packed_conv3x3`` launches one
 // kernel on the given stream and returns cudaGetLastError(). The wrapper
@@ -45,7 +62,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -71,15 +89,6 @@ __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); 
 
 template <typename T>
 struct Cfg;
-
-template <>
-struct Cfg<bf16> {
-  static constexpr int TH = 4;          // output rows a tile
-  static constexpr int kThreads = 256;  // 8 warps: 4 rows x 2 channel halves
-  static constexpr int CP = 80;         // halo pixel pitch (elements)
-  static constexpr int WLD = 72;        // weight slab row pitch
-  static constexpr int CLD = 68;        // fp32 result tile row pitch
-};
 
 template <>
 struct Cfg<float> {
@@ -165,65 +174,6 @@ struct Mma<float> {
       if (xx >= W) break;
       *reinterpret_cast<float4*>(out + (((long long)b * H + y0) * W + xx) * C + tx * 4) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-  }
-};
-
-// bf16: WMMA 16x16x16 with fp32 accumulate. Warp (wm, wn) owns output row
-// wm of the tile (64 pixels, 4 fragments) and channels 32 wn .. 32 wn + 31
-// (2 fragments).
-template <>
-struct Mma<bf16> {
-  using G = Cfg<bf16>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[4][2];
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-  __device__ void tap(const bf16* halo, const bf16* w, int dy, int dx) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-    const bf16* a = halo + ((wm + dy) * HC + dx) * G::CP;
-#pragma unroll
-    for (int kk = 0; kk < C; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(fa[i], a + i * 16 * G::CP + kk, G::CP);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], w + kk * G::WLD + wn * 32 + j * 16, G::WLD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  // Through an fp32 tile in shared memory (over the halo and weights,
-  // which are no longer read), so each thread writes whole 16-byte chunks.
-  __device__ void store(unsigned char* smem, bf16* out, int H, int W, int b, int y0, int x0) {
-    float* c = reinterpret_cast<float*>(smem);
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(c + (wm * TW + i * 16) * G::CLD + wn * 32 + j * 16,
-                                        acc[i][j], G::CLD, nvcuda::wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < G::TH * TW * (C / 8); idx += G::kThreads) {
-      const int p = idx >> 3, ch = (idx & 7) * 8;
-      const int yy = y0 + p / TW, xx = x0 + p % TW;
-      if (yy >= H || xx >= W) continue;
-      alignas(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(c[p * G::CLD + ch + e]);
-      *reinterpret_cast<uint4*>(out + (((long long)b * H + yy) * W + xx) * C + ch) =
-          *reinterpret_cast<const uint4*>(v);
     }
   }
 };
@@ -321,6 +271,192 @@ cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------- bf16
+namespace k3 {
+constexpr int kTileH = 8, kTileW = 16;                   // a warpgroup's output tile
+constexpr int kHaloH = kTileH + 2, kHaloW = kTileW + 2;  // its halo
+constexpr int kThreads = 256;  // 2 warpgroups, each its own tiles
+constexpr int MB = 2;          // 64-pixel row blocks a tile
+constexpr int kSlab = C * C * 2;     // one tap's weights (bytes)
+constexpr int kLbo = C * 128;        // B's N-neighbouring atoms (one N block: unused)
+constexpr int kWeights = 9 * kSlab;
+constexpr int kHaloBytes = kHaloH * kHaloW * C * 2;        // what TMA writes
+constexpr int kHalo = (kHaloBytes + 1023) / 1024 * 1024;  // a buffer, 1024-aligned
+constexpr int kHalos = 3;  // halo buffers a warpgroup: this tile's and the next two tiles'
+// the weights, the halos, an mbarrier a halo buffer and the slack to align
+constexpr int kSmem = kWeights + 2 * kHalos * kHalo + 2 * kHalos * 8 + 1024;
+}  // namespace k3
+
+// A barrier of one warpgroup's 128 threads (id 1 or 2; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wgp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgp) : "memory");
+}
+
+// Persistent: warpgroup g of block i takes tiles 2i + g, 2i + g + 2
+// gridDim.x, ... of the B x tiles_y x tiles_x output tiles, each on its
+// own halo buffers and barriers, so one warpgroup's copies and epilogue
+// overlap the other's products. xmap: x as a 4-D TMA tensor map
+// [B][H][W][64] with (10, 18, 64) boxes, the 128-byte swizzle and zeros
+// outside the image: a box at (x0 - 1, y0 - 1) is a tile's halo with its
+// SAME padding.
+__global__ void __launch_bounds__(k3::kThreads, 1)
+packed_conv_sm90(const Args args, int tiles_x, int tiles_y, int n_tiles,
+                 const __grid_constant__ CUtensorMap xmap) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_w = (sm90::smem_addr(smem) + 1023) & ~1023u;  // atoms 1024-aligned
+  const int tid = threadIdx.x;
+  const int wgp = tid >> 7, wtid = tid & 127;
+  const uint32_t s_halo = s_w + k3::kWeights + wgp * k3::kHalos * k3::kHalo;
+  const uint32_t s_bar = s_w + k3::kWeights + 2 * k3::kHalos * k3::kHalo + wgp * k3::kHalos * 8;
+  const int H = args.H, W = args.W;
+  const bf16* wg = static_cast<const bf16*>(args.w);
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * k3::kHalos; ++i)
+      sm90::mbar_init(s_w + k3::kWeights + 2 * k3::kHalos * k3::kHalo + i * 8, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  // The weights, once: row (tap, cin k) of 64 cout is one swizzled row.
+  for (int i = tid; i < 9 * C * 8; i += k3::kThreads) {
+    const int n8 = i & 7, k = (i >> 3) & (C - 1), t = i >> 9;
+    sm90::cp_async16(s_w + t * k3::kSlab + sm90::b_chunk(k, n8, k3::kLbo),
+                     wg + (t * C + k) * C + n8 * 8, true);
+  }
+  sm90::cp_async_commit();
+  auto tile_pos = [&](int tile, int& b, int& y0, int& x0) {
+    x0 = (tile % tiles_x) * k3::kTileW;
+    const int r = tile / tiles_x;
+    y0 = (r % tiles_y) * k3::kTileH;
+    b = r / tiles_y;
+  };
+  // Starts the TMA copy of a tile's halo into buffer i (none past the last
+  // tile), once the warpgroup is done with the buffer.
+  auto load_halo = [&](int tile, int i) {
+    if (wtid != 0 || tile >= n_tiles) return;
+    int b, y0, x0;
+    tile_pos(tile, b, y0, x0);
+    sm90::mbar_expect_tx(s_bar + i * 8, k3::kHaloBytes);
+    sm90::tma_load_4d(s_halo + i * k3::kHalo, &xmap, 0, x0 - 1, y0 - 1, b, s_bar + i * 8);
+  };
+  const int stride = 2 * gridDim.x;
+  int tile = 2 * blockIdx.x + wgp;
+  load_halo(tile, 0);
+  load_halo(tile + stride, 1);
+  sm90::cp_async_wait<0>();  // this thread's weight copies landed
+  sm90::fence_proxy_async();
+  __syncthreads();  // and every thread's
+
+  // This lane's ldmatrix row (a halo pixel at tap (0, 0)) in each of the
+  // tile's row blocks.
+  int prow[k3::MB];
+#pragma unroll
+  for (int m = 0; m < k3::MB; ++m) {
+    const int pm = m * 64 + sm90::a_row();
+    prow[m] = (pm / k3::kTileW) * k3::kHaloW + pm % k3::kTileW;
+  }
+
+  for (int j = 0; tile < n_tiles; tile += stride, ++j) {
+    // The warpgroup is done with the buffer the next copy fills; the fence
+    // orders its reads and the prologue's writes there before that copy.
+    sm90::fence_proxy_async();
+    wg_sync(wgp);
+    load_halo(tile + 2 * stride, (j + 2) % k3::kHalos);
+    const int buf = j % k3::kHalos;
+    sm90::mbar_wait(s_bar + buf * 8, (j / k3::kHalos) & 1);  // this tile's halo landed
+    int b, y0, x0;
+    tile_pos(tile, b, y0, x0);
+    const uint32_t cur = s_halo + buf * k3::kHalo;
+    if (args.scale != nullptr) {
+      // The prologue in place, at in-image pixels only.
+      const bf16* sc = static_cast<const bf16*>(args.scale) + b * 2 * C;
+      const bf16* sh = static_cast<const bf16*>(args.shift) + b * 2 * C;
+      unsigned char* halo = smem + (cur - sm90::smem_addr(smem));
+      for (int i = wtid; i < k3::kHaloH * k3::kHaloW * 8; i += 128) {
+        const int px = i >> 3, c8 = i & 7, ch = c8 * 8;
+        const int yy = y0 - 1 + px / k3::kHaloW, xx = x0 - 1 + px % k3::kHaloW;
+        if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;  // the SAME padding stays zero
+        bf16* v = reinterpret_cast<bf16*>(halo + px * 128 + ((c8 ^ (px & 7)) << 4));
+        const int lane = (xx & 1) * C + ch;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float u = round_to<bf16>(__fmul_rn(__bfloat162float(v[e]), __bfloat162float(sc[lane + e])));
+          u = round_to<bf16>(__fadd_rn(u, __bfloat162float(sh[lane + e])));
+          if (args.relu) u = fmaxf(u, 0.f);
+          v[e] = __float2bfloat16(u);
+        }
+      }
+      wg_sync(wgp);
+    }
+    float acc[k3::MB][C / 2];
+#pragma unroll
+    for (int m = 0; m < k3::MB; ++m)
+#pragma unroll
+      for (int i = 0; i < C / 2; ++i) acc[m][i] = 0.f;
+    sm90::conv9<C, k3::MB, 4>(
+        acc,
+        [&](uint32_t (&a)[k3::MB][4][4], int t) {
+          sm90::load_a_swz(a, cur, prow, (t / 3) * k3::kHaloW + t % 3);
+        },
+        s_w, k3::kSlab, k3::kLbo);
+
+    bf16* out = static_cast<bf16*>(args.out);
+#pragma unroll
+    for (int m = 0; m < k3::MB; ++m) {
+      sm90::for_each_8<C>(acc[m], [&](int r, int c, const float (&v)[8]) {
+        const int pm = m * 64 + r;
+        const int yy = y0 + pm / k3::kTileW, xx = x0 + pm % k3::kTileW;
+        if (yy < H && xx < W) sm90::store8(out + (((long long)b * H + yy) * W + xx) * C + c, v);
+      });
+    }
+  }
+}
+
+// x [B][H][W][64] bf16 as a TMA tensor map with one tile's halo a box
+// (sm90::tensor_map_encoder).
+cudaError_t halo_map(const Args& a, int B, CUtensorMap* map) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  const cudaError_t err = sm90::tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)a.W, (cuuint64_t)a.H, (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)C * sizeof(bf16);
+  const cuuint64_t strides[3] = {row, row * a.W, row * a.W * a.H};
+  const cuuint32_t box[4] = {(cuuint32_t)C, (cuuint32_t)k3::kHaloW, (cuuint32_t)k3::kHaloH, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(a.x), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_bf16(const Args& a, int B, cudaStream_t st) {
+  static int n_sm = 0;
+  if (n_sm == 0) {  // above 48 KB only after opting in
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(packed_conv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 k3::kSmem);
+    if (err != cudaSuccess) {
+      n_sm = 0;
+      return err;
+    }
+  }
+  CUtensorMap xmap;
+  const cudaError_t err = halo_map(a, B, &xmap);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (a.W + k3::kTileW - 1) / k3::kTileW;
+  const int tiles_y = (a.H + k3::kTileH - 1) / k3::kTileH;
+  const int n_tiles = B * tiles_x * tiles_y;
+  const int pairs = (n_tiles + 1) / 2;  // two warpgroups a block
+  const int grid = pairs < n_sm ? pairs : n_sm;
+  packed_conv_sm90<<<grid, k3::kThreads, k3::kSmem, st>>>(a, tiles_x, tiles_y, n_tiles, xmap);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One conv. x and out are NHWC [B][H][W][64], w is [9][64][64] (tap-major,
@@ -336,6 +472,9 @@ extern "C" int packed_conv3x3(int use_bf16, const void* x, const void* w, const 
   }
   const Args a{x, w, scale, shift, relu, out, H, W};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_bf16) return (int)launch<bf16>(a, B, st);
+  if (use_bf16) return (int)launch_bf16(a, B, st);
   return (int)launch<float>(a, B, st);
 }
+
+// Dynamic shared memory of the bf16 kernel, for the build report.
+extern "C" int packed_conv_smem() { return k3::kSmem; }

@@ -76,7 +76,7 @@ def _lib_path(name: str) -> Path:
 
 
 def _ptxas_lines(log: str) -> List[str]:
-    return [ln.strip() for ln in log.splitlines() if "ptxas" in ln]
+    return [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "bytes spill" in ln]
 
 
 def build(names: Iterable[str]) -> None:

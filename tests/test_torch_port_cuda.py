@@ -122,13 +122,16 @@ def test_forward_with_kernel_matches_plain_lookup(monkeypatch):
 K2_FP32_ATOL = {"h": 5e-5, "delta": 2e-4}
 
 
-def _fused_case(B, H, W, D, levels, radius, with_inp, dtype, seed=0):
+def _fused_case(B, H, W, D, levels, radius, with_inp, dtype, seed=0, hidden=(128, 128, 128)):
+    """Seeded step inputs; ``hidden`` sets dh (its last entry) and, with
+    inp16, inp16's channels (its middle entry)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*s, scale=1.0):
         return torch.randn(s, generator=g, device="cuda") * scale
 
-    block = BasicMultiUpdateBlock((128, 128, 128), 3 if with_inp else 1, 2, levels, radius)
+    dh, ci = hidden[2], hidden[1]
+    block = BasicMultiUpdateBlock(hidden, 3 if with_inp else 1, 2, levels, radius)
     with torch.no_grad():
         for p in block.parameters():
             p.copy_(rnd(*p.shape, scale=0.1))
@@ -136,9 +139,9 @@ def _fused_case(B, H, W, D, levels, radius, with_inp, dtype, seed=0):
     f1 = rnd(B, H, W, D, scale=0.5)
     pyr = pool_fmap_pyramid(rnd(B, H, W, D, scale=0.5), levels)
     flow = torch.round(rnd(B, H, W, scale=2.0) * 64) / 64
-    h = torch.tanh(rnd(B, H, W, 128)).to(dtype)
-    inp = rnd(B, H, W, 128, scale=0.5).to(dtype) if with_inp else None
-    ctx = rnd(B, H, W, 384, scale=0.5).to(dtype)
+    h = torch.tanh(rnd(B, H, W, dh)).to(dtype)
+    inp = rnd(B, H, W, ci, scale=0.5).to(dtype) if with_inp else None
+    ctx = rnd(B, H, W, 3 * dh, scale=0.5).to(dtype)
     return packed, f1, pyr, flow, h, inp, ctx, radius
 
 
@@ -166,6 +169,27 @@ def test_fused_kernel_matches_plain(monkeypatch, B, H, W, D, levels, radius, wit
     else:
         res = k2_errors((h_k, d_k), (h_p, d_p), dtype)
         assert res["ok"], res
+
+
+@pytest.mark.parametrize(
+    "B,H,W,hidden",
+    [(1, 20, 40, (128, 128, 64)),   # dh = 64: the z|r conv at 128, the q conv at 64 channels
+     (1, 20, 40, (128, 32, 128)),   # a 32-channel inp16: a 32-channel tail chunk
+     (2, 5, 9, (128, 128, 128))],   # P = 90, less than one 8 x 16 tile an image
+)
+def test_fused_kernel_tiling_matches_plain(monkeypatch, B, H, W, hidden):
+    """The bf16 convs' tiles (8 x 16 pixels x all output channels) and
+    input chunks (64 channels, a 32-channel tail) at the shapes the
+    wrapper accepts, held to the plain step by chip_smoke.k2_errors."""
+    _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    args = _fused_case(B, H, W, 64, 4, 4, True, torch.bfloat16, seed=5, hidden=hidden)
+    got = fused_update.fused_refine_step(*args, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    want = fused_update.reference_refine_step(*args, compute_dtype=torch.bfloat16)
+    assert got[0].shape == (B, H, W, hidden[2])
+    res = k2_errors(got, want, torch.bfloat16)
+    assert res["ok"], res
 
 
 @pytest.mark.parametrize(
@@ -229,7 +253,10 @@ def test_fused_early_exit_launches_once_a_step():
 @pytest.mark.parametrize(
     "B,H,W,prologue",
     [(2, 12, 128, None), (2, 12, 128, "relu"), (1, 9, 64, "affine"), (1, 37, 122, "relu"),
-     (3, 5, 6, None), (1, 3, 34, "relu")],
+     (3, 5, 6, None), (1, 3, 34, "relu"),
+     # the bf16 kernel's 16 x 16 tiles: H and W not multiples of 16, W = 2,
+     # and more tiles (3 x 7 x 13) than SMs, so the persistent loop wraps
+     (2, 17, 30, "affine"), (1, 5, 2, "relu"), (3, 100, 202, None)],
 )
 def test_packed_conv_matches_plain(monkeypatch, B, H, W, prologue, dtype):
     _cuda()
