@@ -6,12 +6,14 @@ Phases, each printing one JSON line:
   1. device: the card's name, count and power limit; fails without a card;
   2. build: compiles every CUDA kernel of the port from ``csrc/``, one
      ``nvcc`` each, all started together, and reports what ``-Xptxas -v``
-     says of K2's and K3's wgmma kernels (registers, shared memory,
-     spills, the compiler's notes);
+     says of K1's kernels and of K2's and K3's wgmma kernels (registers,
+     shared memory, spills, the compiler's notes);
   3. kernel checks: each kernel against its plain PyTorch version on the
      card (TF32 off), at the shapes the main paths give it and at a few
      ragged ones, with timings and the card's bound for the same work:
-     K1 (alt lookup, also at the Middlebury-F width) and K2 (fused step,
+     K1 (alt lookup, also at the Middlebury-F width, the realtime shape
+     and rows of three ragged segments, each with the chunk of channels
+     and the shared memory its launch takes) and K2 (fused step,
      fp32 and bf16, with and without inp16, beside the unfused port step
      at the same shape; on the slice case each of its 7 launches timed
      under torch.profiler, each conv launch beside its own bound and
@@ -221,8 +223,9 @@ def ptxas_table(lines):
 def phase_build():
     """Builds the kernels; the line gives, for each of K2's and K3's wgmma
     kernels, what ``-Xptxas -v`` says (registers, spills, notes) and the
-    dynamic shared memory it launches with, and for every kernel its
-    register counts."""
+    dynamic shared memory it launches with, the same for each of K1's
+    kernels (their shared memory is set per launch: kernel_check's
+    ``smem_bytes``), and for every kernel its register counts."""
     from raft_stereo_tpu_torch.experiments import packed_conv
     from raft_stereo_tpu_torch.ops import _build, alt_corr, fused_update
 
@@ -246,7 +249,8 @@ def phase_build():
         f["dynamic_smem"] = lib_packed.packed_conv_smem()
     emit({"phase": "build", "kernels": kernels, "seconds": seconds,
           "nvcc_seconds": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
-          "registers": regs, "wgmma_kernels": sm90})
+          "registers": regs, "wgmma_kernels": sm90,
+          "alt_corr_kernels": ptxas_table(_build.BUILD_INFO[alt_corr.KERNEL]["ptxas"])})
 
 
 def _alt_inputs(B, H, W1, D, levels, seed):
@@ -325,6 +329,9 @@ def phase_kernel_check():
         ("middlebury_F_1984x2880", (1, 496, 720, 256), 4, 4, 50, 2),
         ("odd_widths_b2", (2, 8, 123, 256), 4, 4, 10, 2),
         ("d64_r2", (1, 6, 77, 64), 3, 2, 10, 2),
+        ("realtime_544x960", (1, 68, 120, 256), 4, 4, 50, 5),
+        # three ragged segments a row, a partial last chunk of channels
+        ("ragged_3seg_b2_d100", (2, 6, 517, 100), 4, 4, 10, 2),
     ]
     checks = []
     saved = alt_corr.LAUNCHES
@@ -340,8 +347,10 @@ def phase_kernel_check():
         plain_ms = _time_ms(lambda: corr_lookup_alt_plain(f1, pyr, coords, radius),
                             plain_reps, warmup=1)
         bound = _alt_bound(f1, pyr, coords, radius)
+        widths = [p.shape[2] for p in pyr]
+        geo = alt_corr.launch_geometry(B * H, W1, widths, D)
         checks.append({"case": name, "shape": [B, H, W1, D], "levels": levels,
-                       "radius": radius, "widths": [p.shape[2] for p in pyr],
+                       "radius": radius, "widths": widths, "dc": geo.dc, "smem_bytes": geo.smem,
                        "max_abs_err": err, "tol": ALT_TOL, "ms": ms,
                        "plain_ms": plain_ms, **bound})
         del f1, pyr, coords, got, want

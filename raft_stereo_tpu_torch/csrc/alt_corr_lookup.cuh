@@ -1,6 +1,6 @@
-// Device code of the streaming alt-correlation lookup, shared by the K1
-// lookup kernel (alt_corr.cu) and the fused refinement step
-// (fused_update.cu).
+// Device code of the alt-correlation lookup in the first launch of the
+// fused refinement step (fused_update.cu's motion_in_kernel). The K1
+// lookup kernel (alt_corr.cu) has its own design and does not include it.
 //
 // One warp serves one pixel p of f1 [B,H,W1,D]. The warp keeps p's f1 row
 // in registers (D/32 floats a lane, float4 loads). For level l of the

@@ -32,9 +32,9 @@
 // megabytes, against 227 KB of shared memory per block here. So the step
 // is a chain of 7 launches on one stream, and the intermediates (about
 // 40 MB in bf16) round-trip through the 50 MB L2 instead:
-//   1. motion_in_kernel: one warp per pixel does the lookup (the device
-//      code of K1, alt_corr_lookup.cuh), convc1 + relu and convf1 + relu,
-//      writing cor|flo;
+//   1. motion_in_kernel: one warp per pixel does the lookup (the warp-per-
+//      pixel device code of alt_corr_lookup.cuh), convc1 + relu and
+//      convf1 + relu, writing cor|flo;
 //   2-6. one 3x3 SAME conv each, with inputs concatenated from up to
 //      three tensors without a copy and a fused epilogue: bias+relu
 //      (convc2|convf2 as two groups, flow head conv1), bias+relu plus the
@@ -125,9 +125,9 @@ __device__ __forceinline__ float tanh_fast(float v) {
 }
 
 // ---------------------------------------------------------------- stage 1
-// One warp per pixel: the L(2r+1) window taps (K1's device code), rounded
-// to T, into convc1 (lane owns output channels lane and lane + 32); then
-// convf1 over the 7x7 neighbourhood of the flow, rounded to T.
+// One warp per pixel: the L(2r+1) window taps (alt_corr_lookup.cuh),
+// rounded to T, into convc1 (lane owns output channels lane and lane +
+// 32); then convf1 over the 7x7 neighbourhood of the flow, rounded to T.
 template <typename T, int NV, int R>
 __global__ void __launch_bounds__(32 * kWarps)
 motion_in_kernel(const float* __restrict__ f1, Pyramid pyr, int levels,

@@ -11,7 +11,7 @@ launches the kernel or raises. Inference only: there is no backward yet.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -21,7 +21,11 @@ from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
 KERNEL = "alt_corr"
 MAX_LEVELS = 8
 RADII = (1, 2, 3, 4)
-MAX_D = 512
+SEGMENT = 256  # most pixels of a row one block serves (one thread each)
+# Channels staged a step, widest first: at 32 a staged row is one 128-byte
+# line of the banks, which the kernel reads without bank conflicts.
+CHUNKS = (32, 16, 8, 4)
+SMEM = 227 * 1024  # the most dynamic shared memory a block may opt into
 
 # Kernel launches since the count was last set to 0.
 LAUNCHES = 0
@@ -50,10 +54,53 @@ def _bind(lib: ctypes.CDLL):
         ctypes.c_int,  # W1
         ctypes.c_int,  # D
         ctypes.c_int,  # radius
+        ctypes.c_int,  # seg: pixels a segment
+        ctypes.c_int,  # threads a block
+        ctypes.c_int,  # dc: channels a chunk
+        ctypes.c_int,  # dynamic shared memory a block, bytes
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+class Geometry(NamedTuple):
+    """How the kernel covers a lookup: one block for each (image row, level,
+    segment of a row), ``threads`` a block (one a pixel), channels staged
+    ``dc`` at a time in ``chunks`` steps (the last partial where ``dc``
+    does not divide D), ``smem`` bytes of dynamic shared memory a block
+    (two stages of the segment's f1 rows and the widest level's row)."""
+
+    segments: int
+    seg: int
+    threads: int
+    dc: int
+    chunks: int
+    smem: int
+    blocks: int
+
+
+def launch_geometry(rows: int, W1: int, widths: Sequence[int], D: int) -> Geometry:
+    """The launch of one lookup over ``rows`` = B·H image rows of W1 pixels,
+    pyramid levels of ``widths`` positions and D channels: the widest chunk
+    of CHUNKS no wider than D for which two stages of the widest level row
+    and a segment of at least 32 pixels (or the whole row) fit in SMEM,
+    with segments of at most SEGMENT pixels, as few and as even as fit.
+    Raises ValueError where a level row is too wide for even that."""
+    w2 = max(widths)
+    for dc in CHUNKS:
+        room = SMEM // (8 * dc) - w2  # f1 rows beside the level row, two stages
+        if dc > D or room < min(W1, 32):
+            continue
+        segments = -(-W1 // min(SEGMENT, room))
+        seg = -(-W1 // segments)
+        return Geometry(segments, seg, -(-seg // 32) * 32, dc, -(-D // dc),
+                        8 * dc * (seg + w2), rows * len(widths) * segments)
+    raise ValueError(
+        f"alt_corr kernel stages a whole level row of {w2} positions and at least "
+        f"{min(W1, 32)} pixels of f1 in shared memory: at {CHUNKS[-1]} channels a step that "
+        f"needs more than the {SMEM} bytes a block can have (level rows of up to "
+        f"{SMEM // (8 * CHUNKS[-1]) - min(W1, 32)} positions)")
 
 
 def _check(fmap1: torch.Tensor, pyramid: Sequence[torch.Tensor],
@@ -63,8 +110,8 @@ def _check(fmap1: torch.Tensor, pyramid: Sequence[torch.Tensor],
     B, H, W1, D = fmap1.shape
     if fmap1.numel() == 0:
         raise ValueError(f"alt_corr got an empty fmap1 {tuple(fmap1.shape)}")
-    if D % 4 or D > MAX_D:
-        raise ValueError(f"alt_corr kernel needs D % 4 == 0 and D <= {MAX_D}, got D={D}")
+    if D % 4:
+        raise ValueError(f"alt_corr kernel needs D % 4 == 0, got D={D}")
     if radius not in RADII:
         raise ValueError(f"alt_corr kernel supports radius in {RADII}, got {radius}")
     if not 1 <= len(pyramid) <= MAX_LEVELS:
@@ -102,14 +149,16 @@ def corr_lookup_alt(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
             raise ValueError("alt_corr kernel needs 16-byte aligned feature rows")
     B, H, W1, D = f1.shape
     L = len(levels)
+    widths = [t.shape[2] for t in levels]
+    geo = launch_geometry(B * H, W1, widths, D)
     out = torch.empty((B, H, W1, L * (2 * radius + 1)), dtype=torch.float32, device=f1.device)
     fn = _kernel()
     ptrs = (ctypes.c_void_p * L)(*[t.data_ptr() for t in levels])
-    widths = (ctypes.c_int * L)(*[t.shape[2] for t in levels])
+    c_widths = (ctypes.c_int * L)(*widths)
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
-        err = fn(f1.data_ptr(), ptrs, widths, L, coords.data_ptr(), out.data_ptr(),
-                 B * H, W1, D, radius, stream)
+        err = fn(f1.data_ptr(), ptrs, c_widths, L, coords.data_ptr(), out.data_ptr(),
+                 B * H, W1, D, radius, geo.seg, geo.threads, geo.dc, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"alt_corr kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

@@ -51,7 +51,15 @@ def _inputs(B, H, W, D, levels, seed=0):
 @pytest.mark.parametrize(
     "B,H,W,D,levels,radius",
     [(1, 4, 32, 256, 4, 4), (2, 3, 37, 256, 4, 4), (1, 5, 123, 64, 3, 2),
-     (1, 2, 50, 128, 2, 1), (1, 2, 64, 512, 1, 3), (1, 3, 41, 100, 4, 4)],
+     (1, 2, 50, 128, 2, 1), (1, 2, 64, 512, 1, 3), (1, 3, 41, 100, 4, 4),
+     # the staged kernel's edges: rows of two and three segments (ragged,
+     # B > 1), a chunk that does not divide D, the Middlebury-F width (four
+     # segments, shortened to fit), a level row of one position, the
+     # realtime shape, level rows too wide for 32 channels a chunk (16, 8
+     # and 4 channels)
+     (1, 3, 300, 256, 4, 4), (2, 2, 517, 256, 4, 4), (1, 3, 41, 260, 4, 4),
+     (1, 2, 720, 256, 4, 4), (1, 2, 9, 64, 4, 4), (1, 68, 120, 256, 4, 4),
+     (1, 1, 1200, 256, 2, 4), (1, 1, 2000, 256, 2, 4), (1, 1, 4000, 64, 1, 4)],
 )
 def test_kernel_matches_plain(B, H, W, D, levels, radius):
     _cuda()

@@ -151,6 +151,7 @@ def test_library_name_hashes_every_header_a_kernel_includes(tmp_path, monkeypatc
         "fused_update.cu", "alt_corr_lookup.cuh", "conv3x3_sm90.cuh"]
     assert [p.name for p in _build._sources("packed_conv")] == [
         "packed_conv.cu", "conv3x3_sm90.cuh"]
+    assert [p.name for p in _build._sources("alt_corr")] == ["alt_corr.cu"]
     names = ("alt_corr", "fused_update", "packed_conv")
 
     def paths():
@@ -159,10 +160,11 @@ def test_library_name_hashes_every_header_a_kernel_includes(tmp_path, monkeypatc
     before = paths()
     (csrc / "unused.cuh").write_text("// included by no kernel\n")
     assert paths() == before
+    # K2's lookup stage (K1 keeps its own device code)
     header = csrc / "alt_corr_lookup.cuh"
     header.write_text(header.read_text() + "// edited\n")
     edited = paths()
-    assert [k for k in names if edited[k] != before[k]] == ["alt_corr", "fused_update"]
+    assert [k for k in names if edited[k] != before[k]] == ["fused_update"]
     # the bf16 conv mainloop K2 and K3 share
     mainloop = csrc / "conv3x3_sm90.cuh"
     mainloop.write_text(mainloop.read_text() + "// edited\n")
@@ -173,6 +175,10 @@ def test_library_name_hashes_every_header_a_kernel_includes(tmp_path, monkeypatc
     src.write_text(src.read_text() + "// edited\n")
     assert paths()["alt_corr"] == edited["alt_corr"]
     assert paths()["fused_update"] != edited["fused_update"]
+    edited = paths()
+    src = csrc / "alt_corr.cu"
+    src.write_text(src.read_text() + "// edited\n")
+    assert [k for k in names if paths()[k] != edited[k]] == ["alt_corr"]
     # through a header that includes another
     (csrc / "outer.cuh").write_text('#include "inner.cuh"\n')
     (csrc / "inner.cuh").write_text("// v1\n")

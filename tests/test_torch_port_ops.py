@@ -166,6 +166,59 @@ def test_alt_wrapper_refuses_other_devices():
         alt_corr.corr_lookup_alt(f1, [f1], torch.zeros((1, 2, 8), device="meta"), 2)
 
 
+@pytest.mark.parametrize(
+    "rows,W1,widths,D,dc,chunks",
+    [
+        (136, 240, (240, 120, 60, 30), 256, 32, 8),  # the 544x960 slice
+        (496, 720, (720, 360, 180, 90), 256, 32, 8),  # Middlebury-F width
+        (68, 120, (120, 60, 30, 15), 256, 32, 8),  # the realtime preset
+        (12, 517, (517, 258, 129, 64), 100, 32, 4),  # 3 x 32 + a partial 4
+        (3, 41, (41, 20, 10, 5), 260, 32, 9),  # 8 x 32 + a partial 4
+        (2, 9, (9, 4, 2, 1), 8, 8, 1),  # no chunk wider than D
+        (1, 2000, (2000, 1000), 256, 8, 32),  # a level row too wide for 16 channels
+    ],
+)
+def test_alt_launch_geometry_takes_the_widest_chunk_that_fits(rows, W1, widths, D, dc, chunks):
+    geo = alt_corr.launch_geometry(rows, W1, widths, D)
+    assert (geo.dc, geo.chunks) == (dc, chunks)
+    assert (geo.chunks - 1) * geo.dc < D <= geo.chunks * geo.dc
+    # two stages of the segment's f1 rows and the widest level row
+    assert geo.smem == 2 * (geo.seg + max(widths)) * geo.dc * 4 <= alt_corr.SMEM
+    for wider in (c for c in alt_corr.CHUNKS if geo.dc < c <= D):
+        assert 2 * (min(W1, 32) + max(widths)) * wider * 4 > alt_corr.SMEM
+
+
+@pytest.mark.parametrize("rows,W1,levels", [(136, 240, 4), (496, 720, 4), (10, 300, 2),
+                                            (3, 517, 3), (2, 256, 1), (2, 257, 4), (1, 1, 1),
+                                            (1, 2000, 2)])
+def test_alt_launch_geometry_grid_counts_rows_levels_and_segments(rows, W1, levels):
+    widths = [max(W1 >> l, 1) for l in range(levels)]
+    geo = alt_corr.launch_geometry(rows, W1, widths, 256)
+    assert geo.blocks == rows * levels * geo.segments
+    assert (geo.segments - 1) * geo.seg < W1 <= geo.segments * geo.seg <= W1 + geo.segments
+    assert geo.seg <= alt_corr.SEGMENT
+    assert geo.seg <= geo.threads < geo.seg + 32 and geo.threads % 32 == 0
+    # as few segments as fit: one fewer would not
+    fewer = geo.segments - 1
+    if fewer:
+        seg = -(-W1 // fewer)
+        assert seg > alt_corr.SEGMENT or 2 * (seg + widths[0]) * geo.dc * 4 > alt_corr.SMEM
+
+
+def test_alt_launch_geometry_shortens_segments_to_fit():
+    # Middlebury-F width: three segments of 240 pixels beside the 720-position
+    # level row would take more than a block's shared memory at 32 channels
+    geo = alt_corr.launch_geometry(496, 720, (720, 360, 180, 90), 256)
+    assert 2 * (240 + 720) * 32 * 4 > alt_corr.SMEM
+    assert (geo.segments, geo.seg, geo.threads, geo.dc) == (4, 180, 192, 32)
+
+
+def test_alt_launch_geometry_refuses_a_row_too_wide_to_stage():
+    alt_corr.launch_geometry(1, 7000, (7000,), 256)  # rows of images about 28,000 px wide
+    with pytest.raises(ValueError, match=f"more than the {alt_corr.SMEM}"):
+        alt_corr.launch_geometry(1, 13000, (13000, 6500), 256)
+
+
 @pytest.mark.parametrize("backend", ["reg", "alt", "reg_pallas", "alt_pallas"])
 def test_corr_fn_backends_match_jax(backend):
     """make_corr_fn + CorrFn for every backend, from bf16 features: reg/alt
