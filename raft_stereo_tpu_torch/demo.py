@@ -1,11 +1,16 @@
 """Inference demo: glob left/right pairs → disparity PNG (jet) / .npy
-(PyTorch port of ``raft_stereo_tpu/demo.py``'s one-pair-at-a-time loop).
+(PyTorch port of ``raft_stereo_tpu/demo.py``).
 
     python -m raft_stereo_tpu_torch.demo -l 'left/*/im0.png' -r 'right/*/im1.png'
 
 Runs on the CUDA card; ``main(argv, device="cpu")`` runs on the CPU.
-Each pair is padded to /32, run through the test-mode forward and unpadded;
-outputs are named after the left image's directory.
+Pairs stream through the batched inference engine (``runtime.infer``):
+shape-bucketed micro-batches, one CUDA graph per (bucket, batch) on the
+card, each pair's decode on the engine's stager thread, where a pair that
+fails to load fails alone and is logged and skipped. ``--per_image`` keeps
+the synchronous one-pair loop (its forward captured once per shape on the
+card). Each pair is padded to /32 and unpadded; outputs are named after the
+left image's directory.
 """
 
 from __future__ import annotations
@@ -14,14 +19,24 @@ import argparse
 import glob
 import logging
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 from raft_stereo_tpu_torch.config import apply_preset_defaults
-from raft_stereo_tpu_torch.evaluate import add_model_args, load_model, make_forward
+from raft_stereo_tpu_torch.evaluate import add_model_args, load_model, make_forward, make_serving
+from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops.pad import InputPadder
+from raft_stereo_tpu_torch.runtime import infer as infer_mod
+from raft_stereo_tpu_torch.runtime.infer import (
+    GraphCache,
+    InferenceEngine,
+    InferRequest,
+    add_infer_args,
+    options_from_args,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -52,37 +67,78 @@ def save_disparity_png(path: str, disp: np.ndarray) -> None:
     Image.fromarray(_colormap_jet(scaled)).save(path)
 
 
-def demo(args, device=None) -> List[float]:
-    """Runs every pair; returns each pair's forward seconds (host clock,
-    ending when the disparity has reached the host)."""
+@dataclass
+class DemoRun:
+    """What a demo run did: the model it ran, the pairs it saved; on the
+    per-image path each pair's forward seconds (host clock, until the
+    disparity reached the host); the engine, on the engine path; and the
+    captured forwards (None where the forward ran eagerly)."""
+
+    model: RAFTStereo
+    saved: int = 0
+    seconds: List[float] = field(default_factory=list)
+    engine: Optional[InferenceEngine] = None
+    graphs: Optional[GraphCache] = None
+
+
+def _save_result(out_dir: Path, imfile1: str, disp: np.ndarray, save_numpy: bool) -> None:
+    stem = Path(imfile1).parent.name
+    if save_numpy:
+        np.save(out_dir / f"{stem}.npy", disp)
+    save_disparity_png(str(out_dir / f"{stem}.png"), -disp)  # -flow under jet
+    logger.info("%s -> %s.png  range [%.1f, %.1f]", imfile1, stem, disp.min(), disp.max())
+
+
+def demo(args, device=None) -> DemoRun:
     model = load_model(args, device=device)
-    forward = make_forward(model, args.valid_iters)
     out_dir = Path(args.output_directory)
     out_dir.mkdir(exist_ok=True, parents=True)
     left_images = sorted(glob.glob(args.left_imgs, recursive=True))
     right_images = sorted(glob.glob(args.right_imgs, recursive=True))
     print(f"Found {len(left_images)} images. Saving files to {out_dir}/")
 
-    seconds = []
-    for imfile1, imfile2 in zip(left_images, right_images):
-        image1, image2 = load_image(imfile1), load_image(imfile2)
-        padder = InputPadder(image1.shape, divis_by=32)
-        p1, p2 = padder.pad(image1, image2)
-        t0 = time.perf_counter()
-        disp = forward(p1, p2)
-        disp = padder.unpad(disp)[0, :, :, 0].cpu().numpy()
-        seconds.append(time.perf_counter() - t0)
-        stem = Path(imfile1).parent.name
-        if args.save_numpy:
-            np.save(out_dir / f"{stem}.npy", disp)
-        save_disparity_png(str(out_dir / f"{stem}.png"), -disp)  # -flow under jet
-        logger.info("%s -> %s.png  range [%.1f, %.1f]", imfile1, stem, disp.min(), disp.max())
-    return seconds
+    infer = options_from_args(args)
+    if infer is None:
+        forward = make_forward(model, args.valid_iters)
+        run = DemoRun(model, graphs=forward.graphs)
+        for imfile1, imfile2 in zip(left_images, right_images):
+            image1, image2 = load_image(imfile1), load_image(imfile2)
+            padder = InputPadder(image1.shape, divis_by=32)
+            p1, p2 = padder.pad(image1, image2)
+            t0 = time.perf_counter()
+            disp = padder.unpad(forward(p1, p2))[0, :, :, 0].cpu().numpy()
+            run.seconds.append(time.perf_counter() - t0)
+            _save_result(out_dir, imfile1, disp, args.save_numpy)
+            run.saved += 1
+        return run
+
+    engine, stream = make_serving(model, args.valid_iters, infer)
+    run = DemoRun(model, engine=engine, graphs=engine.graphs if engine.capture else None)
+
+    def requests():
+        for imfile1, imfile2 in zip(left_images, right_images):
+            # decoded on the stager thread; a pair that fails to load fails alone
+            yield InferRequest(payload=imfile1, inputs=lambda f1=imfile1, f2=imfile2: (
+                load_image(f1)[0], load_image(f2)[0]))
+
+    for res in stream(requests()):
+        if not res.ok:
+            logger.error("FAILED %s: %s: %s", res.payload, type(res.error).__name__, res.error)
+            continue
+        _save_result(out_dir, res.payload, res.output[:, :, 0], args.save_numpy)
+        run.saved += 1
+    stats = engine.stats
+    infer_mod.publish_summary(stats, label="demo")
+    logger.info("engine: %d images in %d micro-batches over %d shape bucket(s), %d graph(s) "
+                "captured in %.2fs", stats.images, stats.batches, len(stats.buckets),
+                engine.graphs.captures, engine.graphs.capture_s)
+    return run
 
 
-def main(argv=None, device=None) -> List[float]:
+def main(argv=None, device=None) -> DemoRun:
     parser = argparse.ArgumentParser()
     add_model_args(parser)
+    add_infer_args(parser)
     parser.add_argument("--save_numpy", action="store_true")
     parser.add_argument("-l", "--left_imgs",
                         default="datasets/Middlebury/MiddEval3/testH/*/im0.png")
@@ -92,7 +148,10 @@ def main(argv=None, device=None) -> List[float]:
     apply_preset_defaults(parser, argv)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    return demo(args, device=device)
+    infer_mod.reset_summary()
+    run = demo(args, device=device)
+    infer_mod.enforce_failure_budget(args.max_failed_frac)
+    return run
 
 
 if __name__ == "__main__":

@@ -2,23 +2,51 @@
 
 Channel-last [B, H, W, C] numpy arrays or torch tensors, replicate (edge)
 padding.
+
+Besides the per-image ``InputPadder``, this module holds the shape-bucket
+vocabulary of the batched inference engine (``runtime.infer``):
+``bucket_shape`` maps an (H, W) to the /``divis_by`` padded shape it is
+served at, and ``BatchPadder`` pads a batch of images of possibly different
+original shapes that share one bucket, each with its own offsets, so that
+results unpad per item (slots past ``valid``, the pad-to-batch filler, are
+dropped). All of it is numpy on the host.
 """
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.nn.functional as F
 
 
-def _pad_amounts(ht: int, wd: int, divis_by: int, mode: str) -> List[int]:
-    """(left, right, top, bottom) edge-pad amounts for one [H, W] shape."""
-    pad_ht = (((ht // divis_by) + 1) * divis_by - ht) % divis_by
+def _pad_amounts(ht: int, wd: int, divis_by: int, mode: str,
+                 divis_h: Optional[int] = None) -> List[int]:
+    """(left, right, top, bottom) edge-pad amounts for one [H, W] shape.
+    ``divis_h`` overrides the H divisor only (a spatially sharded bucket's);
+    None keeps ``divis_by``."""
+    dh = divis_by if divis_h is None else int(divis_h)
+    pad_ht = (((ht // dh) + 1) * dh - ht) % dh
     pad_wd = (((wd // divis_by) + 1) * divis_by - wd) % divis_by
     if mode == "sintel":
         return [pad_wd // 2, pad_wd - pad_wd // 2, pad_ht // 2, pad_ht - pad_ht // 2]
     return [pad_wd // 2, pad_wd - pad_wd // 2, 0, pad_ht]
+
+
+def spatial_divis(divis_by: int, num_spatial: int) -> int:
+    """The H divisor of a bucket split into ``num_spatial`` row slabs: a
+    multiple of ``divis_by`` that the slab count divides (their lcm)."""
+    return math.lcm(int(divis_by), max(int(num_spatial), 1))
+
+
+def bucket_shape(ht: int, wd: int, divis_by: int = 32,
+                 divis_h: Optional[int] = None) -> Tuple[int, int]:
+    """The /``divis_by``-padded (H, W) an image of this shape is served at:
+    ``InputPadder``'s padded shape, so batched serving pads each member as
+    the per-image path does. Images of different shapes can share one."""
+    l, r, t, b = _pad_amounts(ht, wd, divis_by, "sintel", divis_h=divis_h)
+    return ht + t + b, wd + l + r
 
 
 class InputPadder:
@@ -43,3 +71,52 @@ class InputPadder:
         l, r, t, b = self._pad
         ht, wd = x.shape[1], x.shape[2]
         return x[:, t : ht - b, l : wd - r, :]
+
+
+class BatchPadder:
+    """Pads a batch of images that share one bucket.
+
+    ``shapes`` are the members' original (H, W), all in one
+    ``bucket_shape``. ``pad`` stacks one input slot into a host
+    [B, Hb, Wb, C] array, edge-padding each item with its own offsets (the
+    bytes ``InputPadder`` gives that image); ``unpad`` cuts item ``i``'s
+    window out of a batched result, and ``unpad_all`` the first ``valid``
+    items' (the rest are filler and never surface).
+    """
+
+    def __init__(self, shapes: Sequence[Tuple[int, int]], mode: str = "sintel",
+                 divis_by: int = 32, divis_h: Optional[int] = None):
+        if not shapes:
+            raise ValueError("BatchPadder needs at least one shape")
+        self.shapes = [tuple(s) for s in shapes]
+        self.bucket = bucket_shape(*self.shapes[0], divis_by=divis_by, divis_h=divis_h)
+        self._pads = []
+        for ht, wd in self.shapes:
+            if bucket_shape(ht, wd, divis_by, divis_h=divis_h) != self.bucket:
+                raise ValueError(
+                    f"shape {(ht, wd)} does not belong to bucket {self.bucket} "
+                    f"(divis_by={divis_by}, divis_h={divis_h})")
+            self._pads.append(_pad_amounts(ht, wd, divis_by, mode, divis_h=divis_h))
+
+    def __len__(self):
+        return len(self.shapes)
+
+    def pad(self, items: Sequence[np.ndarray]) -> np.ndarray:
+        """Stack one input slot: per-item [H, W, C] → host [B, Hb, Wb, C]."""
+        if len(items) != len(self._pads):
+            raise ValueError(f"expected {len(self._pads)} items, got {len(items)}")
+        return np.stack([np.pad(np.asarray(x), ((t, b), (l, r), (0, 0)), mode="edge")
+                         for x, (l, r, t, b) in zip(items, self._pads)])
+
+    def unpad(self, batch: np.ndarray, i: int) -> np.ndarray:
+        """Item ``i``'s original [H, W, C'] window of a batched result."""
+        l, r, t, b = self._pads[i]
+        ht, wd = batch.shape[1], batch.shape[2]
+        return batch[i, t : ht - b, l : wd - r, :]
+
+    def unpad_all(self, batch: np.ndarray, valid: int) -> List[np.ndarray]:
+        """The first ``valid`` items' windows, in order; slots from
+        ``valid`` on are pad-to-batch filler and never surface."""
+        if not 0 <= valid <= len(self._pads):
+            raise ValueError(f"valid={valid} out of range for batch of {len(self._pads)}")
+        return [self.unpad(batch, i) for i in range(valid)]

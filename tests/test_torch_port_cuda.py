@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: the alt-correlation kernel (K1), the
 fused refinement step (K2) and the packed stage's 3x3x64 conv (K3) against
 their plain versions, the wrappers' checks and launch counts, and the
-forwards with the kernels against the forwards with the plain versions.
+forwards with the kernels against the forwards with the plain versions;
+then the captured forwards: replays against eager runs, the graph cache's
+eviction, and the engine on the card.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -11,18 +13,28 @@ tests/conftest.py beside it imports JAX, so run it there as
 """
 
 import dataclasses
+import gc
+import weakref
 
+import numpy as np
 import pytest
 import torch
 
 from chip_smoke import K3_PER_TRUNK, k2_errors, k3_abs_sums, k3_errors, k3_inputs
 from raft_stereo_tpu_torch.config import PRESETS
-from raft_stereo_tpu_torch.evaluate import load_model
+from raft_stereo_tpu_torch.evaluate import load_model, make_engine, make_forward
 from raft_stereo_tpu_torch.experiments import packed_conv
 from raft_stereo_tpu_torch.models import extractor
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
 from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain, pool_fmap_pyramid
+from raft_stereo_tpu_torch.ops.pad import BatchPadder
+from raft_stereo_tpu_torch.runtime.infer import (
+    GraphCache,
+    InferOptions,
+    InferRequest,
+    kernel_launches,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -325,3 +337,134 @@ def test_packed_forward_launches_k3_four_times_a_pair(monkeypatch):
         _, up_on = model(a, b, iters=2)
     assert packed_conv.LAUNCHES == before + 2 * K3_PER_TRUNK
     assert torch.isfinite(up_on).all() and up_on.shape == up_off.shape
+
+
+# ------------------------------------------------ captured forwards (A.1)
+
+GRAPH_CELLS = [
+    # preset, fused_update, packed stage, iterations
+    ("raftstereo-middlebury", False, False, 3),
+    ("raftstereo-middlebury", True, False, 3),
+    ("raftstereo-realtime", False, False, 3),
+    ("raftstereo-realtime", False, True, 3),
+]
+
+
+@pytest.mark.parametrize("preset,fused,packed,iters", GRAPH_CELLS)
+def test_replayed_forward_equals_eager_bitwise(monkeypatch, preset, fused, packed, iters):
+    """``make_forward``'s captured forward against the eager forward on the
+    same inputs, at the preset's dtype: the same kernels in the same order,
+    so the same bits. A second shape captures its own graph; the wrapper
+    counters count the warm-up's and the capture's launches, the cache
+    counts each replay's."""
+    dev = _cuda()
+    monkeypatch.setattr(extractor, "_ENABLE_PACKED", packed)
+    cfg = dataclasses.replace(PRESETS[preset], fused_update=fused)
+    model = load_model(cfg, seed=6)
+    forward = make_forward(model, iters)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for shape in ((2, 96, 160, 3), (1, 64, 128, 3)):
+        a = torch.rand(shape, generator=g, device=dev) * 255
+        b = torch.rand(shape, generator=g, device=dev) * 255
+        before = kernel_launches()
+        got = [forward(a, b) for _ in range(2)]  # capture, then a hit
+        captured = forward.graphs.entry((tuple(a.shape), tuple(b.shape), iters)).launches
+        assert {k: n - before[k] for k, n in kernel_launches().items()} == \
+            {k: 2 * n for k, n in captured.items()}  # warm-up + capture
+        assert captured["alt_corr"] == (1 if fused else iters)
+        assert captured["fused_update"] == (iters - 1 if fused else 0)
+        assert captured["packed_conv"] == (K3_PER_TRUNK if packed else 0)
+        want = model(a, b, iters=iters)[1]
+        for x in got:
+            assert torch.equal(x, want)
+    graphs = forward.graphs
+    assert (graphs.captures, graphs.hits, graphs.replays) == (2, 2, 4)
+    assert graphs.replayed_launches["alt_corr"] == 4 * (1 if fused else iters)
+
+
+def test_replayed_fused_step_equals_eager_bitwise():
+    _cuda()
+    args = _fused_case(2, 37, 23, 64, 4, 4, True, torch.bfloat16, seed=9)
+    packed, f1, pyr, flow, h, inp, ctx, radius = args
+
+    def step(f1, flow, h, inp, ctx):
+        return fused_update.fused_refine_step(packed, f1, pyr, flow, h, inp, ctx, radius,
+                                              compute_dtype=torch.bfloat16)[0]
+
+    cache = GraphCache()
+    inputs = (f1, flow, h, inp, ctx)
+    got = cache.run("step", step, inputs).clone()
+    assert cache.entry("step").launches["fused_update"] == 1
+    assert torch.equal(got, step(*inputs))
+
+
+def test_graph_cache_eviction_frees_its_entry():
+    dev = _cuda()
+    cache = GraphCache(max_entries=1)
+    x = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+    out_a = cache.run("a", lambda t: t * 2 + 1, (x,))
+    assert torch.equal(out_a, x * 2 + 1)
+    ref = weakref.ref(cache.entry("a").output)
+    del out_a
+    cache.run("b", lambda t: t - 3, (x,))
+    gc.collect()
+    assert len(cache) == 1 and "a" not in cache and cache.evictions == 1
+    assert ref() is None  # the evicted graph's buffers are gone
+    # a third key reuses the pool's freed memory instead of growing it
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for i in range(4):
+        cache.run(("c", i), lambda t: t * 3, (x,))
+    assert torch.cuda.memory_reserved() <= reserved + (8 << 20)
+
+
+def _engine_requests(shapes, seed):
+    rng = np.random.RandomState(seed)
+    return [InferRequest(payload=i, inputs=tuple(
+        (rng.rand(h, w, 3) * 255).astype(np.float32) for _ in range(2)))
+        for i, (h, w) in enumerate(shapes)]
+
+
+def test_engine_replays_equal_eager_at_the_same_batch():
+    """The engine on the card (realtime preset, bf16): two buckets with a
+    partial batch each. Each result equals, bitwise, the eager forward of
+    the batch it rode in, filler included, and launch counts are captured x
+    replays."""
+    _cuda()
+    model = load_model(PRESETS["raftstereo-realtime"], seed=7)
+    engine = make_engine(model, 3, InferOptions(batch=2))
+    assert engine.capture
+    shapes = [(60, 100), (60, 100), (80, 128), (60, 100)]
+    reqs = _engine_requests(shapes, seed=7)
+    out = {r.payload: r for r in engine.stream(iter(reqs))}
+    assert sorted(out) == [0, 1, 2, 3] and all(r.ok for r in out.values())
+    s = engine.stats
+    assert (engine.graphs.captures, s.batches, s.padded_slots) == (2, 3, 2)
+    assert engine.graphs.replays == 3
+    assert engine.graphs.replayed_launches["alt_corr"] == 3 * 3
+    for members in ([0, 1], [3, 3], [2, 2]):  # bucket batches; filler = last item
+        padder = BatchPadder([shapes[i] for i in members], divis_by=32)
+        a, b = (torch.from_numpy(padder.pad([reqs[i].inputs[k] for i in members])).cuda()
+                for k in (0, 1))
+        want = model(a, b, iters=3)[1].cpu().numpy()
+        for slot, i in enumerate(dict.fromkeys(members)):
+            np.testing.assert_array_equal(out[i].output, padder.unpad(want, slot))
+
+
+def test_a_failing_kernel_fails_the_batch_and_falls_back_to_nothing(monkeypatch):
+    _cuda()
+    model = load_model(PRESETS["raftstereo-middlebury"], seed=8)
+    engine = make_engine(model, 2, InferOptions(batch=2))
+
+    def refused(*args):
+        return 1  # cudaErrorInvalidValue
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain lookup ran on CUDA tensors")
+
+    monkeypatch.setattr(alt_corr, "_kernel", lambda: refused)
+    monkeypatch.setattr(alt_corr, "corr_lookup_alt_plain", plain)
+    out = list(engine.stream(iter(_engine_requests([(64, 96)] * 3, seed=8))))
+    assert sorted(r.payload for r in out) == [0, 1, 2]
+    assert all(not r.ok and "alt_corr kernel launch failed" in str(r.error) for r in out)
+    assert engine.stats.failed == 3 and engine.stats.images == 0 and len(engine.graphs) == 0

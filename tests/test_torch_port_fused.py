@@ -428,14 +428,14 @@ def test_demo_runs_fused_on_the_cpu(tmp_path):
     for name in ("im0.png", "im1.png"):
         Image.fromarray((rng.rand(45, 70, 3) * 255).astype(np.uint8)).save(d / name)
     before = (fused_update.LAUNCHES, alt_corr.LAUNCHES)
-    seconds = demo.main([
+    run = demo.main([
         "--preset", "raftstereo-middlebury", "--fused_update", "--valid_iters", "2",
         "--corr_levels", "2", "--corr_radius", "2",
         "--left_imgs", str(tmp_path / "pairs" / "*" / "im0.png"),
         "--right_imgs", str(tmp_path / "pairs" / "*" / "im1.png"),
         "--output_directory", str(tmp_path / "out"), "--save_numpy",
     ], device="cpu")
-    assert len(seconds) == 1
+    assert run.saved == 1
     assert (fused_update.LAUNCHES, alt_corr.LAUNCHES) == before  # plain versions on the CPU
     disp = np.load(tmp_path / "out" / "scene0.npy")
     assert disp.shape == (45, 70) and np.isfinite(disp).all()

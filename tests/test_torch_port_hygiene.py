@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import raft_stereo_tpu_torch
-from raft_stereo_tpu_torch import demo
+from raft_stereo_tpu_torch import demo, evaluate
 from raft_stereo_tpu_torch.config import PRESETS
 from raft_stereo_tpu_torch.evaluate import load_model
 from raft_stereo_tpu_torch.ops import alt_corr
@@ -72,6 +72,8 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "raft_stereo_tpu_torch.ops.alt_corr" in loaded
     assert "raft_stereo_tpu_torch.ops.fused_update" in loaded
+    assert "raft_stereo_tpu_torch.runtime.infer" in loaded
+    assert "raft_stereo_tpu_torch.data.datasets" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -96,6 +98,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
     with pytest.raises(RuntimeError, match="no CUDA device"):
         demo.main(["--output_directory", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--dataset", "eth3d"])
     model = load_model(PRESETS["raftstereo-middlebury"], device="cpu")
     assert next(model.parameters()).device.type == "cpu"
 
@@ -110,14 +114,15 @@ def test_demo_runs_end_to_end_on_the_cpu(tmp_path):
         for name in ("im0.png", "im1.png"):
             Image.fromarray((rng.rand(45, 70, 3) * 255).astype(np.uint8)).save(d / name)
     before = alt_corr.LAUNCHES
-    seconds = demo.main([
+    run = demo.main([
         "--preset", "raftstereo-middlebury", "--valid_iters", "2",
         "--corr_levels", "2", "--corr_radius", "2",
         "--left_imgs", str(tmp_path / "pairs" / "*" / "im0.png"),
         "--right_imgs", str(tmp_path / "pairs" / "*" / "im1.png"),
         "--output_directory", str(tmp_path / "out"), "--save_numpy",
     ], device="cpu")
-    assert len(seconds) == 2
+    assert run.saved == 2 and run.engine is not None  # the engine is the default path
+    assert run.graphs is None  # nothing is captured on the CPU
     assert alt_corr.LAUNCHES == before  # CPU tensors take the plain version
     for k in range(2):
         disp = np.load(tmp_path / "out" / f"scene{k}.npy")
