@@ -55,7 +55,21 @@ Phases, each printing one JSON line:
      per-step deltas of phase 8, which must stop where they say;
  10. packed parity: the realtime forward with the packed stage, fp32 and
      bf16, every K3 call held to the plain version on the same inputs, and
-     the fp32 forward held to the one without the stage.
+     the fp32 forward held to the one without the stage;
+ 11. training: K1 and K3 through their autograd Functions against the
+     plain versions' autograd at the training shapes (``train_grad_check``:
+     K1 [8, 80, 180, 256], K3 at the realtime stem [16, 160, 360, 64] fp32
+     and bf16; a dropped level scale planted in K1's backward must fail);
+     one fp32 train step with K1 against the step with the plain lookup
+     (``train_step_check``, the same planted fault must fail);
+     ``raft_stereo_tpu_torch.train.main`` on a synthetic FlyingThings3D
+     TRAIN tree (16 pairs at 540x960) with the SceneFlow recipe (raftstereo,
+     bf16, batch 8, 320x720, 22 iterations) for 6 steps (``train_path``,
+     the ``reg`` lookup) and with ``--corr_implementation alt`` for 4
+     (``train_path_alt``: K1 steps x 22 x 2 times, one more step profiled);
+     SIGTERM at step 2, then ``--resume auto`` to step 4 (``train_resume``,
+     batch 2, 4 iterations; the restored state held bitwise to the saved).
+     The training phases run in a temp directory.
 Then the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -66,6 +80,7 @@ import contextlib
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1782,6 +1797,625 @@ def phase_parity_packed(tmp: Path, iters: int = 7, iters_checked: int = 2):
     return res
 
 
+# ------------------------------------------------------------------ training
+
+# The published SceneFlow recipe (README: --batch_size 8 --train_iters 22
+# --mixed_precision; the upstream RAFT-Stereo README's augmentation flags)
+# on the raftstereo architecture at its 320x720 crops.
+TRAIN_RECIPE = ["--batch_size", "8", "--train_iters", "22", "--mixed_precision",
+                "--image_size", "320", "720", "--spatial_scale", "-0.2", "0.4",
+                "--saturation_range", "0", "1.4", "--validation_frequency", "100000"]
+TRAIN_ITERS = 22
+TRAIN_PAIRS = 16  # synthetic FlyingThings3D TRAIN pairs at 540x960
+# K1's backward is the plain version's autograd, one level at a time, against
+# the plain version's autograd over all levels at once: the same products,
+# with df1 summed over the levels in another order.
+K1_GRAD_RTOL = 1e-6
+# K3's backward is the plain version's autograd on the same saved inputs in
+# both paths; cuDNN's weight-gradient algorithms may sum in another order
+# (atomics). fp32: 1e-5 of the gradient's largest magnitude; bf16: the
+# fp32 sums cast to bf16, so one bf16 ulp at the largest magnitude (2^-7 of
+# it).
+K3_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# One fp32 train step (TF32 off, cuDNN deterministic) with K1 against the
+# same step with the plain lookup: the forwards differ by K1's fp32 sum order
+# (ALT_TOL on each correlation), which two refinement iterations and random
+# weights carry into every gradient; each parameter's gradient is held to
+# TRAIN_STEP_GRAD_RTOL of its largest magnitude (the printed errors say how
+# far inside it they are), the loss to 1e-5 relative. The planted fault (the
+# backward recomputing every level at the full-resolution coordinates, the
+# level scale dropped) must fail it.
+TRAIN_STEP_GRAD_RTOL = 1e-2
+TRAIN_STEP_LOSS_RTOL = 1e-5
+# A conv bias that feeds an affine-free instance norm has a zero gradient;
+# each run's value is fp32 rounding noise of a sum over the layer's P
+# positions, about eps32·sqrt(P) of the weight gradient's scale (1.4e-5 at
+# the stem's P = 160 x 360): held below 1e-4 of that scale in both runs.
+ZERO_GRAD_NOISE_RTOL = 1e-4
+
+
+def _alt_vjp_dropped_level_scale(fmap1, fmap2_pyramid, coords_x, radius, grad):
+    """A planted fault: K1's backward with coordinates not divided by 2^level."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
+
+    K = 2 * radius + 1
+    df1, dlevels = None, []
+    for lvl, f2 in enumerate(fmap2_pyramid):
+        with torch.enable_grad():
+            a = fmap1.detach().requires_grad_(True)
+            b = f2.detach().requires_grad_(True)
+            out = corr_lookup_alt_plain(a, [b], coords_x.detach(), radius)
+            da, db = torch.autograd.grad(out, (a, b), grad[..., lvl * K:(lvl + 1) * K])
+        df1 = da if df1 is None else df1 + da
+        dlevels.append(db)
+    return df1, dlevels, torch.zeros_like(coords_x)
+
+
+def _k3_vjp_dropped_prologue(xp, weight, scale, shift, relu_prologue, grad):
+    """A planted fault: K3's backward taken as if the conv had no prologue,
+    with zero gradients for scale and shift."""
+    import torch
+
+    from raft_stereo_tpu_torch.experiments.packed_conv import packed_conv3x3_plain
+
+    with torch.enable_grad():
+        x = xp.detach().requires_grad_(True)
+        w = weight.detach().requires_grad_(True)
+        dx, dw = torch.autograd.grad(packed_conv3x3_plain(x, w), (x, w), grad)
+    return dx, dw, torch.zeros_like(scale), torch.zeros_like(shift)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _alt_bwd_bound(f1, pyr, coords, radius):
+    """Least time of K1's backward on the card: every input (f1, the
+    levels, the coordinates, the output gradient) read once and the
+    gradients of f1 and the levels written once, against its products (the
+    recomputed window sums and the two gradient products, 3x the forward's
+    2·D a valid row)."""
+    fwd = _alt_bound(f1, pyr, coords, radius)
+    B, H, W1, D = f1.shape
+    out = B * H * W1 * len(pyr) * (2 * radius + 1)
+    n_bytes = 4 * (2 * f1.numel() + 2 * sum(p.numel() for p in pyr) + coords.numel() + out)
+    flops = 3 * fwd["flops"]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return {"bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_train_grad_check():
+    """K1 and K3 through their autograd Functions (kernel forward, plain
+    backward) against the plain versions' autograd, at the training
+    shapes: K1 at [8, 80, 180, 256] (batch 8 at 320x720, 1/4 resolution),
+    L=4, r=4; K3 at the realtime training stem, batch 8's 16 images through
+    the shared backbone at 320x720, layer1 at [16, 160, 360, 64], fp32 and
+    bf16, without a prologue (as the stem calls it) and with the relu
+    prologue (scale [16, 128], shift [16, 64]; their gradients too). A
+    dropped level scale planted in K1's backward and a dropped prologue
+    planted in K3's must each fail."""
+    import torch
+
+    from raft_stereo_tpu_torch.experiments import packed_conv, packed_encoder
+    from raft_stereo_tpu_torch.ops import alt_corr
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
+
+    res = {"phase": "train_grad_check"}
+    with _fp32_checks():
+        B, H, W1, D, L, r = 8, 80, 180, 256, 4, 4
+        f1, pyr, coords = _alt_inputs(B, H, W1, D, L, seed=SEED + 40)
+        pyr = [p.contiguous() for p in pyr]
+        g = torch.randn((B, H, W1, L * (2 * r + 1)), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 41))
+
+        def grads(fn):
+            a = f1.clone().requires_grad_(True)
+            lv = [p.clone().requires_grad_(True) for p in pyr]
+            out = fn(a, lv, coords, r)
+            out.backward(g)
+            torch.cuda.synchronize()
+            return out.detach(), a.grad, [p.grad for p in lv]
+
+        out_k, df1_k, dl_k = grads(alt_corr.corr_lookup_alt)
+        out_p, df1_p, dl_p = grads(corr_lookup_alt_plain)
+        k1 = {"shape": [B, H, W1, D], "levels": L, "radius": r,
+              "fwd_max_abs_err": float((out_k - out_p).abs().max()), "fwd_tol": ALT_TOL,
+              "df1_rel_err": _rel(df1_k, df1_p),
+              "dlevel_rel_err": [_rel(a, b) for a, b in zip(dl_k, dl_p)],
+              "grad_rtol": K1_GRAD_RTOL}
+        ok = (k1["fwd_max_abs_err"] <= ALT_TOL and k1["df1_rel_err"] <= K1_GRAD_RTOL
+              and max(k1["dlevel_rel_err"]) <= K1_GRAD_RTOL)
+        real = alt_corr.alt_lookup_vjp
+        alt_corr.alt_lookup_vjp = _alt_vjp_dropped_level_scale
+        try:
+            _, df1_f, dl_f = grads(alt_corr.corr_lookup_alt)
+        finally:
+            alt_corr.alt_lookup_vjp = real
+        k1["fault_dropped_level_scale_rel_err"] = max(_rel(a, b) for a, b in zip(dl_f, dl_p))
+        fault_caught = k1["fault_dropped_level_scale_rel_err"] > K1_GRAD_RTOL
+        k1["bwd_ms"] = _time_ms(lambda: alt_corr.alt_lookup_vjp(f1, pyr, coords, r, g), 5,
+                                warmup=1)
+        k1["fwd_ms"] = _time_ms(lambda: alt_corr.corr_lookup_alt(f1, pyr, coords, r), 20)
+        bwd = _alt_bwd_bound(f1, pyr, coords, r)
+        fwd = _alt_bound(f1, pyr, coords, r)
+        k1.update(fwd_bound_ms=fwd["bound_ms"], fwd_bound_by=fwd["bound_by"],
+                  bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+                  bwd_bytes=bwd["bytes"], bwd_flops=bwd["flops"])
+        res["k1"] = k1
+        del f1, pyr, coords, g, out_k, out_p, df1_k, df1_p, dl_k, dl_p, df1_f, dl_f
+        torch.cuda.empty_cache()
+
+        # the realtime stem: the stacked batch of 16 at 320x720, stride 2
+        stem_in = torch.empty((16, 3, 320, 720), device="meta")
+        if not packed_encoder.packable(stem_in, "batch", 2):
+            raise AssertionError("the packed stage refuses the realtime training stem")
+        k3 = []
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            xp, w, _, _, _ = k3_inputs(16, 160, 360, dtype, seed=SEED + 42)
+            g3 = torch.randn(xp.shape, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(SEED + 43)).to(dtype)
+
+            def run(fn):
+                x = xp.clone().requires_grad_(True)
+                ww = w.clone().requires_grad_(True)
+                out = fn(x, ww)
+                out.backward(g3)
+                torch.cuda.synchronize()
+                return out.detach(), x.grad, ww.grad
+
+            out_k, dx_k, dw_k = run(packed_conv.packed_conv3x3)
+            out_p, dx_p, dw_p = run(packed_conv.packed_conv3x3_plain)
+            fwd = k3_errors(out_k, out_p, k3_abs_sums(xp, w))
+            c = {"dtype": dname, "shape": [16, 160, 360, 64], "fwd": fwd,
+                 "dx_rel_err": _rel(dx_k, dx_p), "dw_rel_err": _rel(dw_k, dw_p),
+                 "grad_rtol": K3_GRAD_RTOL[dname],
+                 "bwd_plain_ms": _time_ms(lambda: packed_conv.packed_conv_vjp(
+                     xp, w, None, None, False, g3), 5, warmup=1),
+                 "fwd_ms": _time_ms(lambda: packed_conv.packed_conv3x3(xp, w), 20)}
+            c["ok"] = (fwd["ok"] and c["dx_rel_err"] <= c["grad_rtol"]
+                       and c["dw_rel_err"] <= c["grad_rtol"])
+            k3.append(c)
+            del xp, w, g3, out_k, out_p, dx_k, dx_p, dw_k, dw_p
+            torch.cuda.empty_cache()
+        res["k3"] = k3
+
+        # the relu prologue, with the scale and shift gradients
+        k3p = []
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            xp, w, sc, sh, relu = k3_inputs(16, 160, 360, dtype, "relu", seed=SEED + 44)
+            sh = sh[:, :64].contiguous()  # the [B, 64] form, both halves' gradients summed
+            g3 = torch.randn(xp.shape, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(SEED + 45)).to(dtype)
+
+            def run(fn):
+                ins = [t.clone().requires_grad_(True) for t in (xp, w, sc, sh)]
+                out = fn(*ins, relu_prologue=relu)
+                out.backward(g3)
+                torch.cuda.synchronize()
+                return out.detach(), [t.grad for t in ins]
+
+            out_k, d_k = run(packed_conv.packed_conv3x3)
+            out_p, d_p = run(packed_conv.packed_conv3x3_plain)
+            fwd = k3_errors(out_k, out_p, k3_abs_sums(xp, w, sc, sh, relu))
+            errs = {f"d{n}_rel_err": _rel(a, b)
+                    for n, a, b in zip(("x", "w", "scale", "shift"), d_k, d_p)}
+            c = {"dtype": dname, "shape": [16, 160, 360, 64], "prologue": "relu",
+                 "scale_shape": list(sc.shape), "shift_shape": list(sh.shape), "fwd": fwd,
+                 **errs, "grad_rtol": K3_GRAD_RTOL[dname]}
+            c["ok"] = fwd["ok"] and max(errs.values()) <= c["grad_rtol"]
+            if dname == "float32":
+                real = packed_conv.packed_conv_vjp
+                packed_conv.packed_conv_vjp = _k3_vjp_dropped_prologue
+                try:
+                    _, d_f = run(packed_conv.packed_conv3x3)
+                finally:
+                    packed_conv.packed_conv_vjp = real
+                c["fault_dropped_prologue_rel_err"] = max(
+                    _rel(a, b) for a, b in zip(d_f, d_p))
+                k3_fault_caught = c["fault_dropped_prologue_rel_err"] > c["grad_rtol"]
+                del d_f
+            k3p.append(c)
+            del xp, w, sc, sh, g3, out_k, out_p, d_k, d_p
+            torch.cuda.empty_cache()
+        res["k3_prologue"] = k3p
+    emit(res)
+    if not ok:
+        raise AssertionError(f"K1's autograd disagrees with the plain version's: {k1}")
+    if not fault_caught:
+        raise AssertionError("the K1 gradient check passes a dropped level scale")
+    bad = [f"{c['dtype']} {c.get('prologue')}" for c in k3 + k3p if not c["ok"]]
+    if bad:
+        raise AssertionError(f"K3's autograd disagrees with the plain version's in {bad}")
+    if not k3_fault_caught:
+        raise AssertionError("the K3 gradient check passes a dropped prologue")
+    return res
+
+
+def _synthetic_batch(B, H, W, seed):
+    """A seeded training batch on the card: textured pairs shifted by a
+    disparity field, as the loader gives them (NHWC, [0, 255])."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pad = 64
+    tex = torch.rand((B, 3, H, W + 2 * pad), generator=g, device="cuda")
+    tex = torch.nn.functional.avg_pool2d(tex, 5, stride=1, padding=2) * 255.0
+    d = 8 + 4 * torch.arange(B, device="cuda")
+    left = tex[:, :, :, pad:pad + W]
+    right = torch.stack([tex[b, :, :, pad + int(d[b]):pad + int(d[b]) + W] for b in range(B)])
+    flow = d.float().view(B, 1, 1, 1).expand(B, H, W, 1).contiguous()
+    return {"img1": left.permute(0, 2, 3, 1).contiguous(),
+            "img2": right.permute(0, 2, 3, 1).contiguous(),
+            "flow": flow, "valid": torch.ones((B, H, W), device="cuda")}
+
+
+def _biases_before_instance_norm(model):
+    """{bias name: its conv's weight name} for each conv whose output goes
+    straight into an affine-free instance norm: the norm removes the bias,
+    so its exact gradient is zero and what either run computes is rounding
+    noise."""
+    from raft_stereo_tpu_torch.models.layers import InstanceNorm, ResidualBlock
+
+    out = {}
+    for name, m in model.named_modules():
+        pairs = []
+        if isinstance(m, ResidualBlock):
+            pairs = [("conv1", m.norm1), ("conv2", m.norm2)]
+            if m.downsample is not None:
+                pairs.append(("downsample.0", m.norm3))
+        elif hasattr(m, "conv1") and hasattr(m, "norm1") and hasattr(m, "layer1"):
+            pairs = [("conv1", m.norm1)]  # an encoder's stem
+        for conv, norm in pairs:
+            if isinstance(norm, InstanceNorm):
+                out[f"{name}.{conv}.bias"] = f"{name}.{conv}.weight"
+    return out
+
+
+def _step_grads(model, batch, iters):
+    import torch
+
+    from raft_stereo_tpu_torch.losses import sequence_loss
+
+    model.zero_grad(set_to_none=True)
+    preds = model(batch["img1"], batch["img2"], iters=iters, test_mode=False, remat=True)
+    loss, _ = sequence_loss(preds, batch["flow"], batch["valid"])
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def phase_train_step_check():
+    """One fp32 train step (TF32 off, cuDNN deterministic; raftstereo with
+    the ``alt`` lookup, 2 iterations, batch 2, 320x720) with every lookup
+    through K1 and its backward, against the same step with the lookups
+    through ``corr_lookup_alt_plain``: loss and every parameter's gradient.
+    A dropped level scale planted in K1's backward must fail it."""
+    import dataclasses
+
+    import torch
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.ops import alt_corr
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
+
+    cfg = dataclasses.replace(PRESETS["raftstereo"], corr_implementation="alt")
+    batch = _synthetic_batch(2, 320, 720, SEED + 50)
+    saved_det = torch.backends.cudnn.deterministic
+    with _fp32_checks():
+        torch.backends.cudnn.deterministic = True
+        try:
+            model = load_model(cfg, seed=SEED).train()
+            alt_corr.LAUNCHES = 0
+            loss_k, grads_k = _step_grads(model, batch, 2)
+            launches = alt_corr.LAUNCHES
+            real_lookup, real_vjp = alt_corr.corr_lookup_alt, alt_corr.alt_lookup_vjp
+            alt_corr.corr_lookup_alt = corr_lookup_alt_plain
+            try:
+                loss_p, grads_p = _step_grads(model, batch, 2)
+            finally:
+                alt_corr.corr_lookup_alt = real_lookup
+            alt_corr.alt_lookup_vjp = _alt_vjp_dropped_level_scale
+            try:
+                loss_f, grads_f = _step_grads(model, batch, 2)
+            finally:
+                alt_corr.alt_lookup_vjp = real_vjp
+        finally:
+            torch.backends.cudnn.deterministic = saved_det
+    # a bias before an instance norm: both runs' gradient is rounding noise,
+    # held to ZERO_GRAD_NOISE_RTOL of its conv's weight gradient instead
+    zero = _biases_before_instance_norm(model)
+    noise = {n: max(float(grads_k[n].abs().max()), float(grads_p[n].abs().max()))
+             / float(grads_p[w].abs().max()) for n, w in zero.items()}
+    errs = {n: _rel(grads_k[n], g) for n, g in grads_p.items() if n not in zero}
+    fault = {n: _rel(grads_f[n], g) for n, g in grads_p.items() if n not in zero}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    res = {"phase": "train_step_check", "config": "raftstereo, corr alt, fp32, TF32 off",
+           "batch": 2, "input": [320, 720], "iters": 2, "k1_launches": launches,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "params": len(errs), "grad_rel_err_max": max(errs.values()),
+           "zero_gradient_biases": len(zero), "zero_gradient_noise_max": max(noise.values()),
+           "zero_gradient_noise_rtol": ZERO_GRAD_NOISE_RTOL,
+           "grad_rel_err_median": sorted(errs.values())[len(errs) // 2],
+           "worst": worst, "grad_rtol": TRAIN_STEP_GRAD_RTOL,
+           "loss_rtol": TRAIN_STEP_LOSS_RTOL,
+           "fault_dropped_level_scale": {"grad_rel_err_max": max(fault.values()),
+                                         "loss": loss_f,
+                                         "params_over_tol": sum(
+                                             v > TRAIN_STEP_GRAD_RTOL for v in fault.values())}}
+    emit(res)
+    del model, grads_k, grads_p, grads_f
+    torch.cuda.empty_cache()
+    if launches != 2 * 2:  # two lookups, each recomputed once by remat
+        raise AssertionError(f"K1 launched {launches} times in the step, expected 4")
+    if not (res["loss_rel_err"] <= TRAIN_STEP_LOSS_RTOL
+            and res["grad_rel_err_max"] <= TRAIN_STEP_GRAD_RTOL
+            and res["zero_gradient_noise_max"] <= ZERO_GRAD_NOISE_RTOL):
+        raise AssertionError(f"the K1 train step disagrees with the plain one: {worst}")
+    if res["fault_dropped_level_scale"]["grad_rel_err_max"] <= TRAIN_STEP_GRAD_RTOL:
+        raise AssertionError("the train step check passes a dropped level scale")
+    return res
+
+
+def _write_things_tree(root: Path, n: int = TRAIN_PAIRS, H: int = 540, W: int = 960,
+                       seed: int = SEED) -> None:
+    """A synthetic FlyingThings3D TRAIN tree (the reference layout): ``n``
+    textured pairs, the right image the left shifted by a per-pair
+    disparity, as PNGs, with that disparity as PFM."""
+    import numpy as np
+    from PIL import Image
+
+    from raft_stereo_tpu_torch.data.frame_io import write_pfm
+
+    rng = np.random.RandomState(seed)
+    pad = 64
+    base = root / "datasets" / "FlyingThings3D"
+    for k in range(n):
+        scene = f"{k // 8:04d}"
+        tex = rng.rand(H, W + 2 * pad, 3)
+        for axis in (0, 1):
+            tex = sum(np.roll(tex, s, axis=axis) for s in range(-2, 3)) / 5.0
+        tex = (tex * 255).astype(np.uint8)
+        d = 6 + 5 * (k % 8)
+        for side, off in (("left", 0), ("right", d)):
+            path = base / "frames_finalpass" / "TRAIN" / "A" / scene / side / f"{k:04d}.png"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(np.ascontiguousarray(tex[:, pad + off:pad + off + W])).save(path)
+        dp = base / "disparity" / "TRAIN" / "A" / scene / "left" / f"{k:04d}.pfm"
+        dp.parent.mkdir(parents=True, exist_ok=True)
+        write_pfm(str(dp), np.full((H, W), float(d), np.float32))
+
+
+@contextlib.contextmanager
+def _chdir(path: Path):
+    import os
+
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def _profile_alt_step(state, argv):
+    """One more step of the alt run under torch.profiler: K1's forward
+    device ms (its kernel's device time), the plain recompute-backward's ms
+    (CUDA events around each ``alt_lookup_vjp``) and the step's wall and
+    device ms. Its launches do not count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_stereo_tpu_torch import train
+    from raft_stereo_tpu_torch.data.datasets import fetch_dataloader
+    from raft_stereo_tpu_torch.ops import alt_corr
+    from raft_stereo_tpu_torch.parallel.train_step import make_train_step
+
+    args = train.build_parser(argv).parse_args(argv)
+    loader = fetch_dataloader(args)
+    stream = loader.stream(0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+    stream.close()
+    step = make_train_step(TRAIN_ITERS, remat=True, nonfinite_guard=True)
+    spans = []
+    real = alt_corr.alt_lookup_vjp
+
+    def timed(*a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    with _launches_kept():
+        step(state, batch)
+        torch.cuda.synchronize()
+        alt_corr.alt_lookup_vjp = timed
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            alt_corr.alt_lookup_vjp = real
+    k1_us = device_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+        device_us += us
+        if "alt_corr_kernel" in e.key:
+            k1_us += us
+    recompute = [s.elapsed_time(e) for s, e in spans]
+    return {"k1_forward_ms": k1_us / 1e3, "recompute_backward_ms": sum(recompute),
+            "recompute_calls": len(recompute),
+            "recompute_backward_ms_per_call": sum(recompute) / max(len(recompute), 1),
+            "step_wall_ms_profiled": wall * 1e3, "step_device_ms": device_us / 1e3,
+            "recompute_share_of_step_wall": sum(recompute) / (wall * 1e3)}
+
+
+def phase_train_path(tmp: Path, corr: str = "reg", steps: int = 6):
+    """``raft_stereo_tpu_torch.train.main`` on the synthetic FlyingThings3D
+    TRAIN tree with the recipe above (raftstereo, bf16, batch 8, 320x720,
+    22 iterations, remat), ``steps`` steps, with the ``corr`` lookup. The
+    kernel counts are set to 0 just before and read just after; with
+    ``alt`` K1 must launch steps x 22 x 2 times (remat runs each
+    iteration's forward again in the backward), and one more step is
+    profiled."""
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch import train
+    from raft_stereo_tpu_torch.runtime.checkpoint import read_manifest, verify_checkpoint
+    from raft_stereo_tpu_torch.utils import metrics
+
+    name = "train_path" + ("_alt" if corr == "alt" else "")
+    root = tmp / "train"
+    if not (root / "datasets").exists():
+        _write_things_tree(root)
+    argv = ["--name", name, "--train_datasets", "sceneflow", "--num_steps", str(steps),
+            "--corr_implementation", corr, *TRAIN_RECIPE]
+    saved_freq = metrics.SUM_FREQ
+    metrics.SUM_FREQ = 1  # a metrics row every step: the loss per step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _chdir(root):
+            _zero_launches()
+            t0 = time.perf_counter()
+            result = train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated()
+            rows = [json.loads(ln) for ln in (Path("runs") / name / "metrics.jsonl")
+                    .read_text().splitlines()]
+            final = str(Path(result.path).resolve())
+            manifest = read_manifest(final)
+            verified = verify_checkpoint(final)
+            prof = _profile_alt_step(result.state, argv) if corr == "alt" else None
+    finally:
+        metrics.SUM_FREQ = saved_freq
+    losses = [r["live_loss"] for r in rows if "step" in r and "live_loss" in r]
+    step_s = result.timings.step_seconds
+    wall_s = [a + b for a, b in zip(step_s, result.timings.wait_seconds)]
+    first = 2 if len(step_s) >= 6 else 1  # steps 3-6, or all but the first
+    median = statistics.median(step_s[first:6])
+    res = {
+        "phase": name, "entry": "raft_stereo_tpu_torch.train.main", "argv": argv,
+        "config": "raftstereo (hidden 128x3, 3 GRU levels, fnet 256, 4 levels r4, "
+                  "n_downsample 2, batch norm), bf16 compute on fp32 parameters, remat",
+        "dataset": f"synthetic FlyingThings3D TRAIN, {TRAIN_PAIRS} pairs at 540x960",
+        "steps": result.total_steps, "launches": launches,
+        "s_per_step_median_steps_3_6": median, "step_seconds": step_s,
+        "pairs_per_s": 8 / median,
+        "pairs_per_s_with_data_wait": 8 * len(wall_s[first:6]) / sum(wall_s[first:6]),
+        "data_wait_seconds": result.timings.wait_seconds,
+        "loop_means": result.timings.means(),
+        "wall_s_with_setup": wall, "max_memory_allocated_bytes": peak,
+        "loss_per_step": losses, "final_checkpoint": final, "final_verified": verified,
+        "final_step": (manifest or {}).get("step"),
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+    }
+    if prof is not None:
+        res["profiled_step"] = prof
+    emit(res)
+    del result
+    torch.cuda.empty_cache()
+    if res["steps"] != steps or res["final_step"] != steps or not verified:
+        raise AssertionError(f"{name}: {res['steps']} steps, final checkpoint step "
+                             f"{res['final_step']}, verified {verified}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses per step {losses}")
+    want_k1 = steps * TRAIN_ITERS * 2 if corr == "alt" else 0
+    if launches["alt_corr"] != want_k1:
+        raise AssertionError(f"{name}: K1 launched {launches['alt_corr']} times, "
+                             f"expected {want_k1}")
+    return res
+
+
+def phase_train_resume(tmp: Path):
+    """A run cut by SIGTERM at step 2 (``RAFT_FI_SIGTERM_STEP``) leaves an
+    emergency checkpoint; ``--resume auto`` restores it (held bitwise to
+    the state the cut run ended with: parameters, Adam moments, step and
+    lr) and continues to step 4. At a reduced depth: batch 2, 4
+    iterations. The continued trajectory is not held bitwise on the card
+    (cuDNN's backward may sum with atomics)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from raft_stereo_tpu_torch import train
+    from raft_stereo_tpu_torch.config import PRESETS, TrainConfig
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.parallel.train_step import create_train_state
+    from raft_stereo_tpu_torch.runtime import faultinject
+    from raft_stereo_tpu_torch.runtime.checkpoint import read_manifest, verify_checkpoint
+    from raft_stereo_tpu_torch.runtime.loop import resume_state
+    from raft_stereo_tpu_torch.utils.checkpoints import keyed_leaves
+
+    root = tmp / "train"
+    if not (root / "datasets").exists():
+        _write_things_tree(root)
+    argv = ["--name", "resume", "--train_datasets", "sceneflow", "--num_steps", "4",
+            "--batch_size", "2", "--train_iters", "4", "--mixed_precision",
+            "--image_size", "320", "720", "--spatial_scale", "-0.2", "0.4",
+            "--saturation_range", "0", "1.4"]
+    with _chdir(root), _launches_kept():
+        os.environ["RAFT_FI_SIGTERM_STEP"] = "2"
+        try:
+            cut = train.main(argv)
+        finally:
+            del os.environ["RAFT_FI_SIGTERM_STEP"]
+            faultinject.reset()
+        emergency = read_manifest(str(cut.path))
+        saved = keyed_leaves(cut.state.state_dict())
+        cfg = dataclasses.replace(PRESETS["raftstereo"], mixed_precision=True)
+        fresh = create_train_state(load_model(cfg, seed=7).train(),
+                                   TrainConfig(lr=2e-4, num_steps=4))
+        restored, manifest, path = resume_state("auto", Path("checkpoints") / "resume", fresh)
+        got = keyed_leaves(restored.state_dict())
+        mism = [k for k, v in saved.items()
+                if not (torch.equal(v.cpu(), got[k].cpu()) if isinstance(v, torch.Tensor)
+                        else v == got.get(k))]
+        lr_equal = restored.lr == cut.state.lr and restored.step == cut.state.step
+        del fresh, restored, got, saved
+        done = train.main(argv + ["--resume", "auto"])
+        final = str(Path(done.path).resolve())
+        res = {"phase": "train_resume", "argv": argv, "cut_at": cut.total_steps,
+               "emergency": {"tag": (emergency or {}).get("tag"),
+                             "step": (emergency or {}).get("step")},
+               "resumed_from": path, "restored_leaves": len(keyed_leaves(
+                   done.state.state_dict())), "restored_mismatches": mism[:5],
+               "restored_step_and_lr_equal": lr_equal, "continued_to": done.total_steps,
+               "final_verified": verify_checkpoint(final),
+               "final_stream_pos": (read_manifest(final) or {}).get("stream_pos"),
+               "trajectory_held_bitwise": False}
+    emit(res)
+    del cut, done
+    torch.cuda.empty_cache()
+    if res["cut_at"] != 2 or res["emergency"] != {"tag": "emergency", "step": 2}:
+        raise AssertionError(f"train_resume: the cut run {res}")
+    if mism or not lr_equal:
+        raise AssertionError(f"train_resume: restored state differs in {mism[:5]}, "
+                             f"step/lr equal {lr_equal}")
+    if not (res["continued_to"] == 4 and res["final_verified"] and res["final_stream_pos"] == 4):
+        raise AssertionError(f"train_resume: the resumed run {res}")
+    return res
+
 # The kernels each main path must launch.
 PATH_KERNELS = {
     "main_path": ("alt_corr",),
@@ -1791,6 +2425,8 @@ PATH_KERNELS = {
     "engine_path": ("alt_corr",),
     "engine_path_fused": ("alt_corr", "fused_update"),
     "engine_path_realtime_packed": ("alt_corr", "packed_conv"),
+    "train_path": (),
+    "train_path_alt": ("alt_corr",),
 }
 
 
@@ -1825,11 +2461,18 @@ def main() -> int:
         dnorms = phase_parity_fused(Path(tmp))
         phase_early_exit(Path(tmp), dnorms)
         phase_parity_packed(Path(tmp))
+        grad_check = phase_train_grad_check()
+        phase_train_step_check()
+        paths += [phase_train_path(Path(tmp)),
+                  phase_train_path(Path(tmp), corr="alt", steps=4)]
+        phase_train_resume(Path(tmp))
     by_path = {r["phase"]: r["launches"] for r in paths}
     for path, counts in by_path.items():
         if any(counts[k] < 1 for k in PATH_KERNELS[path]):
             raise AssertionError(f"{path}: a kernel of the path never launched: {counts}")
     main_res, fused_res = paths[0], paths[1]
+    k1_bwd = grad_check["k1"]
+    alt_prof = paths[-1]["profiled_step"]
     # the main paths' shapes (K2, K3: bf16, the presets' dtype)
     k1, k2, k3 = checks[0], fused_checks[0], k3_checks[0]
     emit({"kernels": [
@@ -1842,6 +2485,13 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in checks), "tol": ALT_TOL,
             "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"], "library_ms": None, "checks": checks,
+            "backward": {
+                "route": "plain recompute, a level at a time (ops/alt_corr.py::alt_lookup_vjp)",
+                "shape": k1_bwd["shape"], "ms": k1_bwd["bwd_ms"],
+                "bound_ms": k1_bwd["bwd_bound_ms"], "bound_by": k1_bwd["bwd_bound_by"],
+                "forward_ms_at_that_shape": k1_bwd["fwd_ms"],
+                "train_step_profile": alt_prof,
+            },
         },
         {
             "name": "fused_update", "route": "cuda",
@@ -1862,6 +2512,7 @@ def main() -> int:
             "conv_library_ms": {c[0]: k2["by_launch"]["launches"][c[0]]["library_ms"]
                                 for c in K2_CONVS},
             "checks": fused_checks,
+            "backward": "none: test mode only (fused_refine_step raises under grad)",
         },
         {
             "name": "packed_conv", "route": "cuda",
@@ -1874,6 +2525,12 @@ def main() -> int:
             "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
             "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
             "library_call": k3["library_call"], "checks": k3_checks,
+            "backward": {
+                "route": "plain autograd (experiments/packed_conv.py::packed_conv_vjp)",
+                "shape": grad_check["k3"][0]["shape"],
+                "ms": {c["dtype"]: c["bwd_plain_ms"] for c in grad_check["k3"]},
+                "forward_ms_at_that_shape": {c["dtype"]: c["fwd_ms"] for c in grad_check["k3"]},
+            },
         },
     ]})
     print(dev["smi"], flush=True)

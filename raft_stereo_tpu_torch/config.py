@@ -1,8 +1,10 @@
-"""Architecture configuration of the RAFT-Stereo model family (PyTorch port).
+"""Architecture and training configuration of the RAFT-Stereo model family
+(PyTorch port).
 
-The port's own copy of ``raft_stereo_tpu/config.py:16-152``: the same flag
+The port's own copy of ``raft_stereo_tpu/config.py:16-195``: the same flag
 vocabulary, defaults, validation and named presets, so a command line of the
-JAX package builds the same architecture here.
+JAX package builds the same architecture here, and the same augmentation
+and training hyper-parameters (one card: no data-parallel fields).
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Backend selector values; ``reg_cuda``/``alt_cuda`` are the reference-era
 # spellings of the kernel backends.
@@ -132,3 +134,41 @@ def config_from_args(args) -> RAFTStereoConfig:
         mixed_precision=args.mixed_precision,
         fused_update=args.fused_update,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Data-augmentation flags (reference: train_stereo.py:243-249)."""
+
+    img_gamma: Optional[Tuple[float, float]] = None
+    saturation_range: Optional[Tuple[float, float]] = None
+    do_flip: Optional[str] = None  # 'h' | 'v' | None
+    spatial_scale: Tuple[float, float] = (0.0, 0.0)
+    noyjitter: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (reference: train_stereo.py:219-226,72-79)."""
+
+    name: str = "raft-stereo"
+    restore_ckpt: Optional[str] = None
+    batch_size: int = 6
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
+    lr: float = 2e-4
+    num_steps: int = 100_000
+    image_size: Tuple[int, int] = (320, 720)
+    train_iters: int = 16
+    valid_iters: int = 32
+    wdecay: float = 1e-5
+    loss_gamma: float = 0.9
+    max_flow: float = 700.0
+    grad_clip: float = 1.0
+    validation_frequency: int = 10_000
+    seed: int = 1234
+    # Activation checkpointing of each refinement iteration in the backward.
+    remat: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "train_datasets", tuple(self.train_datasets))
+        object.__setattr__(self, "image_size", tuple(self.image_size))

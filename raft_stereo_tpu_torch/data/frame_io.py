@@ -1,6 +1,6 @@
 """Image and disparity file IO on the host, in numpy (the port's own copy of
-the readers of ``raft_stereo_tpu/data/frame_io.py`` that the four evaluation
-sets use, and the writers its tests and smoke run need).
+the readers of ``raft_stereo_tpu/data/frame_io.py`` that the evaluation and
+training sets use, and the writers its tests and smoke run need).
 
 Disparities come back as float32 [H, W], valid masks as bool [H, W]. PNGs,
 16-bit ones included, go through Pillow.
@@ -9,6 +9,7 @@ Disparities come back as float32 [H, W], valid masks as bool [H, W]. PNGs,
 from __future__ import annotations
 
 import functools
+import json
 import logging
 import os
 import re
@@ -92,6 +93,33 @@ def read_disp_kitti(path: str) -> Tuple[np.ndarray, np.ndarray]:
 def write_disp_kitti(path: str, disp: np.ndarray) -> None:
     """[H, W] disparity as a KITTI 16-bit PNG (round(disp * 256))."""
     Image.fromarray(np.round(np.asarray(disp) * 256.0).astype(np.uint16)).save(path)
+
+
+@with_io_retry
+def read_disp_sintel(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Sintel packed-RGB disparity; valid from the paired occlusion mask."""
+    a = np.array(Image.open(path)).astype(np.float64)
+    disp = a[..., 0] * 4 + a[..., 1] / 2 ** 6 + a[..., 2] / 2 ** 14
+    mask = np.array(Image.open(path.replace("disparities", "occlusions")))
+    return disp.astype(np.float32), (mask == 0) & (disp > 0)
+
+
+@with_io_retry
+def read_disp_falling_things(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """FallingThings depth PNG → disparity via fx from _camera_settings.json."""
+    a = np.array(Image.open(path))
+    with open(os.path.join(os.path.dirname(path), "_camera_settings.json")) as f:
+        intrinsics = json.load(f)
+    fx = intrinsics["camera_settings"][0]["intrinsic_settings"]["fx"]
+    disp = (fx * 6.0 * 100) / a.astype(np.float32)
+    return disp, disp > 0
+
+
+@with_io_retry
+def read_disp_tartanair(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """TartanAir .npy depth → disparity = 80/depth."""
+    disp = 80.0 / np.load(path)
+    return disp.astype(np.float32), disp > 0
 
 
 @with_io_retry

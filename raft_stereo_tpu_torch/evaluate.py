@@ -55,13 +55,9 @@ from raft_stereo_tpu_torch.runtime.infer import (
     add_infer_args,
     options_from_args,
 )
+from raft_stereo_tpu_torch.utils.weights import load_reference_pth
 
 logger = logging.getLogger(__name__)
-
-# Modules the reference always builds but a model with fewer than three GRU
-# levels never runs; the port does not build them.
-_UNUSED_BELOW_3_LEVELS = ("cnet.layer5.", "cnet.outputs32.", "update_block.gru32.")
-
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     """``None`` means the CUDA card, which must then exist."""
@@ -89,12 +85,7 @@ def load_model(args_or_config, device=None, seed: int = 0,
     model = RAFTStereo(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     if restore_ckpt:
-        sd = torch.load(restore_ckpt, map_location="cpu")
-        sd = sd.get("state_dict", sd)
-        sd = {k.removeprefix("module."): v for k, v in sd.items()}
-        if cfg.n_gru_layers < 3:
-            sd = {k: v for k, v in sd.items() if not k.startswith(_UNUSED_BELOW_3_LEVELS)}
-        model.load_state_dict(sd, strict=True)
+        load_reference_pth(model, restore_ckpt)
     logger.info("Parameter Count: %d", sum(p.numel() for p in model.parameters()))
     return model.to(dev).eval()
 

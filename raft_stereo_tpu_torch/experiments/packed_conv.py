@@ -14,8 +14,11 @@ before the SAME padding's zeros. ``scale``/``shift`` are [B, 128] in the
 packed lane order, or [B, 64], which is tiled to both parities.
 
 On CPU tensors it computes the plain version :func:`packed_conv3x3_plain`;
-on CUDA tensors it launches the kernel or raises. Inference only: there is
-no backward yet.
+on CUDA tensors it launches the kernel or raises. Gradients follow the JAX
+custom VJP (``pallas_packed_conv.py:247-279``): the kernel runs forward and
+the backward (:func:`packed_conv_vjp`) goes through the plain version's
+autograd, to xp, the HWIO weight (and through :func:`pack_weight` to the
+conv's own weight), scale and shift.
 """
 
 from __future__ import annotations
@@ -68,10 +71,10 @@ def choose_band(H: int, W2: int) -> int:
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A torch conv weight [64, 64, 3, 3] (OIHW) → HWIO [3, 3, 64, 64] in
     ``dtype``, the layout the kernel reads as [9 taps][cin][cout] (one
-    copy)."""
-    w = weight.detach()
-    out = torch.empty((3, 3, w.shape[1], w.shape[0]), dtype=dtype, device=w.device)
-    return out.copy_(w.permute(2, 3, 1, 0))
+    copy, through which the gradient reaches ``weight``)."""
+    out = torch.empty((3, 3, weight.shape[1], weight.shape[0]), dtype=dtype,
+                      device=weight.device)
+    return out.copy_(weight.permute(2, 3, 1, 0))
 
 
 def _lanes(v: torch.Tensor, B: int, name: str) -> torch.Tensor:
@@ -127,7 +130,7 @@ def packed_conv3x3_plain(xp: torch.Tensor, weight: torch.Tensor,
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        y = F.conv2d(xn, weight.detach().permute(3, 2, 0, 1).float().contiguous(), padding=1)
+        y = F.conv2d(xn, weight.permute(3, 2, 0, 1).float().contiguous(), padding=1)
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     return y.to(dt).permute(0, 2, 3, 1).reshape(B, H, W2, 2 * CHANNELS)
@@ -154,6 +157,35 @@ def _kernel():
     return _fn
 
 
+def packed_conv_vjp(xp: torch.Tensor, weight: torch.Tensor, scale: Optional[torch.Tensor],
+                    shift: Optional[torch.Tensor], relu_prologue: bool, grad: torch.Tensor):
+    """The conv's backward: ``(d xp, d weight, d scale, d shift)`` (None for
+    an absent scale and shift) for the output gradient ``grad``, through
+    the plain version's autograd."""
+    ins = [None if t is None else t.detach().requires_grad_(True)
+           for t in (xp, weight, scale, shift)]
+    with torch.enable_grad():
+        out = packed_conv3x3_plain(*ins, relu_prologue=relu_prologue)
+        leaves = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(out, leaves, grad))
+    return tuple(None if t is None else next(grads) for t in ins)
+
+
+class _PackedConv(torch.autograd.Function):
+    """The kernel forward with :func:`packed_conv_vjp` as its backward."""
+
+    @staticmethod
+    def forward(ctx, relu_prologue, xp, weight, scale, shift):
+        ctx.relu_prologue = relu_prologue
+        ctx.save_for_backward(xp, weight, scale, shift)
+        return _launch(xp, weight, scale, shift, relu_prologue)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xp, weight, scale, shift = ctx.saved_tensors
+        return (None, *packed_conv_vjp(xp, weight, scale, shift, ctx.relu_prologue, grad))
+
+
 def packed_conv3x3(xp: torch.Tensor, weight: torch.Tensor,
                    scale: Optional[torch.Tensor] = None,
                    shift: Optional[torch.Tensor] = None,
@@ -161,12 +193,17 @@ def packed_conv3x3(xp: torch.Tensor, weight: torch.Tensor,
     """3x3 stride-1 SAME conv without bias on the packed layout, with the
     optional prologue (see the module docstring): [B, H, W/2, 128] in xp's
     dtype."""
-    global LAUNCHES
     if xp.device.type == "cpu":
         return packed_conv3x3_plain(xp, weight, scale, shift, relu_prologue)
     if xp.device.type != "cuda":
         raise ValueError(f"packed_conv3x3 runs on CPU or CUDA tensors, not {xp.device}")
     _check(xp, weight, scale, shift, relu_prologue)
+    return _PackedConv.apply(relu_prologue, xp, weight, scale, shift)
+
+
+def _launch(xp, weight, scale, shift, relu_prologue) -> torch.Tensor:
+    """The Function's forward: one launch of the kernel on checked CUDA inputs."""
+    global LAUNCHES
     dt = xp.dtype
     B, H, W2, _ = xp.shape
     x = xp.contiguous()

@@ -5,7 +5,14 @@
 pyramid fmap2_pyramid[i] [B, H, W2_i, D], coords_x [B, H, W1], and returns
 [B, H, W1, L·(2r+1)] level-major in fp32. On CPU tensors it computes the
 plain version ``ops.corr.corr_lookup_alt_plain``; on CUDA tensors it
-launches the kernel or raises. Inference only: there is no backward yet.
+launches the kernel or raises.
+
+Gradients follow the JAX custom VJP (``pallas_corr.py:174-198``): the
+forward is the kernel, the backward (:func:`alt_lookup_vjp`) recomputes
+through the plain version one level at a time and gives gradients to
+fmap1 and to every pyramid level; the coordinate gradient is zero (the
+model detaches the flow each iteration). On the CPU the plain version runs
+with the coordinates detached, so both devices give that zero.
 """
 
 from __future__ import annotations
@@ -130,15 +137,58 @@ def _check(fmap1: torch.Tensor, pyramid: Sequence[torch.Tensor],
             raise ValueError(f"pyramid level {i} is empty")
 
 
+def alt_lookup_vjp(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
+                   coords_x: torch.Tensor, radius: int, grad: torch.Tensor):
+    """The lookup's backward: ``(d fmap1, [d level_i], d coords_x = 0)``
+    for the output gradient ``grad`` [B, H, W1, L·(2r+1)]. Each level is
+    recomputed through the plain version at coordinates ``coords_x / 2^i``
+    and differentiated on its own, so its gathered rows are freed before
+    the next level's are built."""
+    K = 2 * radius + 1
+    coords = coords_x.detach()
+    df1, dlevels = None, []
+    for lvl, f2 in enumerate(fmap2_pyramid):
+        with torch.enable_grad():
+            a = fmap1.detach().requires_grad_(True)
+            b = f2.detach().requires_grad_(True)
+            out = corr_lookup_alt_plain(a, [b], coords / 2 ** lvl, radius)
+            da, db = torch.autograd.grad(out, (a, b), grad[..., lvl * K:(lvl + 1) * K])
+        df1 = da if df1 is None else df1 + da
+        dlevels.append(db)
+    return df1, dlevels, torch.zeros_like(coords_x)
+
+
+class _AltLookup(torch.autograd.Function):
+    """The kernel forward with :func:`alt_lookup_vjp` as its backward."""
+
+    @staticmethod
+    def forward(ctx, radius, coords_x, fmap1, *levels):
+        ctx.radius = radius
+        ctx.save_for_backward(coords_x, fmap1, *levels)
+        return _launch(fmap1, levels, coords_x, radius)
+
+    @staticmethod
+    def backward(ctx, grad):
+        coords_x, fmap1, *levels = ctx.saved_tensors
+        df1, dlevels, dcoords = alt_lookup_vjp(fmap1, levels, coords_x, ctx.radius, grad)
+        return (None, dcoords if ctx.needs_input_grad[1] else None, df1, *dlevels)
+
+
 def corr_lookup_alt(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
                     coords_x: torch.Tensor, radius: int) -> torch.Tensor:
     """Streaming recompute-at-offsets lookup (see the module docstring)."""
-    global LAUNCHES
     if fmap1.device.type == "cpu":
-        return corr_lookup_alt_plain(fmap1, fmap2_pyramid, coords_x, radius)
+        return corr_lookup_alt_plain(fmap1, fmap2_pyramid, coords_x.detach(), radius)
     if fmap1.device.type != "cuda":
         raise ValueError(f"alt_corr runs on CPU or CUDA tensors, not {fmap1.device}")
     _check(fmap1, fmap2_pyramid, coords_x, radius)
+    return _AltLookup.apply(radius, coords_x, fmap1, *fmap2_pyramid)
+
+
+def _launch(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
+            coords_x: torch.Tensor, radius: int) -> torch.Tensor:
+    """The Function's forward: one launch of the kernel on checked CUDA inputs."""
+    global LAUNCHES
     # Pooled levels and sliced coordinates may be strided views: the
     # kernel indexes dense rows.
     f1 = fmap1.contiguous()

@@ -12,7 +12,10 @@ compute dtype.
 
 ``fused_refine_step`` computes the plain version ``reference_refine_step``
 on CPU tensors; on CUDA tensors it launches the kernel or raises.
-Inference only: there is no backward yet.
+Inference only: there is no backward yet (the JAX VJP,
+``pallas_fused_update.py:474-497``, is still to port), so a call under
+grad mode with an input that requires grad raises on either device rather
+than return a result without a gradient.
 """
 
 from __future__ import annotations
@@ -260,6 +263,16 @@ def fused_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
     """One refinement step: ``(h' [B, H, W, dh] in h's dtype, delta_disp
     [B, H, W] fp32)`` (see the module docstring)."""
     global LAUNCHES
+    if torch.is_grad_enabled():
+        needs = [name for name, t in (("fmap1", fmap1), ("flow_x", flow_x), ("h", h),
+                                      ("inp16", inp16), ("ctx", ctx), *packed.items(),
+                                      *((f"pyramid level {i}", f)
+                                        for i, f in enumerate(fmap2_pyramid)))
+                 if t is not None and t.requires_grad]
+        if needs:
+            raise RuntimeError(
+                f"fused_refine_step has no backward yet, but {needs} require grad: the "
+                "fused step runs in test mode only (call it under torch.no_grad())")
     if fmap1.device.type == "cpu":
         return reference_refine_step(packed, fmap1, fmap2_pyramid, flow_x, h, inp16, ctx,
                                      radius, compute_dtype)

@@ -2,8 +2,8 @@
 ``raft_stereo_tpu/ops/sampling.py``).
 
 Layouts: ``interp_bilinear`` and ``avg_pool2x`` work on the NCHW tensors
-inside the modules; ``coords_grid``, ``avg_pool_w2`` and
-``convex_upsample`` keep the JAX package's channel-last layout, the layout
+inside the modules; ``coords_grid``, ``avg_pool_w2``,
+``bilinear_sampler`` and ``convex_upsample`` keep the JAX package's channel-last layout, the layout
 the correlation state and the model's outputs use.
 """
 
@@ -21,6 +21,28 @@ def coords_grid(batch: int, ht: int, wd: int, device=None,
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     grid = torch.stack([xx, yy], dim=-1)
     return grid[None].expand(batch, ht, wd, 2)
+
+
+def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Sample ``img`` [B, H, W, C] at pixel ``coords`` [B, Ho, Wo, 2] (x, y):
+    align_corners=True, zeros outside (the JAX ``bilinear_sampler``,
+    ``ops/sampling.py:51``)."""
+    B, H, W, C = img.shape
+    x, y = coords[..., 0], coords[..., 1]
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    dx = (x - x0f)[..., None].to(img.dtype)
+    dy = (y - y0f)[..., None].to(img.dtype)
+    x0, y0 = x0f.long(), y0f.long()
+    flat = img.reshape(B, H * W, C)
+
+    def gather(ix, iy):
+        valid = ((ix >= 0) & (ix < W) & (iy >= 0) & (iy < H))[..., None]
+        idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)  # [B, Ho, Wo]
+        out = torch.gather(flat, 1, idx.reshape(B, -1, 1).expand(B, idx[0].numel(), C))
+        return out.reshape(*idx.shape, C) * valid.to(img.dtype)
+
+    return (gather(x0, y0) * (1 - dx) * (1 - dy) + gather(x0 + 1, y0) * dx * (1 - dy)
+            + gather(x0, y0 + 1) * (1 - dx) * dy + gather(x0 + 1, y0 + 1) * dx * dy)
 
 
 def interp_bilinear(x: torch.Tensor, size) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Carry the JAX package's weights into the port.
+"""Carry the JAX package's weights, and the reference's released
+checkpoints, into the port.
 
 ``state_dict_from_jax(variables)`` maps a Flax variables tree
 (``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays)
@@ -54,6 +55,23 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
         else:
             flat[prefix + (k,)] = np.asarray(v)
     return flat
+
+
+# Modules the reference always builds but a model with fewer than three GRU
+# levels never runs; the port does not build them.
+UNUSED_BELOW_3_LEVELS = ("cnet.layer5.", "cnet.outputs32.", "update_block.gru32.")
+
+
+def load_reference_pth(model, path: str) -> None:
+    """Load a released reference checkpoint (``.pth``) into ``model``:
+    strict, once ``module.`` is stripped (and, below three GRU levels, the
+    modules the port does not build are dropped)."""
+    sd = torch.load(path, map_location="cpu")
+    sd = sd.get("state_dict", sd)
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    if model.config.n_gru_layers < 3:
+        sd = {k: v for k, v in sd.items() if not k.startswith(UNUSED_BELOW_3_LEVELS)}
+    model.load_state_dict(sd, strict=True)
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:

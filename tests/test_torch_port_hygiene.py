@@ -1,7 +1,7 @@
 """The port stands alone and runs where it is asked to.
 
 Importing every module of ``raft_stereo_tpu_torch`` (and ``chip_smoke.py``)
-loads neither JAX, Flax nor the JAX package; the entry points refuse to
+loads neither JAX, Flax, optax, OpenCV nor the JAX package; the entry points refuse to
 fall back to the CPU silently; the demo entry point runs end to end on the
 CPU when asked to.
 """
@@ -26,7 +26,7 @@ from raft_stereo_tpu_torch.evaluate import load_model
 from raft_stereo_tpu_torch.ops import alt_corr
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "raft_stereo_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "cv2", "raft_stereo_tpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,6 +54,7 @@ def _port_modules():
 def test_forbidden_prefix_check_is_exact():
     assert _forbidden("raft_stereo_tpu") and _forbidden("raft_stereo_tpu.ops")
     assert _forbidden("jax.numpy") and _forbidden("flax")
+    assert _forbidden("optax") and _forbidden("cv2")
     assert not _forbidden("raft_stereo_tpu_torch") and not _forbidden("jaxtyping")
 
 
@@ -74,6 +75,9 @@ def test_importing_the_port_loads_no_jax():
     assert "raft_stereo_tpu_torch.ops.fused_update" in loaded
     assert "raft_stereo_tpu_torch.runtime.infer" in loaded
     assert "raft_stereo_tpu_torch.data.datasets" in loaded
+    for m in ("train", "losses", "runtime.loop", "runtime.checkpoint", "parallel.train_step",
+              "data.augmentor", "native"):
+        assert f"raft_stereo_tpu_torch.{m}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
