@@ -17,8 +17,13 @@ Phases, each printing one JSON line:
      fp32 and bf16, with and without inp16, beside the unfused port step
      at the same shape; on the slice case each of its 7 launches timed
      under torch.profiler, each beside its own bound, each conv launch
-     beside cuDNN's conv at its channel counts); faults planted in copies
-     of K2's source must fail the bf16 check; K3 (the packed stage's 3x3x64 conv,
+     beside cuDNN's conv at its channel counts, stage 1 with its launch
+     geometry); faults planted in copies of K2's source must fail the bf16
+     check, those in stage 1 the stage-1 check too; K2's stage 1 alone
+     (``fused_update.motion_in``: the lookup, convc1 and convf1) against
+     its plain version, bf16 and fp32, at the slice shape, ragged rows, the
+     engine's batch-4 shapes and the Middlebury-F width, each with its time,
+     bound and geometry (``k2_stage1_check``); K3 (the packed stage's 3x3x64 conv,
      fp32 and bf16, with and without its prologue, beside cuDNN's conv at
      the same shape), whose planted faults must fail the bf16 check too;
   4. main path: ``raft_stereo_tpu_torch.demo.main --per_image`` with the
@@ -122,9 +127,15 @@ K2_MUTANTS = (
      "const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;",
      "const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W"
      " && !(args.nseg == 3 && k.src == args.seg[2].ptr && k.ch + ch < 32);"),
-    # convf1 reads the fp32 flow instead of its rounding to T
+    # stage 1 stages the fp32 flow for convf1 instead of its rounding to T
     ("flow_cast_skipped",
-     "round_to<T>(__ldg(flow + p + dy * W + dx))", "__ldg(flow + p + dy * W + dx)"),
+     "round_to<T>(__ldg(a.flow + src))", "__ldg(a.flow + src)"),
+    # stage 1 never copies the last chunk of channels (it reads a stale one)
+    ("last_chunk_unstaged", "if (ci + 1 < chunks) {", "if (ci + 2 < chunks) {"),
+    # stage 1 stages each level's last position as zero
+    ("level_row_short",
+     "cp_async16(dst + r * DC + 4 * q, src + (long long)r * a.D + cc, valid);",
+     "cp_async16(dst + r * DC + 4 * q, src + (long long)r * a.D + cc, valid && r + 1 < W2);"),
     # the z gate rounded to bf16 before the blend
     ("z_cast_added",
      "for (int e = 0; e < 8; ++e) zz[e] = sigmoid_fast(o[e] + g[e]);",
@@ -132,6 +143,36 @@ K2_MUTANTS = (
     # the bf16 3x3 convs read zeros for the image's top row (a local fault)
     ("top_row_dropped", "const bool inside = yy >= 0 &&", "const bool inside = yy >= 1 &&"),
 )
+# The faults of K2_MUTANTS planted in stage 1, which the stage-1 check must
+# catch as well.
+K2_STAGE1_FAULTS = ("flow_cast_skipped", "last_chunk_unstaged", "level_row_short")
+# The bf16 cases that the faults run on: the main path's, where the bf16
+# check must catch each fault, and the ragged rows, where it must catch a
+# fault that only touches the pixels whose windows reach a level row's end
+# (of which the main path's shape, with disparities of up to 0.6 W, has few).
+K2_FAULT_CASES = ("slice_544x960_bf16", "ragged_b2_h37_w123_bf16")
+K2_ROW_END_FAULTS = ("level_row_short",)
+# K2's first launch (stage 1: the lookup, convc1 and convf1) against
+# reference_motion_in. fp32 (TF32 off): summation order only, held to
+# K2_STAGE1_FP32_TOL times the output's scale (max(1, |plain| max)). bf16:
+# both versions round the taps, cor and flo at the same points and the
+# products of bf16 values are exact in fp32, so K3_BF16_TOL's method holds:
+# an element differs by one bf16 ulp at its magnitude where the two fp32
+# sums straddle a rounding boundary, plus the sums' own difference, a
+# multiple of eps32 times S, the sum of its terms' magnitudes, where the
+# sum cancels. A cor element also passes through its taps' rounding points:
+# the lookup's fp32 sums, in another order, can put a tap on either side of
+# its bf16 rounding, so each tap adds one bf16 ulp of the tap times its
+# |weight| to the element's allowance. The share of elements that differ
+# at all is held to 3x the largest share measured. On an H100 over the
+# k2_stage1_check cases: fp32 within 1.3e-6 (tolerance 3e-3 to 1.7e-2 at
+# these scales); bf16 at most 0.90 of an element's allowance, the sums'
+# order never beyond the ulp and tap terms (order_ratio 0: sum_eps keeps
+# K3's 32 for sums that cancel), and at most 7.0e-5 of the elements
+# differing; over the gpu tests' inputs (tests/test_torch_port_cuda.py,
+# 6 shapes x 3 seeds in bf16) at most 2.2e-4 (10 of 46,080 elements).
+K2_STAGE1_FP32_TOL = 1e-4
+K2_STAGE1_BF16_TOL = {"ulps": 1.0, "sum_eps": 32.0, "share": 6.5e-4}
 # K3 against its plain version. fp32: summation order only over 576
 # products, held to K3_FP32_TOL times the output's scale (max(1, |plain|
 # max)); measured on an H100 at the encoder shape: 1.5e-6 of the scale.
@@ -251,9 +292,10 @@ def ptxas_table(lines):
 def phase_build():
     """Builds the kernels; the line gives, for each of K2's and K3's wgmma
     kernels, what ``-Xptxas -v`` says (registers, spills, notes) and the
-    dynamic shared memory it launches with, the same for each of K1's
-    kernels (their shared memory is set per launch: kernel_check's
-    ``smem_bytes``), and for every kernel its register counts."""
+    dynamic shared memory it launches with, the same for each of K1's and
+    K2's stage-1 kernels (their shared memory is set per launch:
+    kernel_check's ``smem_bytes``, k2_stage1_check's geometry), and for
+    every kernel its register counts."""
     from raft_stereo_tpu_torch.experiments import packed_conv
     from raft_stereo_tpu_torch.ops import _build, alt_corr, fused_update
 
@@ -278,7 +320,10 @@ def phase_build():
     emit({"phase": "build", "kernels": kernels, "seconds": seconds,
           "nvcc_seconds": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
           "registers": regs, "wgmma_kernels": sm90,
-          "alt_corr_kernels": ptxas_table(_build.BUILD_INFO[alt_corr.KERNEL]["ptxas"])})
+          "alt_corr_kernels": ptxas_table(_build.BUILD_INFO[alt_corr.KERNEL]["ptxas"]),
+          "k2_stage1_kernels": [
+              f for f in ptxas_table(_build.BUILD_INFO[fused_update.KERNEL]["ptxas"])
+              if "motion_in_kernel" in f["function"]]})
 
 
 def _alt_inputs(B, H, W1, D, levels, seed):
@@ -467,42 +512,48 @@ def _in_image_taps(H: int, W: int, k: int) -> int:
     return count(H) * count(W)
 
 
-def _k2_stage_bounds(args, dtype):
-    """Least time for K2's first and last launches on these inputs, from
-    what each does in csrc/fused_update.cu. Stage 1 (motion_in_kernel)
-    reads f1, the pyramid and the flow (fp32) and convc1's and convf1's
-    weights, and writes cor|flo (128 channels in the compute dtype); it does
-    the lookup's dot products and interpolation (as K1 counts them, on this
-    data), convc1's products and convf1's in-image 7x7 taps, all on fp32
-    FMA. Stage 7 (head_out_kernel) reads fh1 (256 channels) and the flow
-    head conv2's x weights and writes delta (fp32); it does the 3x3x256
-    reduction's in-image taps on fp32 FMA."""
-    packed, f1, pyr, flow, h, inp, ctx, radius = args
+def _bound(n_bytes, flops):
+    """The card's least time for moving ``n_bytes`` once and doing
+    ``flops`` on fp32 FMA, and which of the two binds."""
+    t_ops, t_bytes = 1e3 * flops / FP32_FLOPS, 1e3 * n_bytes / HBM_BYTES_PER_S
+    return {"gflop": flops / 1e9, "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
+def _motion_in_bound(packed, f1, pyr, flow, radius, dtype):
+    """Least time for K2's first launch (stage 1, motion_in_kernel) on these
+    inputs: it reads f1, the pyramid and the flow (fp32) and convc1's and
+    convf1's weights and writes cor|flo (128 channels in the compute
+    dtype); it does the lookup's dot products and interpolation (as K1
+    counts them, on this data), convc1's products and convf1's in-image
+    7x7 taps, all on fp32 FMA."""
     B, H, W, D = f1.shape
     P = B * H * W
     es = 2 if dtype == "bfloat16" else 4
     look = _alt_bound(f1, pyr, flow + _x_grid(flow), radius)
     lk = packed["wc1"].shape[0]
+    weights = es * (packed["wc1"].numel() + packed["kf7"].numel()) + 4 * 128
+    return _bound(4 * (f1.numel() + sum(p.numel() for p in pyr) + flow.numel()) + weights
+                  + es * P * 128,
+                  look["flops"] + 2 * P * lk * 64 + 2 * 64 * B * _in_image_taps(H, W, 7))
 
-    def size(*keys):
-        return sum(packed[k].numel() * (es if k.startswith(("w", "k")) else 4) for k in keys)
 
-    stages = {
-        "motion_in (lookup, convc1, convf1)": (
-            4 * (f1.numel() + sum(p.numel() for p in pyr) + flow.numel())
-            + size("wc1", "bc1", "kf7", "bf7") + es * P * 128,
-            look["flops"] + 2 * P * lk * 64 + 2 * 64 * B * _in_image_taps(H, W, 7)),
-        "head_out (flow head conv2)": (
-            es * P * 256 + size("kfh2", "bfh2") + 4 * P,
+def _k2_stage_bounds(args, dtype):
+    """Least time for K2's first and last launches on these inputs, from
+    what each does in csrc/fused_update.cu: stage 1 as
+    ``_motion_in_bound``; stage 7 (head_out_kernel) reads fh1 (256
+    channels) and the flow head conv2's x weights and writes delta (fp32);
+    it does the 3x3x256 reduction's in-image taps on fp32 FMA."""
+    packed, f1, pyr, flow, h, inp, ctx, radius = args
+    B, H, W, D = f1.shape
+    es = 2 if dtype == "bfloat16" else 4
+    return {
+        "motion_in (lookup, convc1, convf1)": _motion_in_bound(packed, f1, pyr, flow, radius,
+                                                               dtype),
+        "head_out (flow head conv2)": _bound(
+            es * B * H * W * 256 + es * packed["kfh2"].numel() + 4 + 4 * B * H * W,
             2 * 256 * B * _in_image_taps(H, W, 3)),
     }
-    out = {}
-    for name, (n_bytes, flops) in stages.items():
-        t_ops, t_bytes = 1e3 * flops / FP32_FLOPS, 1e3 * n_bytes / HBM_BYTES_PER_S
-        out[name] = {"gflop": flops / 1e9, "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "library_ms": None}
-    return out
 
 
 def _x_grid(flow):
@@ -543,6 +594,66 @@ def k2_errors(got, want, dtype) -> dict:
     return res
 
 
+def _ulps_bf16(x):
+    """Elementwise spacing of bfloat16 values at |x| (values in [2^(e-1),
+    2^e) are 2^(e-8) apart; none at an exact zero)."""
+    import torch
+
+    return torch.where(x == 0, 0.0, torch.exp2((torch.frexp(x).exponent - 8).float()))
+
+
+def stage1_allowances(f1, pyr, flow, packed, radius, dtype):
+    """For each cor|flo element of stage 1 on these inputs, in fp32: S, the
+    sum of the magnitudes of its terms (|tap·w| over convc1's taps,
+    |flow·w| over convf1's in-image taps, and |bias|), and the taps'
+    rounding allowance (one bf16 ulp of each tap times |w|; zero for flo
+    and in fp32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup_alt_plain
+
+    taps = corr_lookup_alt_plain(f1, pyr, flow + _x_grid(flow), radius).to(dtype).float()
+    wc1 = packed["wc1"].float().abs()
+    s_cor = taps.abs() @ wc1 + packed["bc1"].float().abs()
+    fl = flow.to(dtype).float().abs()[:, None]
+    kf7 = packed["kf7"].float().abs().t().reshape(64, 1, 7, 7)
+    s_flo = F.conv2d(fl, kf7, padding=3).permute(0, 2, 3, 1) + packed["bf7"].float().abs()
+    tap_cor = (_ulps_bf16(taps) @ wc1 if dtype == torch.bfloat16 else torch.zeros_like(s_cor))
+    return torch.cat([s_cor, s_flo], -1), torch.cat([tap_cor, torch.zeros_like(s_flo)], -1)
+
+
+def stage1_errors(got, want, allowances) -> dict:
+    """Stage 1's cor|flo against the plain version's on the same inputs,
+    and whether they agree within K2_STAGE1_FP32_TOL or K2_STAGE1_BF16_TOL
+    (by the dtype); ``allowances`` is :func:`stage1_allowances` of those
+    inputs."""
+    import torch
+
+    sums, tap_allow = allowances
+    tiny = 1e-30  # keeps 0/0 at 0 where an allowance is 0
+    diff = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    unit = 2.0 ** -24 * sums  # eps32·S
+    res = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+           "max_abs_out": scale, "share": float((diff > 0).float().mean())}
+    if want.dtype == torch.float32:
+        res.update(tol=K2_STAGE1_FP32_TOL * max(1.0, scale),
+                   order_ratio=float((diff / unit.clamp_min(tiny)).max()))
+        res["ok"] = res["max_abs_err"] <= res["tol"]  # False on NaN
+        return res
+    ulp = _ulps_bf16(want.float())
+    rounding = K2_STAGE1_BF16_TOL["ulps"] * ulp + tap_allow
+    tol = rounding + K2_STAGE1_BF16_TOL["sum_eps"] * unit
+    excess = (diff - rounding).clamp_min(0) / unit.clamp_min(tiny)
+    res.update(max_ulps=float(torch.where(ulp > 0, diff / ulp.clamp_min(tiny), 0.0).max()),
+               max_err_over_tol=float((diff / tol.clamp_min(tiny)).max()),
+               order_ratio=float(excess.max()), tol_ulps=K2_STAGE1_BF16_TOL["ulps"],
+               tol_sum_eps=K2_STAGE1_BF16_TOL["sum_eps"], tol_share=K2_STAGE1_BF16_TOL["share"])
+    res["ok"] = res["max_err_over_tol"] <= 1.0 and res["share"] <= res["tol_share"]
+    return res
+
+
 # K2's five conv launches at the slice shape (dh 128, 128 inp16 channels):
 # name, the bf16 kernel each runs as the profiler names it (N, epilogue),
 # input and output channels, groups, and the bytes a pixel that the launch
@@ -558,22 +669,31 @@ K2_CONVS = (
 
 def _device_ms_by_kernel(run, reps):
     """torch.profiler over ``reps`` calls of ``run``: device ms a launch by
-    kernel name, for the kernels launched at least once a call (empty if
-    the profiler saw no device time)."""
+    kernel name, for the kernels launched in at least half of the calls
+    (empty if the profiler saw no device time). One more call runs traced
+    before them and is dropped (the schedule's warm-up step). A profile may
+    miss some launches, so a kernel's time is its total over the launches
+    the profiler saw."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
+        prof.step()
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None)
         us = getattr(e, "cuda_time_total", 0.0) if us is None else us
-        if us > 0 and e.count >= reps and "Memcpy" not in e.key and "Memset" not in e.key:
+        if (us > 0 and e.count >= max(1, reps // 2) and "Memcpy" not in e.key
+                and "Memset" not in e.key):
             out[e.key] = us / e.count / 1e3
     return out
 
@@ -626,6 +746,8 @@ def phase_k2_launches(reps: int = 20):
             entry["tflops"] = flops / entry["ms"] / 1e9
     for name, bound in _k2_stage_bounds(args, "bfloat16").items():
         launches.setdefault(name, {"kernel": None, "ms": None}).update(bound)
+    launches["motion_in (lookup, convc1, convf1)"]["geometry"] = _stage1_geometry(args[1],
+                                                                                  args[2])
     res = {"profiler_saw_device_time": bool(times), "launches": launches}
     emit({"phase": "k2_launches", "case": "slice_544x960_bf16", **res})
     return res
@@ -651,7 +773,7 @@ def phase_fused_check():
         ("engine_b4_544x960_bf16", (4, 136, 240, 256), 4, 4, True, "bfloat16", 20),
         ("engine_b4_480x640_bf16", (4, 120, 160, 256), 4, 4, True, "bfloat16", 20),
     ]
-    checks = []
+    checks, fault_inputs = [], {}
     with _fp32_checks(), tempfile.TemporaryDirectory(prefix="chip_smoke_k2_") as tmp:
         for name, (B, H, W, D), levels, radius, with_inp, dname, reps in cases:
             dtype = getattr(torch, dname)
@@ -662,8 +784,8 @@ def phase_fused_check():
             want = fused_update.reference_refine_step(*args, compute_dtype=dtype)
             res = {"case": name, "shape": [B, H, W, D], "levels": levels, "radius": radius,
                    "inp16": with_inp, "dtype": dname, **k2_errors(got, want, dtype)}
-            if not checks:  # the main path's case: the check must catch planted faults
-                faults = _k2_planted_faults(args, want, dtype, Path(tmp))
+            if name in K2_FAULT_CASES:  # the cases that must catch planted faults
+                fault_inputs[name] = (args, want)
             res["ms"] = _time_ms(lambda: fused_update.fused_refine_step(
                 *args, compute_dtype=dtype), reps)
             res["plain_ms"] = _time_ms(lambda: fused_update.reference_refine_step(
@@ -674,24 +796,115 @@ def phase_fused_check():
             checks.append(res)
             del block, args, got, want
             torch.cuda.empty_cache()
-    emit({"phase": "k2_planted_faults", "case": cases[0][0], "faults": faults})
+        faults = _k2_planted_faults(fault_inputs, torch.bfloat16, Path(tmp))
+    emit({"phase": "k2_planted_faults", "cases": K2_FAULT_CASES, "faults": faults})
     bad = [c["case"] for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"fused_update disagrees with its plain step in {bad}")
-    missed = [f["fault"] for f in faults if f["ok"]]
-    if missed:
+    slice_case, ragged_case = K2_FAULT_CASES
+    missed = [f"{f['fault']} ({case})" for f in faults
+              for case in [ragged_case if f["fault"] in K2_ROW_END_FAULTS else slice_case]
+              if f[case]["ok"]]
+    missed += [f"{f['fault']} (stage 1)" for f in faults
+               if f["fault"] in K2_STAGE1_FAULTS and f[slice_case]["stage1"]["ok"]]
+    if len(faults) != len(K2_MUTANTS) or missed:
         raise AssertionError(f"the bf16 K2 check passes the planted faults {missed}")
     return checks
 
 
-def _k2_planted_faults(args, want, dtype, tmp: Path):
-    """Each fault of K2_MUTANTS, run on the same inputs and held to the
-    same plain step: each must fail."""
+def _stage1_geometry(f1, pyr) -> dict:
+    """Stage 1's launch geometry at these shapes, with its waves on this
+    card (blocks over the SMs times the blocks an SM holds)."""
+    import torch
+
     from raft_stereo_tpu_torch.ops import fused_update
 
-    return _planted_faults(fused_update, K2_MUTANTS,
-                           lambda: fused_update.fused_refine_step(*args, compute_dtype=dtype),
-                           lambda got: k2_errors(got, want, dtype), tmp)
+    B, H, W, D = f1.shape
+    geo = fused_update.motion_in_geometry(B * H, W, [p.shape[2] for p in pyr], D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {**geo._asdict(), "waves": geo.blocks / (sms * geo.per_sm)}
+
+
+# name, (B, H, W, D), reps: the slice shape (the main path's), rows of two
+# ragged segments, the fused engine's batch-4 buckets and the Middlebury-F
+# width; each in bf16 and fp32
+K2_STAGE1_CASES = (
+    ("slice_544x960", (1, 136, 240, 256), 50),
+    ("ragged_b2_h37_w123", (2, 37, 123, 256), 50),
+    ("engine_b4_544x960", (4, 136, 240, 256), 20),
+    ("engine_b4_480x640", (4, 120, 160, 256), 20),
+    ("middlebury_F_1984x2880", (1, 496, 720, 256), 10),
+)
+
+
+def phase_k2_stage1_check():
+    """K2's first launch alone (``fused_update.motion_in``) against
+    ``reference_motion_in`` on the card, 4 levels at radius 4, in bf16 and
+    fp32 (TF32 off): each case's errors (``stage1_errors``), its device time
+    under torch.profiler, its plain version's time, its bound
+    (``_motion_in_bound``) and its geometry."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    checks = []
+    with _fp32_checks():
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            for name, (B, H, W, D), reps in K2_STAGE1_CASES:
+                _, args = _fused_inputs(B, H, W, D, 4, 4, False, dtype,
+                                        seed=SEED + 30 + len(checks))
+                packed, f1, pyr, flow, radius = args[0], args[1], args[2], args[3], args[7]
+                before = fused_update.MOTION_IN_LAUNCHES
+                got = fused_update.motion_in(f1, pyr, flow, packed, radius, dtype)
+                torch.cuda.synchronize()
+                launched = fused_update.MOTION_IN_LAUNCHES - before
+                want = fused_update.reference_motion_in(f1, pyr, flow, packed, radius, dtype)
+                res = {"case": name, "shape": [B, H, W, D], "dtype": dname,
+                       "launched": launched,
+                       **stage1_errors(got, want,
+                                       stage1_allowances(f1, pyr, flow, packed, radius, dtype))}
+                times = _device_ms_by_kernel(
+                    lambda: fused_update.motion_in(f1, pyr, flow, packed, radius, dtype), reps)
+                res["ms"] = next((v for k, v in times.items() if "motion_in_kernel" in k), None)
+                res["plain_ms"] = _time_ms(lambda: fused_update.reference_motion_in(
+                    f1, pyr, flow, packed, radius, dtype), 3, warmup=1)
+                res.update(_motion_in_bound(packed, f1, pyr, flow, radius, dname))
+                res["geometry"] = _stage1_geometry(f1, pyr)
+                emit({"phase": "k2_stage1_check", **res})
+                checks.append(res)
+                del args, packed, f1, pyr, flow, got, want
+                torch.cuda.empty_cache()
+    bad = [f"{c['case']} {c['dtype']}" for c in checks if not c["ok"] or c["launched"] != 1]
+    if bad:
+        raise AssertionError(f"fused_update stage 1 disagrees with its plain version in {bad}")
+    return checks
+
+
+def _k2_planted_faults(cases, dtype, tmp: Path):
+    """Each fault of K2_MUTANTS, run on the inputs of each of ``cases``
+    (name -> (step arguments, the plain step's result)): the step held to
+    the plain step and its stage 1 to the plain stage 1, case by case."""
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    def stage1_args(args):  # fmap1, the pyramid, the flow, the weights, the radius
+        return args[1], args[2], args[3], args[0], args[7]
+
+    plain = {name: (fused_update.reference_motion_in(*stage1_args(args), dtype),
+                    stage1_allowances(*stage1_args(args), dtype))
+             for name, (args, _) in cases.items()}
+
+    def run():
+        return {name: (fused_update.fused_refine_step(*args, compute_dtype=dtype),
+                       fused_update.motion_in(*stage1_args(args), dtype))
+                for name, (args, _) in cases.items()}
+
+    def errors(out):
+        return {name: {**k2_errors(step, cases[name][1], dtype),
+                       "stage1": stage1_errors(cf, *plain[name])}
+                for name, (step, cf) in out.items()}
+
+    return _planted_faults(fused_update, K2_MUTANTS, run, errors, tmp)
 
 
 def _planted_faults(module, mutants, run, errors, tmp: Path):
@@ -811,8 +1024,7 @@ def k3_errors(got, want, sums) -> dict:
     # one bf16 ulp at each plain value's magnitude (values in
     # [2^(e-1), 2^e) are 2^(e-8) apart; none at an exact zero), plus the
     # element's own order allowance
-    w = want.float()
-    ulp = torch.where(w == 0, 0.0, torch.exp2((torch.frexp(w).exponent - 8).float()))
+    ulp = _ulps_bf16(want.float())
     rounding = K3_BF16_TOL["ulps"] * ulp
     tol = rounding + K3_BF16_TOL["sum_eps"] * unit
     excess = (diff - rounding).clamp_min(0) / unit.clamp_min(tiny)
@@ -1422,13 +1634,15 @@ def _fp32_checks():
     from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-             alt_corr.LAUNCHES, fused_update.LAUNCHES, packed_conv.LAUNCHES)
+             alt_corr.LAUNCHES, fused_update.LAUNCHES, fused_update.MOTION_IN_LAUNCHES,
+             packed_conv.LAUNCHES)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-         alt_corr.LAUNCHES, fused_update.LAUNCHES, packed_conv.LAUNCHES) = saved
+         alt_corr.LAUNCHES, fused_update.LAUNCHES, fused_update.MOTION_IN_LAUNCHES,
+         packed_conv.LAUNCHES) = saved
 
 
 def _ulp32(x: float) -> float:
@@ -2441,6 +2655,7 @@ def main() -> int:
     phase_build()
     checks = phase_kernel_check()
     fused_checks = phase_fused_check()
+    stage1_checks = phase_k2_stage1_check()
     k3_checks = phase_packed_conv_check()
     fused_checks[0]["by_launch"] = phase_k2_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2512,6 +2727,13 @@ def main() -> int:
             "conv_library_ms": {c[0]: k2["by_launch"]["launches"][c[0]]["library_ms"]
                                 for c in K2_CONVS},
             "checks": fused_checks,
+            "stage1": {
+                "entry": "raft_stereo_tpu_torch/ops/fused_update.py::motion_in",
+                "launch": k2["by_launch"]["launches"]["motion_in (lookup, convc1, convf1)"],
+                "tol": {"float32": f"{K2_STAGE1_FP32_TOL} x max(1, |plain| max)",
+                        "bfloat16": K2_STAGE1_BF16_TOL},
+                "checks": stage1_checks,
+            },
             "backward": "none: test mode only (fused_refine_step raises under grad)",
         },
         {

@@ -32,9 +32,17 @@
 // megabytes, against 227 KB of shared memory per block here. So the step
 // is a chain of 7 launches on one stream, and the intermediates (about
 // 40 MB in bf16) round-trip through the 50 MB L2 instead:
-//   1. motion_in_kernel: one warp per pixel does the lookup (the warp-per-
-//      pixel device code of alt_corr_lookup.cuh), convc1 + relu and
-//      convf1 + relu, writing cor|flo;
+//   1. motion_in_kernel: the lookup, convc1 + relu and convf1 + relu,
+//      writing cor|flo. What bounds it is memory traffic: at the slice
+//      shape it reads f1 and the pyramid (96 MB, fp32) once, 0.031 ms at
+//      3.35 TB/s, for 0.83 GFLOP on fp32 FMA. One block a (row, segment):
+//      the segment's f1 rows and every level's whole row are staged in
+//      shared memory a chunk of channels at a time, so HBM sees each byte
+//      about once and L2 each level row once a segment (about 280 MB), and
+//      every window sum is read from shared memory (11 loads a pixel,
+//      channel and level, about 0.05 ms at the card's shared-memory rate);
+//      convc1 and convf1 read the taps, weights and flow from shared memory
+//      too. Details at the kernel;
 //   2-6. one 3x3 SAME conv each, with inputs concatenated from up to
 //      three tensors without a copy and a fused epilogue: bias+relu
 //      (convc2|convf2 as two groups, flow head conv1), bias+relu plus the
@@ -67,21 +75,19 @@
 //
 // Interface: plain C, loaded with ctypes. ``fused_update_step`` launches
 // the chain on the given stream and returns the first cudaGetLastError()
-// that is not cudaSuccess. The wrapper allocates every output and the
-// scratch buffers.
+// that is not cudaSuccess; ``fused_motion_in`` launches stage 1 alone. The
+// wrapper allocates every output and the scratch buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <type_traits>
 
-#include "alt_corr_lookup.cuh"
 #include "conv3x3_sm90.cuh"
 
 namespace {
 
-using rst::kMaxLevels;
-using rst::Pyramid;
 using bf16 = __nv_bfloat16;
 
 // Pointer slots of fused_update_step, in this order (ops/fused_update.py
@@ -124,65 +130,357 @@ __device__ __forceinline__ float tanh_fast(float v) {
   return 1.f - __fdividef(2.f, __expf(2.f * v) + 1.f);
 }
 
+// 16-byte global -> shared copy that does not wait; zero-fills when
+// ``valid`` is false (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group landed
+}
+
 // ---------------------------------------------------------------- stage 1
-// One warp per pixel: the L(2r+1) window taps (alt_corr_lookup.cuh),
-// rounded to T, into convc1 (lane owns output channels lane and lane +
-// 32); then convf1 over the 7x7 neighbourhood of the flow, rounded to T.
-template <typename T, int NV, int R>
-__global__ void __launch_bounds__(32 * kWarps)
-motion_in_kernel(const float* __restrict__ f1, Pyramid pyr, int levels,
-                 const float* __restrict__ flow, const T* __restrict__ wc1,
-                 const float* __restrict__ bc1, const T* __restrict__ kf7,
-                 const float* __restrict__ bf7, T* __restrict__ cf, int P, int H, int W,
-                 int D, float inv_sqrt_d) {
+// The lookup with convc1 and convf1, writing cor|flo. One block for each
+// (image row, segment of ``seg`` pixels), all L levels in the block; the
+// segment varies fastest in the grid, so the segments of one row run side
+// by side and L2 serves them the level rows. The geometry (seg, threads,
+// the channel chunk DC, the shared memory) comes from
+// ops/fused_update.py::motion_in_geometry, which picks DC for three blocks
+// an SM where the rows allow.
+//
+// Lookup phase: thread t serves (level t / seg, pixel t % seg). For each
+// chunk of DC channels the block copies the segment's f1 rows [seg, DC]
+// and every level's whole f2 row [W2_l, DC] into shared memory with
+// 16-byte cp.async, two stages deep; a partial last chunk is zero-filled.
+// Each thread adds its 2r+2 window dot products over the chunk, all of
+// them a float4 step at a time, into partials that it adds to its sums:
+// K1's inner loop (alt_corr.cu), except that a window position outside
+// the row is not read (K1 reads a clamped one and zeroes its sum). Thread
+// t reads a row's float4s in the order q ^ rot(t). At DC = 32 a row fills
+// a 128-byte line of the banks and rot = t mod 8 (K1's) puts the 8 threads
+// of a quarter-warp in 8 distinct bank groups whatever rows they read.
+// Below, 32 / DC rows share a line, so where a row starts in the line
+// depends on the data; rot is then the thread's rank among the threads of
+// its quarter-warp whose window rows start at the same place, and threads
+// collide only where more than DC / 4 of them do (neighbouring pixels of
+// a smooth disparity field never do; unrelated ones often do). Then each
+// thread writes its 2r+1 taps, rounded to T and widened, into a tile
+// taps[seg][L(2r+1) | 1] over the stages.
+//
+// Conv phase: a warp takes 64 pixels x 16 output channels at a time, of
+// convc1 (the taps summed over (l, k) ascending from 0, then the bias,
+// then the relu) or of convf1 (the 7 x (seg + 6) flow patch staged rounded
+// to T, zero outside the image, its 49 taps in (dy, dx) order). The
+// weights sit in shared memory as fp32, once a block, and a warp's reads
+// of them broadcast; the odd row stride of the tap tile puts 32 pixels'
+// reads of one tap in 32 banks. The [seg, 128] cor|flo tile is built in
+// shared memory in T and written out with 16-byte stores: a segment's rows
+// of cf are contiguous, so the stores coalesce.
+constexpr int kMaxLevels = 8;
+
+struct Pyramid {
+  const float* f2[kMaxLevels];
+  int w2[kMaxLevels];
+};
+
+namespace mi {
+constexpr int kMaxThreads = 256;      // (level, pixel) pairs a block
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may opt into
+constexpr int kSlice = 16;            // output channels of a warp's conv item
+constexpr int kFlowRows = 7;          // convf1's rows
+
+// The conv phase's tiles (float offsets), over the lookup's stages.
+struct Layout {
+  int tap_ld, flow_ld, out_ld;  // row strides: floats, floats, bytes
+  int wc1, kf7, flow, out, floats;
+  __host__ __device__ Layout(int seg, int lk, int esize) {
+    tap_ld = lk | 1;
+    flow_ld = seg + 6;
+    out_ld = kMotionCh * esize + 16;  // padded: 8 rows' 16-byte pieces in 8 bank groups
+    wc1 = round4(seg * tap_ld);
+    kf7 = wc1 + lk * 64;
+    flow = kf7 + 49 * 64;
+    out = flow + round4(kFlowRows * flow_ld);
+    floats = out + seg * out_ld / 4;
+  }
+  static __host__ __device__ int round4(int n) { return (n + 3) & ~3; }
+};
+}  // namespace mi
+
+struct MotionIn {
+  const float* f1;  // [P][D]
+  Pyramid pyr;
+  int levels;
+  const float* flow;  // [P]
+  const void* wc1;    // [L(2r+1)][64] in T
+  const float* bc1;
+  const void* kf7;  // [49][64] in T
+  const float* bf7;
+  void* cf;  // [P][128] in T
+  int H, W, D;
+  int seg, n_seg;  // pixels a segment, segments a row
+};
+
+// Copies channels [c0, c0 + DC) of the segment's n_pix f1 rows and then of
+// every level's f2 row into consecutive staged rows of DC floats; channels
+// past D are zero-filled. blockDim.x is a multiple of 32, so a thread
+// copies the same 16-byte piece of every row it copies.
+template <int DC>
+__device__ __forceinline__ void stage_chunk(float* st, const MotionIn& a, const float* f1seg,
+                                            int n_pix, long long row, int c0) {
+  constexpr int Q = DC / 4;  // 16-byte pieces a staged row
+  const int q = threadIdx.x % Q;
+  const int step = blockDim.x / Q;
+  const int c = c0 + 4 * q;
+  const bool valid = c < a.D;
+  const int cc = valid ? c : 0;
+  for (int r = threadIdx.x / Q; r < n_pix; r += step) {
+    cp_async16(st + r * DC + 4 * q, f1seg + (long long)r * a.D + cc, valid);
+  }
+  float* dst = st + n_pix * DC;
+  for (int l = 0; l < a.levels; ++l) {
+    const int W2 = a.pyr.w2[l];
+    const float* src = a.pyr.f2[l] + row * W2 * a.D;
+    for (int r = threadIdx.x / Q; r < W2; r += step) {
+      cp_async16(dst + r * DC + 4 * q, src + (long long)r * a.D + cc, valid);
+    }
+    dst += W2 * DC;
+  }
+}
+
+// n weights (n % 64 == 0, 16-byte aligned) widened to fp32 into shared
+// memory, 16 bytes a load.
+__device__ __forceinline__ void stage_weights(float* dst, const float* src, int n) {
+  for (int e = 4 * threadIdx.x; e < n; e += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(dst + e) = __ldg(reinterpret_cast<const float4*>(src + e));
+}
+__device__ __forceinline__ void stage_weights(float* dst, const bf16* src, int n) {
+  for (int e = 8 * threadIdx.x; e < n; e += 8 * blockDim.x) {
+    float v[8];
+    sm90::unpack8(__ldg(reinterpret_cast<const uint4*>(src + e)), v);
+    *reinterpret_cast<float4*>(dst + e) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + e + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// 16 channels of a pixel into the output tile, rounded to T.
+__device__ __forceinline__ void store_slice(float* dst, const float (&o)[mi::kSlice]) {
+#pragma unroll
+  for (int e = 0; e < mi::kSlice; e += 4)
+    *reinterpret_cast<float4*>(dst + e) = make_float4(o[e], o[e + 1], o[e + 2], o[e + 3]);
+}
+__device__ __forceinline__ void store_slice(bf16* dst, const float (&o)[mi::kSlice]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = o[8 * h + e];
+    sm90::store8(dst + 8 * h, v);
+  }
+}
+
+// The products of two pixels' input values with a 16-channel slice of a
+// weight row in shared memory (broadcast to the warp).
+__device__ __forceinline__ void fma_slice(float v0, float v1, const float* w,
+                                          float (&o)[2][mi::kSlice]) {
+#pragma unroll
+  for (int e = 0; e < mi::kSlice; e += 4) {
+    const float4 ww = *reinterpret_cast<const float4*>(w + e);
+    const float wv[4] = {ww.x, ww.y, ww.z, ww.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[0][e + i] = fmaf(v0, wv[i], o[0][e + i]);
+      o[1][e + i] = fmaf(v1, wv[i], o[1][e + i]);
+    }
+  }
+}
+
+template <typename T, int DC, int R>
+__global__ void __launch_bounds__(mi::kMaxThreads, 3)
+motion_in_kernel(const MotionIn a, float inv_sqrt_d) {
   constexpr int K = 2 * R + 1;
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= P) return;  // whole warp leaves together
-  const int x = p % W;
-  const int row = p / W;  // b*H + y
-  const int y = row % H;
-  const int D4 = D >> 2;
+  constexpr int NP = 2 * R + 2;
+  constexpr int Q = DC / 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
 
-  float4 a[NV];
-  rst::load_f1_row<NV>(f1 + (long long)p * D, D4, lane, a);
-  const float coord = (float)x + __ldg(flow + p);
+  const int W = a.W, seg = a.seg, levels = a.levels;
+  const int s = blockIdx.x % a.n_seg;
+  const long long row = blockIdx.x / a.n_seg;  // b*H + y
+  const int y = (int)(row % a.H);
+  const int seg0 = s * seg;
+  const int n_pix = min(seg, W - seg0);
+  const int t = threadIdx.x;
+  const int lk = levels * K;
+  const mi::Layout lay(seg, lk, (int)sizeof(T));
 
-  float c0 = 0.f, c1 = 0.f;
-  for (int l = 0; l < levels; ++l) {
-    const int W2 = pyr.w2[l];
-    const float xl = coord * (1.0f / (float)(1 << l));  // exact power-of-two scale
-    float c[K + 1];
-    float frac;
-    rst::level_dots<NV, R>(a, pyr.f2[l] + (long long)row * W2 * D, W2, D, D4, xl, lane, c,
-                           frac);
+  // This thread's level and pixel, and its window (as in K1).
+  const int l = min(t / seg, levels - 1);
+  const int i = t % seg;
+  const bool active = t < levels * seg && i < n_pix;
+  int level_row = 0, n_rows = n_pix;  // staged rows: the level's first, all
+  for (int m = 0; m < levels; ++m) {
+    if (m == l) level_row = n_rows;
+    n_rows += a.pyr.w2[m];
+  }
+  const int W2 = a.pyr.w2[l];
+  const long long p = row * W + seg0 + (active ? i : 0);
+  // exact power-of-two scale
+  const float xl = ((float)(seg0 + i) + __ldg(a.flow + p)) * (1.0f / (float)(1 << l));
+  const float x0 = floorf(xl);
+  const float frac = xl - x0;
+  // Clamp before the int conversion: a window wholly outside stays wholly
+  // outside.
+  const float first = fminf(fmaxf(x0 - (float)R, -(float)(NP + 1)), (float)W2 + 1.0f);
+  const int base = (int)first;
+  // The window's positions inside the row; the others read nothing and
+  // their sums stay 0.
+  unsigned inside = 0;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) inside |= (unsigned)(base + j >= 0 && base + j < W2) << j;
+
+  float acc[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) acc[j] = 0.f;
+
+  const int stage_floats = n_rows * DC;
+  // This thread's order of a row's float4s, q ^ rot. K1's order, rot =
+  // t / (32 / DC) mod (DC / 4), gives the lanes of a quarter-warp distinct
+  // bank groups unless two lanes that share a rot read two rows that start
+  // at the same place in a 128-byte line. Where a lane of the quarter-warp
+  // meets that, rot is instead its row's rank among the distinct rows of
+  // the quarter-warp that start where its row does.
+  constexpr int kRowsALine = 32 / DC;
+  const int lane = t & 31;
+  // an idle lane: a row of its own (a window's rows start at -(NP + 1) at least)
+  const int row_key = active ? level_row + base : INT_MIN + lane;
+  const unsigned same_row = __match_any_sync(0xffffffffu, row_key);
+  const unsigned same_place = __match_any_sync(
+      0xffffffffu, active ? row_key & (kRowsALine - 1) : kRowsALine + lane);
+  const unsigned quarter = 0xffu << (lane & ~7);
+  const unsigned k1_group = ((1u << kRowsALine) - 1) << (lane & ~(kRowsALine - 1));
+  const bool clash = (same_place & k1_group & ~same_row) != 0;
+  const int leader = __ffs(same_row & quarter) - 1;  // the lowest lane reading my row
+  const unsigned leaders = __ballot_sync(0xffffffffu, lane == leader);
+  const int rot = (__ballot_sync(0xffffffffu, clash) & quarter)
+                      ? __popc(leaders & same_place & quarter & ((1u << leader) - 1)) & (Q - 1)
+                      : (lane / kRowsALine) & (Q - 1);
+  const int chunks = (a.D + DC - 1) / DC;
+  const float* f1seg = a.f1 + (row * W + seg0) * a.D;
+  stage_chunk<DC>(smem, a, f1seg, n_pix, row, 0);
+  cp_async_commit();
+  for (int ci = 0; ci < chunks; ++ci) {
+    if (ci + 1 < chunks) {
+      stage_chunk<DC>(smem + ((ci + 1) & 1) * stage_floats, a, f1seg, n_pix, row, (ci + 1) * DC);
+    }
+    cp_async_commit();  // an empty group on the last chunk keeps the count
+    cp_async_wait_prev();
+    __syncthreads();
+    if (active) {
+      // q outermost: the 2r+2 sums of a step are independent, so their
+      // loads and multiply-adds overlap
+      const float* st = smem + (ci & 1) * stage_floats;
+      const float* rows2 = st + level_row * DC;
+      float part[NP];
+#pragma unroll
+      for (int j = 0; j < NP; ++j) part[j] = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int off = 4 * (q ^ rot);
+        const float4 f = *reinterpret_cast<const float4*>(st + i * DC + off);
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          // predicated: a lane outside the row takes no part in the load's
+          // bank accesses
+          if (inside >> j & 1u) {
+            const float4 b = *reinterpret_cast<const float4*>(rows2 + (base + j) * DC + off);
+            part[j] = fmaf(f.x, b.x, part[j]);
+            part[j] = fmaf(f.y, b.y, part[j]);
+            part[j] = fmaf(f.z, b.z, part[j]);
+            part[j] = fmaf(f.w, b.w, part[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NP; ++j) acc[j] += part[j];
+    }
+    __syncthreads();  // the next chunk's copy refills this stage
+  }
+
+  // The taps, rounded to T, and the weights and the flow patch, over the
+  // stages that no thread reads any more.
+  float* taps = smem;
+  if (active) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const float t = round_to<T>(rst::window_tap(c[k], c[k + 1], frac, inv_sqrt_d));
-      const T* w = wc1 + (l * K + k) * 64;
-      c0 = fmaf(t, to_f(w[lane]), c0);
-      c1 = fmaf(t, to_f(w[lane + 32]), c1);
+      taps[i * lay.tap_ld + l * K + k] =
+          round_to<T>(((1.f - frac) * acc[k] + frac * acc[k + 1]) * inv_sqrt_d);
     }
   }
-  T* out = cf + (long long)p * kMotionCh;
-  out[lane] = from_f<T>(fmaxf(c0 + bc1[lane], 0.f));
-  out[lane + 32] = from_f<T>(fmaxf(c1 + bc1[lane + 32], 0.f));
+  float* w1 = smem + lay.wc1;
+  float* w7 = smem + lay.kf7;
+  float* fl = smem + lay.flow;
+  stage_weights(w1, static_cast<const T*>(a.wc1), lk * 64);
+  stage_weights(w7, static_cast<const T*>(a.kf7), 49 * 64);
+  for (int e = t; e < mi::kFlowRows * lay.flow_ld; e += blockDim.x) {
+    const int dy = e / lay.flow_ld - 3, xx = seg0 - 3 + e % lay.flow_ld;
+    const bool inside = y + dy >= 0 && y + dy < a.H && xx >= 0 && xx < W;
+    const long long src = inside ? (row + dy) * W + xx : 0;
+    fl[e] = inside ? round_to<T>(__ldg(a.flow + src)) : 0.f;
+  }
+  __syncthreads();
 
-  float g0 = 0.f, g1 = 0.f;
-  for (int dy = -3; dy <= 3; ++dy) {
-    const int yy = y + dy;
-    if (yy < 0 || yy >= H) continue;
-    for (int dx = -3; dx <= 3; ++dx) {
-      const int xx = x + dx;
-      if (xx < 0 || xx >= W) continue;
-      const float v = round_to<T>(__ldg(flow + p + dy * W + dx));
-      const T* w = kf7 + ((dy + 3) * 7 + (dx + 3)) * 64;
-      g0 = fmaf(v, to_f(w[lane]), g0);
-      g1 = fmaf(v, to_f(w[lane + 32]), g1);
+  // convc1 and convf1: item = (64 pixels, two a lane, 16 channels of one
+  // conv), so that each weight load serves two pixels.
+  unsigned char* out = reinterpret_cast<unsigned char*>(smem + lay.out);
+  constexpr int kSlices = kMotionCh / mi::kSlice;  // 4 of convc1, then 4 of convf1
+  const int items = (n_pix + 63) / 64 * kSlices;
+  for (int it = t >> 5; it < items; it += blockDim.x >> 5) {
+    const int px = it / kSlices * 64 + (t & 31);  // and px + 32
+    // lanes past the segment compute a copy and store nothing
+    const int pc[2] = {min(px, n_pix - 1), min(px + 32, n_pix - 1)};
+    const int sl = it % kSlices;
+    const int c0 = (sl % 4) * mi::kSlice;  // the slice's first channel in its conv
+    float o[2][mi::kSlice];
+#pragma unroll
+    for (int e = 0; e < mi::kSlice; ++e) o[0][e] = o[1][e] = 0.f;
+    if (sl < 4) {
+      const float* tp0 = taps + pc[0] * lay.tap_ld;
+      const float* tp1 = taps + pc[1] * lay.tap_ld;
+      for (int k = 0; k < lk; ++k) fma_slice(tp0[k], tp1[k], w1 + k * 64 + c0, o);
+    } else {
+      for (int dy = 0; dy < 7; ++dy) {
+        const float* row0 = fl + dy * lay.flow_ld + pc[0];
+        const float* row1 = fl + dy * lay.flow_ld + pc[1];
+#pragma unroll
+        for (int dx = 0; dx < 7; ++dx) {
+          fma_slice(row0[dx], row1[dx], w7 + (dy * 7 + dx) * 64 + c0, o);
+        }
+      }
+    }
+    const float* bias = (sl < 4 ? a.bc1 : a.bf7) + c0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < mi::kSlice; ++e) o[h][e] = fmaxf(o[h][e] + bias[e], 0.f);
+      if (px + 32 * h < n_pix) {
+        store_slice(reinterpret_cast<T*>(out + (px + 32 * h) * lay.out_ld) + (sl < 4 ? 0 : 64) + c0,
+                    o[h]);
+      }
     }
   }
-  out[64 + lane] = from_f<T>(fmaxf(g0 + bf7[lane], 0.f));
-  out[96 + lane] = from_f<T>(fmaxf(g1 + bf7[lane + 32], 0.f));
+  __syncthreads();
+
+  // The tile to cf, 16 bytes a thread.
+  constexpr int kPieces = kMotionCh * (int)sizeof(T) / 16;  // a row's 16-byte pieces
+  uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(a.cf) + (row * W + seg0) * kMotionCh);
+  for (int e = t; e < n_pix * kPieces; e += blockDim.x) {
+    const int r = e / kPieces;
+    dst[e] = *reinterpret_cast<const uint4*>(out + r * lay.out_ld + (e - r * kPieces) * 16);
+  }
 }
 
 // -------------------------------------------------------------- the conv
@@ -239,18 +537,6 @@ struct Tiles {
     float c[BM][CLD];
   };
 };
-
-// 16-byte global -> shared copy that does not wait; zero-fills when
-// ``valid`` is false (src must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group landed
-}
 
 // The fp32 block's BM x 64 product, accumulated chunk by chunk: FMA, each
 // thread an 8x4 register tile (rows 8 ty.., cols 4 tx..).
@@ -742,25 +1028,76 @@ head_out_kernel(const T* __restrict__ fh1, const T* __restrict__ k2,
   if (lane == 0) delta[p] = s + b2[0];
 }
 
-template <typename T, int NV>
-void launch_motion_in(int radius, dim3 grid, dim3 block, cudaStream_t st, const float* f1,
-                      const Pyramid& pyr, int levels, const float* flow, const T* wc1,
-                      const float* bc1, const T* kf7, const float* bf7, T* cf, int P, int H,
-                      int W, int D, float inv_sqrt_d) {
+// Stage 1's launch geometry (ops/fused_update.py::motion_in_geometry).
+struct Geometry {
+  int seg, threads, dc, smem;
+};
+
+template <typename T, int DC, int R>
+cudaError_t launch_motion_in(const MotionIn& a, float inv_sqrt_d, unsigned blocks, int threads,
+                             int smem, cudaStream_t st) {
+  static bool attr_set = false;  // above 48 KB only after opting in
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        motion_in_kernel<T, DC, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, mi::kMaxSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(motion_in_kernel<T, DC, R>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  motion_in_kernel<T, DC, R><<<blocks, threads, smem, st>>>(a, inv_sqrt_d);
+  return cudaGetLastError();
+}
+
+template <typename T, int DC>
+cudaError_t launch_motion_in_dc(int radius, const MotionIn& a, float inv_sqrt_d, unsigned blocks,
+                                int threads, int smem, cudaStream_t st) {
   switch (radius) {
-#define MOTION_IN_CASE(R)                                                               \
-  case R:                                                                               \
-    motion_in_kernel<T, NV, R><<<grid, block, 0, st>>>(f1, pyr, levels, flow, wc1, bc1, \
-                                                       kf7, bf7, cf, P, H, W, D,        \
-                                                       inv_sqrt_d);                     \
-    break;
+#define MOTION_IN_CASE(R) \
+  case R:                 \
+    return launch_motion_in<T, DC, R>(a, inv_sqrt_d, blocks, threads, smem, st);
     MOTION_IN_CASE(1)
     MOTION_IN_CASE(2)
     MOTION_IN_CASE(3)
     MOTION_IN_CASE(4)
 #undef MOTION_IN_CASE
     default:
-      break;
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Stage 1 over ``rows`` image rows, after checking that the geometry covers
+// the rows: every (level, pixel) pair a thread, two stages of the staged
+// rows and the conv phase's tiles within the shared memory.
+template <typename T>
+cudaError_t motion_in(MotionIn a, int rows, int radius, const Geometry& g, cudaStream_t st) {
+  int staged = g.seg;
+  for (int l = 0; l < a.levels; ++l) staged += a.pyr.w2[l];
+  const mi::Layout lay(g.seg, a.levels * (2 * radius + 1), (int)sizeof(T));
+  if (g.seg < 1 || (long long)g.seg * a.levels > g.threads || g.threads > mi::kMaxThreads ||
+      g.threads % 32 != 0 || g.smem > mi::kMaxSmem || 8LL * staged * g.dc > g.smem ||
+      4LL * lay.floats > g.smem) {
+    return cudaErrorInvalidValue;
+  }
+  a.seg = g.seg;
+  a.n_seg = (a.W + g.seg - 1) / g.seg;
+  const long long blocks = (long long)rows * a.n_seg;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float inv_sqrt_d = 1.0f / sqrtf((float)a.D);
+  const unsigned nb = (unsigned)blocks;
+  switch (g.dc) {
+#define MOTION_IN_DC(DC) \
+  case DC:               \
+    return launch_motion_in_dc<T, DC>(radius, a, inv_sqrt_d, nb, g.threads, g.smem, st);
+    MOTION_IN_DC(4)
+    MOTION_IN_DC(8)
+    MOTION_IN_DC(16)
+    MOTION_IN_DC(32)
+#undef MOTION_IN_DC
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -779,34 +1116,15 @@ cudaError_t launch_conv(const ConvArgs& a, cudaStream_t st) {
 Seg seg_of(const void* ptr, int ch) { return Seg{ptr, ch, ch}; }
 
 template <typename T>
-int step(const void* const* ptrs, const Pyramid& pyr, int levels, int B, int H, int W, int D,
-         int radius, int dh, int inp_ch, cudaStream_t st) {
+int step(const void* const* ptrs, const MotionIn& mi_args, int B, int H, int W, int radius, int dh,
+         int inp_ch, const Geometry& geo, cudaStream_t st) {
   const int P = B * H * W;
-  const float inv_sqrt_d = 1.0f / sqrtf((float)D);
   auto tp = [&](Slot s) { return static_cast<const T*>(ptrs[s]); };
   auto fp = [&](Slot s) { return static_cast<const float*>(ptrs[s]); };
   cudaError_t err;
 
   // 1. lookup + convc1 + relu, convf1 + relu -> cf = cor|flo
-  {
-    const dim3 grid((unsigned)((P + kWarps - 1) / kWarps)), block(32 * kWarps);
-    const int nv = (D / 4 + 31) / 32;
-    T* cf = static_cast<T*>(const_cast<void*>(ptrs[kCf]));
-    if (nv == 1) {
-      launch_motion_in<T, 1>(radius, grid, block, st, fp(kF1), pyr, levels, fp(kFlow),
-                             tp(kWc1), fp(kBc1), tp(kKf7), fp(kBf7), cf, P, H, W, D,
-                             inv_sqrt_d);
-    } else if (nv == 2) {
-      launch_motion_in<T, 2>(radius, grid, block, st, fp(kF1), pyr, levels, fp(kFlow),
-                             tp(kWc1), fp(kBc1), tp(kKf7), fp(kBf7), cf, P, H, W, D,
-                             inv_sqrt_d);
-    } else {
-      launch_motion_in<T, 4>(radius, grid, block, st, fp(kF1), pyr, levels, fp(kFlow),
-                             tp(kWc1), fp(kBc1), tp(kKf7), fp(kBf7), cf, P, H, W, D,
-                             inv_sqrt_d);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  if ((err = motion_in<T>(mi_args, B * H, radius, geo, st)) != cudaSuccess) return (int)err;
 
   ConvArgs base{};
   base.ks = 3;
@@ -899,6 +1217,35 @@ int step(const void* const* ptrs, const Pyramid& pyr, int levels, int B, int H, 
   return (int)cudaSuccess;
 }
 
+// Stage 1's arguments, or false where the shapes are outside the kernel's
+// range. f2_levels / widths are host arrays of ``levels`` entries.
+bool motion_in_args(const void* f1, const void* const* f2_levels, const int* widths, int levels,
+                    const void* flow, const void* wc1, const void* bc1, const void* kf7,
+                    const void* bf7, void* cf, int B, int H, int W, int D, int radius,
+                    MotionIn* a) {
+  if (levels < 1 || levels > kMaxLevels || D < 4 || D % 4 != 0 || D > 512 || radius < 1 ||
+      radius > 4 || B < 1 || H < 1 || W < 1 || (long long)B * H * W > (1LL << 30)) {
+    return false;
+  }
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < levels && widths[l] < 1) return false;
+    a->pyr.f2[l] = l < levels ? static_cast<const float*>(f2_levels[l]) : nullptr;
+    a->pyr.w2[l] = l < levels ? widths[l] : 0;
+  }
+  a->f1 = static_cast<const float*>(f1);
+  a->levels = levels;
+  a->flow = static_cast<const float*>(flow);
+  a->wc1 = wc1;
+  a->bc1 = static_cast<const float*>(bc1);
+  a->kf7 = kf7;
+  a->bf7 = static_cast<const float*>(bf7);
+  a->cf = cf;
+  a->H = H;
+  a->W = W;
+  a->D = D;
+  return true;
+}
+
 }  // namespace
 
 // One refinement step. ``ptrs`` holds kSlots device pointers in Slot order
@@ -906,24 +1253,45 @@ int step(const void* const* ptrs, const Pyramid& pyr, int levels, int B, int H, 
 // of ``levels`` entries. Every buffer is contiguous and 16-byte aligned
 // (the wrapper checks): f1, the pyramid, flow, the biases, z and delta in
 // fp32, everything else in the compute type (bf16 when ``use_bf16`` is 1).
+// seg (pixels a segment), threads (a block), dc (channels a chunk) and smem
+// (dynamic shared memory a block, bytes) are stage 1's geometry, from
+// ops/fused_update.py::motion_in_geometry.
 extern "C" int fused_update_step(int use_bf16, const void* const* ptrs, const void* const* f2_levels,
                                  const int* widths, int levels, int B, int H, int W, int D,
-                                 int radius, int dh, int inp_ch, void* stream) {
-  if (levels < 1 || levels > kMaxLevels || D < 4 || D % 4 != 0 || D > 512 || radius < 1 ||
-      radius > 4 || B < 1 || H < 1 || W < 1 || dh < BN || dh % BN != 0 || inp_ch < 0 ||
-      inp_ch % BK != 0 || (inp_ch > 0) != (ptrs[kInp] != nullptr) ||
-      (long long)B * H * W > (1LL << 30)) {
+                                 int radius, int dh, int inp_ch, int seg, int threads, int dc,
+                                 int smem, void* stream) {
+  MotionIn a;
+  if (!motion_in_args(ptrs[kF1], f2_levels, widths, levels, ptrs[kFlow], ptrs[kWc1], ptrs[kBc1],
+                      ptrs[kKf7], ptrs[kBf7], const_cast<void*>(ptrs[kCf]), B, H, W, D, radius,
+                      &a) ||
+      dh < BN || dh % BN != 0 || inp_ch < 0 || inp_ch % BK != 0 ||
+      (inp_ch > 0) != (ptrs[kInp] != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Pyramid pyr;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    pyr.f2[l] = l < levels ? static_cast<const float*>(f2_levels[l]) : nullptr;
-    pyr.w2[l] = l < levels ? widths[l] : 0;
-    if (l < levels && widths[l] < 1) return (int)cudaErrorInvalidValue;
-  }
+  const Geometry g{seg, threads, dc, smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (use_bf16) return step<bf16>(ptrs, pyr, levels, B, H, W, D, radius, dh, inp_ch, st);
-  return step<float>(ptrs, pyr, levels, B, H, W, D, radius, dh, inp_ch, st);
+  if (use_bf16) return step<bf16>(ptrs, a, B, H, W, radius, dh, inp_ch, g, st);
+  return step<float>(ptrs, a, B, H, W, radius, dh, inp_ch, g, st);
+}
+
+// Stage 1 alone: cor|flo [B*H*W][128] into ``cf`` from f1, the pyramid,
+// the x-flow and convc1's and convf1's weights, with fused_update_step's
+// buffers, types and geometry.
+extern "C" int fused_motion_in(int use_bf16, const void* f1, const void* const* f2_levels,
+                               const int* widths, int levels, const void* flow, const void* wc1,
+                               const void* bc1, const void* kf7, const void* bf7, void* cf,
+                               int B, int H, int W, int D, int radius, int seg, int threads,
+                               int dc, int smem, void* stream) {
+  MotionIn a;
+  if (!motion_in_args(f1, f2_levels, widths, levels, flow, wc1, bc1, kf7, bf7, cf, B, H, W, D,
+                      radius, &a)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry g{seg, threads, dc, smem};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = use_bf16 ? motion_in<bf16>(a, B * H, radius, g, st)
+                                   : motion_in<float>(a, B * H, radius, g, st);
+  return (int)err;
 }
 
 // The number of pointer slots fused_update_step reads, for the wrapper's check.

@@ -12,6 +12,9 @@ compute dtype.
 
 ``fused_refine_step`` computes the plain version ``reference_refine_step``
 on CPU tensors; on CUDA tensors it launches the kernel or raises.
+``motion_in`` does the same for the kernel's first launch alone (the
+lookup with convc1 and convf1, plain version ``reference_motion_in``);
+``motion_in_geometry`` is that launch's geometry.
 Inference only: there is no backward yet (the JAX VJP,
 ``pallas_fused_update.py:474-497``, is still to port), so a call under
 grad mode with an input that requires grad raises on either device rather
@@ -21,7 +24,7 @@ than return a result without a gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,8 +59,20 @@ SLOTS = (
     "cf", "cf2", "m", "z", "rh", "fh1",
 )
 
-# Kernel launches since the count was last set to 0 (one a step).
+# Stage 1's geometry: at most SEGMENT (level, pixel) pairs a block; the
+# channels staged a step, widest first (all but the last may leave three
+# blocks an SM); the shared memory of a block and of an SM, less what the
+# card keeps of an SM's for each resident block.
+SEGMENT = 256
+CHUNKS = (32, 16, 8, 4)
+SMEM = 227 * 1024
+SMEM_SM = 228 * 1024
+SMEM_RESERVED = 1024
+
+# Kernel launches since the count was last set to 0: fused steps (one a
+# step) and stage-1 launches through ``motion_in``.
 LAUNCHES = 0
+MOTION_IN_LAUNCHES = 0
 
 _fn = None
 
@@ -116,6 +131,25 @@ def _conv(x: torch.Tensor, taps: torch.Tensor, cd: torch.dtype, bias=None, group
     return y if bias is None else y + bias.float()[:, None, None]
 
 
+def reference_motion_in(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor],
+                        flow_x: torch.Tensor, packed: Dict[str, torch.Tensor], radius: int,
+                        compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version of the kernel's first launch: cor|flo [B, H, W,
+    128] in the compute dtype, cor = relu(convc1(the lookup's window, cast)
+    + bc1) and flo = relu(convf1(the x-flow, cast) + bf7), each cast (the
+    JAX ``reference_refine_step``'s first cast points). A channels-last view
+    of an NCHW tensor."""
+    cd = compute_dtype
+    W1 = fmap1.shape[2]
+    coords = torch.arange(W1, dtype=torch.float32, device=flow_x.device) + flow_x
+    corr = corr_lookup_alt_plain(fmap1, list(fmap2_pyramid), coords, radius).to(cd)
+    cor = torch.relu(torch.einsum("bhwk,kc->bchw", corr.float(), packed["wc1"].to(cd).float())
+                     + packed["bc1"].float()[:, None, None]).to(cd)
+    flo = torch.relu(_conv(flow_x[:, None].float(), packed["kf7"][:, None], cd,
+                           packed["bf7"])).to(cd)
+    return torch.cat([cor, flo], 1).permute(0, 2, 3, 1)
+
+
 def reference_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
                           fmap2_pyramid: Sequence[torch.Tensor], flow_x: torch.Tensor,
                           h: torch.Tensor, inp16: Optional[torch.Tensor], ctx: torch.Tensor,
@@ -127,20 +161,13 @@ def reference_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
     cast; h' computed in fp32 and stored in h's dtype; fh1 cast; delta
     fp32. Returns ``(h' [B, H, W, dh], delta [B, H, W] fp32)``."""
     cd = compute_dtype
-    W1 = fmap1.shape[2]
     dh = h.shape[-1]
 
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
-    coords = torch.arange(W1, dtype=torch.float32, device=flow_x.device) + flow_x
-    corr = corr_lookup_alt_plain(fmap1, list(fmap2_pyramid), coords, radius).to(cd)
-    cor = torch.relu(torch.einsum("bhwk,kc->bchw", corr.float(), packed["wc1"].to(cd).float())
-                     + packed["bc1"].float()[:, None, None]).to(cd)
-    flow = flow_x[:, None].float()
-    flo = torch.relu(_conv(flow, packed["kf7"][:, None], cd, packed["bf7"])).to(cd)
-    cf2 = torch.relu(_conv(torch.cat([cor, flo], 1), packed["wcf"], cd, packed["bcf"],
-                           groups=2)).to(cd)
+    cf = nchw(reference_motion_in(fmap1, fmap2_pyramid, flow_x, packed, radius, cd))
+    cf2 = torch.relu(_conv(cf, packed["wcf"], cd, packed["bcf"], groups=2)).to(cd)
     m = torch.relu(_conv(cf2, packed["km"], cd, packed["bm"]))
     m[:, FLOW_CH] += flow_x  # m's channel layout: [126 conv, x-flow, 0]
     m = m.to(cd)
@@ -167,16 +194,83 @@ def batch_max_delta(delta: torch.Tensor) -> torch.Tensor:
     return delta.float().abs().mean(dim=(1, 2)).amax()
 
 
-def _kernel():
-    """The bound C entry point, built and loaded at first use."""
+class MotionInGeometry(NamedTuple):
+    """How stage 1 covers a lookup: one block for each (image row, segment
+    of ``seg`` pixels), ``threads`` a block (one a level and pixel), the
+    channels staged ``dc`` at a time in ``chunks`` steps (the last partial
+    where ``dc`` does not divide D), ``smem`` bytes of dynamic shared
+    memory a block, ``per_sm`` blocks of it on an SM, ``blocks`` in all."""
+
+    seg: int
+    segments: int
+    threads: int
+    dc: int
+    chunks: int
+    smem: int
+    per_sm: int
+    blocks: int
+
+
+def _conv_phase_bytes(seg: int, levels: int) -> int:
+    """Stage 1's conv-phase tiles (the kernel's ``mi::Layout``) at radius 4
+    and fp32, the most any radius and compute dtype take: taps [seg][36|1
+    a level], convc1's and convf1's weights in fp32, the 7 x (seg + 6) flow
+    patch and the [seg][128] output tile with 16 bytes of pad a row."""
+    def round4(n):
+        return -(-n // 4) * 4
+
+    lk = 9 * levels
+    floats = (round4(seg * (lk | 1)) + lk * 64 + 49 * 64 + round4(7 * (seg + 6))
+              + seg * (MOTION_CH * 4 + 16) // 4)
+    return 4 * floats
+
+
+def motion_in_geometry(rows: int, W: int, widths: Sequence[int], D: int) -> MotionInGeometry:
+    """Stage 1's launch over ``rows`` = B·H image rows of W pixels, pyramid
+    levels of ``widths`` positions and D channels. A segment holds at most
+    SEGMENT // L pixels, and W splits into as few and as even segments as
+    that allows. The chunk of channels is the widest of CHUNKS[:-1] (no
+    wider than D) for which a block's shared memory leaves room for three
+    blocks an SM; failing that, of CHUNKS for two, then for one. A block's shared
+    memory is the larger of two stages of the segment's f1 rows and every
+    level's row, [seg + Σ widths, dc] in fp32, and the conv phase's tiles,
+    which alias them. Raises ValueError where the rows are too wide for
+    even one block."""
+    L = len(widths)
+    segments = -(-W // (SEGMENT // L))
+    seg = -(-W // segments)
+    staged = seg + sum(widths)
+    conv = _conv_phase_bytes(seg, L)
+    for per_sm, chunks in ((3, CHUNKS[:-1]), (2, CHUNKS), (1, CHUNKS)):
+        room = min(SMEM, SMEM_SM // per_sm - SMEM_RESERVED)
+        for dc in chunks:
+            smem = max(8 * dc * staged, conv)
+            if dc <= D and smem <= room:
+                return MotionInGeometry(seg, segments, -(-seg * L // 32) * 32, dc, -(-D // dc),
+                                        smem, per_sm, rows * segments)
+    raise ValueError(
+        f"fused_update stage 1 stages every level's whole row ({sum(widths)} positions) and "
+        f"{seg} pixels of f1 in shared memory: at {CHUNKS[-1]} channels a step that needs "
+        f"{8 * CHUNKS[-1] * staged} bytes, more than the {SMEM} a block can have (level rows "
+        f"of up to {SMEM // (8 * CHUNKS[-1]) - seg} positions in all)")
+
+
+class _Bound(NamedTuple):
+    step: Callable[..., int]  # fused_update_step
+    motion_in: Callable[..., int]  # fused_motion_in
+
+
+def _kernel() -> _Bound:
+    """The bound C entry points, built and loaded at first use."""
     global _fn
     if _fn is None:
         lib = _build.load(KERNEL)
         if lib.fused_update_slots() != len(SLOTS):
             raise RuntimeError(f"{KERNEL} kernel takes {lib.fused_update_slots()} pointer "
                                f"slots, the wrapper passes {len(SLOTS)}")
-        fn = lib.fused_update_step
-        fn.argtypes = [
+        geometry = [ctypes.c_int] * 4  # seg, threads, dc, dynamic shared memory (bytes)
+        step = lib.fused_update_step
+        step.argtypes = [
             ctypes.c_int,  # bf16 compute
             ctypes.POINTER(ctypes.c_void_p),  # host array of SLOTS pointers
             ctypes.POINTER(ctypes.c_void_p),  # host array of level pointers
@@ -186,10 +280,25 @@ def _kernel():
             ctypes.c_int,  # radius
             ctypes.c_int,  # dh
             ctypes.c_int,  # inp16 channels (0: none)
+            *geometry,
             ctypes.c_void_p,  # stream
         ]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        step.restype = ctypes.c_int
+        mi = lib.fused_motion_in
+        mi.argtypes = [
+            ctypes.c_int,  # bf16 compute
+            ctypes.c_void_p,  # f1
+            ctypes.POINTER(ctypes.c_void_p),  # host array of level pointers
+            ctypes.POINTER(ctypes.c_int),  # host array of level widths
+            ctypes.c_int,  # levels
+            *[ctypes.c_void_p] * 6,  # flow, wc1, bc1, kf7, bf7, cf
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W, D
+            ctypes.c_int,  # radius
+            *geometry,
+            ctypes.c_void_p,  # stream
+        ]
+        mi.restype = ctypes.c_int
+        _fn = _Bound(step, mi)
     return _fn
 
 
@@ -202,7 +311,20 @@ def _expect(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} is on {t.device}, the step runs on {device}")
 
 
-def _check(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius, cd) -> None:
+def _check_packed(packed, want, dev) -> None:
+    for k, shape in want.items():
+        if k not in packed:
+            raise ValueError(f"packed weights lack {k!r}")
+        if tuple(packed[k].shape) != shape:
+            raise ValueError(f"packed {k} must be {shape} for this step, "
+                             f"got {tuple(packed[k].shape)}")
+        if packed[k].device != dev:
+            raise ValueError(f"packed {k} is on {packed[k].device}, the step runs on {dev}")
+
+
+def _check_motion_in(packed, fmap1, pyramid, flow_x, radius, cd) -> None:
+    """What stage 1 takes: the lookup's inputs and convc1's and convf1's
+    weights."""
     if cd not in COMPUTE_DTYPES:
         raise TypeError(f"fused_update kernel computes in {COMPUTE_DTYPES}, got {cd}")
     if fmap1.dim() != 4 or fmap1.numel() == 0:
@@ -223,6 +345,14 @@ def _check(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius, cd) -> None:
                              f"got {tuple(f2.shape)}")
         _expect(f"pyramid level {i}", f2, (B, H, f2.shape[2], D), torch.float32, dev)
     _expect("flow_x", flow_x, (B, H, W), torch.float32, dev)
+    _check_packed(packed, {"wc1": (L * (2 * radius + 1), 64), "bc1": (64,), "kf7": (49, 64),
+                           "bf7": (64,)}, dev)
+
+
+def _check(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius, cd) -> None:
+    _check_motion_in(packed, fmap1, pyramid, flow_x, radius, cd)
+    B, H, W, _ = fmap1.shape
+    dev = fmap1.device
     if h.dim() != 4:
         raise ValueError(f"h must be [B, H, W, dh], got {tuple(h.shape)}")
     dh = h.shape[-1]
@@ -237,22 +367,70 @@ def _check(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius, cd) -> None:
         _expect("inp16", inp16, (B, H, W, ci), cd, dev)
     _expect("ctx", ctx, (B, H, W, 3 * dh), cd, dev)
     din = dh + MOTION_CH + ci
-    K = 2 * radius + 1
-    want = {
-        "wc1": (L * K, 64), "bc1": (64,), "kf7": (49, 64), "bf7": (64,),
+    _check_packed(packed, {
         "wcf": (9, 64, MOTION_CH), "bcf": (MOTION_CH,), "km": (9, MOTION_CH, MOTION_CH),
         "bm": (MOTION_CH,), "wzr": (9, din, 2 * dh), "bzr": (2 * dh,), "wq": (9, din, dh),
         "bq": (dh,), "kfh1": (9, dh, HEAD_CH), "bfh1": (HEAD_CH,), "kfh2": (9, HEAD_CH),
         "bfh2": (1,),
-    }
-    for k, shape in want.items():
-        if k not in packed:
-            raise ValueError(f"packed weights lack {k!r}")
-        if tuple(packed[k].shape) != shape:
-            raise ValueError(f"packed {k} must be {shape} for this step, "
-                             f"got {tuple(packed[k].shape)}")
-        if packed[k].device != dev:
-            raise ValueError(f"packed {k} is on {packed[k].device}, the step runs on {dev}")
+    }, dev)
+
+
+def _refuse_grad(name: str, tensors) -> None:
+    """The kernel has no backward: under grad mode, an input that requires
+    grad raises on either device rather than give a result without one."""
+    if torch.is_grad_enabled():
+        needs = [k for k, t in tensors if t is not None and t.requires_grad]
+        if needs:
+            raise RuntimeError(
+                f"{name} has no backward yet, but {needs} require grad: the fused step "
+                "runs in test mode only (call it under torch.no_grad())")
+
+
+def _aligned(tensors) -> None:
+    for name, x in tensors:
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"fused_update kernel needs 16-byte aligned {name}")
+
+
+def motion_in(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor], flow_x: torch.Tensor,
+              packed: Dict[str, torch.Tensor], radius: int,
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's first launch alone: cor|flo [B, H, W, 128] in the
+    compute dtype (see ``reference_motion_in``, which it computes on CPU
+    tensors; on CUDA tensors it launches stage 1 or raises)."""
+    global MOTION_IN_LAUNCHES
+    levels_in = list(fmap2_pyramid)
+    _refuse_grad("motion_in", [("fmap1", fmap1), ("flow_x", flow_x), *packed.items(),
+                               *((f"pyramid level {i}", f) for i, f in enumerate(levels_in))])
+    if fmap1.device.type == "cpu":
+        return reference_motion_in(fmap1, levels_in, flow_x, packed, radius, compute_dtype)
+    if fmap1.device.type != "cuda":
+        raise ValueError(f"fused_update runs on CPU or CUDA tensors, not {fmap1.device}")
+    cd = compute_dtype
+    _check_motion_in(packed, fmap1, levels_in, flow_x, radius, cd)
+    B, H, W, D = fmap1.shape
+    f1, flow = fmap1.contiguous(), flow_x.contiguous()
+    levels = [f.contiguous() for f in levels_in]
+    w = {k: packed[k].to(cd).contiguous() for k in ("wc1", "kf7")}
+    b = {k: packed[k].float().contiguous() for k in ("bc1", "bf7")}
+    cf = torch.empty((B, H, W, MOTION_CH), dtype=cd, device=f1.device)
+    _aligned([("fmap1", f1), *w.items(),
+              *((f"pyramid level {i}", x) for i, x in enumerate(levels))])
+    widths = [x.shape[2] for x in levels]
+    geo = motion_in_geometry(B * H, W, widths, D)
+    fn = _kernel().motion_in
+    lvl = (ctypes.c_void_p * len(levels))(*[x.data_ptr() for x in levels])
+    c_widths = (ctypes.c_int * len(levels))(*widths)
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        err = fn(int(cd == torch.bfloat16), f1.data_ptr(), lvl, c_widths, len(levels),
+                 flow.data_ptr(), w["wc1"].data_ptr(), b["bc1"].data_ptr(), w["kf7"].data_ptr(),
+                 b["bf7"].data_ptr(), cf.data_ptr(), B, H, W, D, radius, geo.seg, geo.threads,
+                 geo.dc, geo.smem, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_update stage 1 launch failed: CUDA error {err}")
+    MOTION_IN_LAUNCHES += 1
+    return cf
 
 
 def fused_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
@@ -263,16 +441,10 @@ def fused_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
     """One refinement step: ``(h' [B, H, W, dh] in h's dtype, delta_disp
     [B, H, W] fp32)`` (see the module docstring)."""
     global LAUNCHES
-    if torch.is_grad_enabled():
-        needs = [name for name, t in (("fmap1", fmap1), ("flow_x", flow_x), ("h", h),
-                                      ("inp16", inp16), ("ctx", ctx), *packed.items(),
-                                      *((f"pyramid level {i}", f)
-                                        for i, f in enumerate(fmap2_pyramid)))
-                 if t is not None and t.requires_grad]
-        if needs:
-            raise RuntimeError(
-                f"fused_refine_step has no backward yet, but {needs} require grad: the "
-                "fused step runs in test mode only (call it under torch.no_grad())")
+    _refuse_grad("fused_refine_step",
+                 [("fmap1", fmap1), ("flow_x", flow_x), ("h", h), ("inp16", inp16), ("ctx", ctx),
+                  *packed.items(),
+                  *((f"pyramid level {i}", f) for i, f in enumerate(fmap2_pyramid))])
     if fmap1.device.type == "cpu":
         return reference_refine_step(packed, fmap1, fmap2_pyramid, flow_x, h, inp16, ctx,
                                      radius, compute_dtype)
@@ -302,19 +474,19 @@ def fused_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
         "fh1": torch.empty((P, HEAD_CH), dtype=cd, device=dev),
     }
     levels = [f.contiguous() for f in fmap2_pyramid]
-    for name, x in list(t.items()) + [(f"pyramid level {i}", x) for i, x in enumerate(levels)]:
-        if x is not None and x.data_ptr() % 16:
-            raise ValueError(f"fused_update kernel needs 16-byte aligned {name}")
-    fn = _kernel()
+    _aligned(list(t.items()) + [(f"pyramid level {i}", x) for i, x in enumerate(levels)])
+    widths = [x.shape[2] for x in levels]
+    geo = motion_in_geometry(B * H, W, widths, D)
+    fn = _kernel().step
     ptrs = (ctypes.c_void_p * len(SLOTS))(
         *[None if t[k] is None else t[k].data_ptr() for k in SLOTS])
     lvl = (ctypes.c_void_p * len(levels))(*[x.data_ptr() for x in levels])
-    widths = (ctypes.c_int * len(levels))(*[x.shape[2] for x in levels])
+    c_widths = (ctypes.c_int * len(levels))(*widths)
     ci = 0 if inp16 is None else inp16.shape[-1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(int(cd == torch.bfloat16), ptrs, lvl, widths, len(levels), B, H, W, D,
-                 radius, dh, ci, stream)
+        err = fn(int(cd == torch.bfloat16), ptrs, lvl, c_widths, len(levels), B, H, W, D,
+                 radius, dh, ci, geo.seg, geo.threads, geo.dc, geo.smem, stream)
     if err != 0:
         raise RuntimeError(f"fused_update kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

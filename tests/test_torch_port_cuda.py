@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K3_PER_TRUNK, k2_errors, k3_abs_sums, k3_errors, k3_inputs
+from chip_smoke import (K3_PER_TRUNK, k2_errors, k3_abs_sums, k3_errors, k3_inputs,
+                        stage1_allowances, stage1_errors)
 from raft_stereo_tpu_torch.config import PRESETS
 from raft_stereo_tpu_torch.evaluate import load_model, make_engine, make_forward
 from raft_stereo_tpu_torch.experiments import packed_conv
@@ -165,12 +166,13 @@ def _fused_case(B, H, W, D, levels, radius, with_inp, dtype, seed=0, hidden=(128
     return packed, f1, pyr, flow, h, inp, ctx, radius
 
 
-@pytest.mark.parametrize(
-    "B,H,W,D,levels,radius,with_inp,dtype",
-    [(1, 10, 16, 32, 4, 4, True, torch.float32), (2, 37, 23, 64, 4, 4, True, torch.float32),
-     (1, 10, 16, 32, 4, 4, False, torch.float32), (1, 6, 77, 100, 3, 2, True, torch.float32),
-     (2, 37, 23, 64, 4, 4, True, torch.bfloat16), (1, 9, 40, 256, 4, 4, False, torch.bfloat16)],
-)
+FUSED_CASES = [
+    (1, 10, 16, 32, 4, 4, True, torch.float32), (2, 37, 23, 64, 4, 4, True, torch.float32),
+    (1, 10, 16, 32, 4, 4, False, torch.float32), (1, 6, 77, 100, 3, 2, True, torch.float32),
+    (2, 37, 23, 64, 4, 4, True, torch.bfloat16), (1, 9, 40, 256, 4, 4, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,H,W,D,levels,radius,with_inp,dtype", FUSED_CASES)
 def test_fused_kernel_matches_plain(monkeypatch, B, H, W, D, levels, radius, with_inp, dtype):
     _cuda()
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
@@ -189,6 +191,24 @@ def test_fused_kernel_matches_plain(monkeypatch, B, H, W, D, levels, radius, wit
     else:
         res = k2_errors((h_k, d_k), (h_p, d_p), dtype)
         assert res["ok"], res
+
+
+@pytest.mark.parametrize("B,H,W,D,levels,radius,with_inp,dtype", FUSED_CASES)
+def test_motion_in_matches_plain(monkeypatch, B, H, W, D, levels, radius, with_inp, dtype):
+    """K2's first launch alone against its plain version, held to
+    chip_smoke.py's stage-1 check (K2_STAGE1_FP32_TOL, K2_STAGE1_BF16_TOL)."""
+    _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    packed, f1, pyr, flow, *_ = _fused_case(B, H, W, D, levels, radius, with_inp, dtype)
+    before = (fused_update.MOTION_IN_LAUNCHES, fused_update.LAUNCHES)
+    got = fused_update.motion_in(f1, pyr, flow, packed, radius, dtype)
+    torch.cuda.synchronize()
+    assert (fused_update.MOTION_IN_LAUNCHES, fused_update.LAUNCHES) == (before[0] + 1, before[1])
+    want = fused_update.reference_motion_in(f1, pyr, flow, packed, radius, dtype)
+    assert got.shape == (B, H, W, 128) and got.dtype == dtype
+    res = stage1_errors(got, want, stage1_allowances(f1, pyr, flow, packed, radius, dtype))
+    assert res["ok"], res
 
 
 @pytest.mark.parametrize(

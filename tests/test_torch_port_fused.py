@@ -182,6 +182,108 @@ def test_step_matches_jax_reference_bf16():
     assert dd.max() <= 0.0032 * float(np.abs(d_ref).max()), dd.max()
 
 
+# ------------------------------------------------------------- stage 1
+
+
+def _jax_motion_in(packed_j, f1, f2p, flow, radius):
+    """The JAX package's plain alt lookup composed with convc1 and convf1
+    (the first cast points of its ``reference_refine_step``, fp32)."""
+    from raft_stereo_tpu.ops.corr import corr_lookup_alt
+
+    coords = jnp.arange(f1.shape[2], dtype=jnp.float32)[None, None, :] + flow
+    corr = corr_lookup_alt(f1, f2p, coords, radius)
+    cor = jax.nn.relu(jnp.einsum("bhwk,kc->bhwc", corr, packed_j["wc1"])
+                      + packed_j["bc1"][0])
+    flow8 = jnp.pad(flow[..., None], ((0, 0), (0, 0), (0, 0), (0, 7)))
+    flo = jax.lax.conv_general_dilated(flow8, packed_j["kf7"], (1, 1), [(3, 3), (3, 3)],
+                                       dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    return jnp.concatenate([cor, jax.nn.relu(flo + packed_j["bf7"][0])], -1)
+
+
+@pytest.mark.parametrize("case", ["single_tile", "b2_h37_ragged"])
+def test_reference_motion_in_matches_jax_composition_fp32(case):
+    """fp32 sums in another order only: within 1e-5 (cor|flo reach a few
+    units here)."""
+    raw, inputs, n_layers = _step_case(case)
+    f1, f2p, flow, *_ = _to_jax(inputs)
+    want = np.asarray(_jax_motion_in(_jax_packed(raw), f1, f2p, flow, 4))
+    packed = fused_update.pack_fused_params(_port_block(raw, n_layers))
+    f1_t, f2p_t, flow_t, *_ = _to_torch(inputs)
+    got = fused_update.reference_motion_in(f1_t, f2p_t, flow_t, packed, 4)
+    assert got.shape == want.shape == (*flow_t.shape, fused_update.MOTION_CH)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_motion_in_on_the_cpu_is_the_plain_version():
+    raw, inputs, n_layers = _step_case("b2_h37_ragged")
+    packed = fused_update.pack_fused_params(_port_block(raw, n_layers), torch.bfloat16)
+    f1, f2p, flow, *_ = _to_torch(inputs)
+    before = (fused_update.MOTION_IN_LAUNCHES, fused_update.LAUNCHES)
+    got = fused_update.motion_in(f1, f2p, flow, packed, 4, torch.bfloat16)
+    assert (fused_update.MOTION_IN_LAUNCHES, fused_update.LAUNCHES) == before
+    want = fused_update.reference_motion_in(f1, f2p, flow, packed, 4, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# rows, W, widths, D -> seg, segments, threads, dc, chunks, blocks an SM
+GEOMETRY_CASES = {
+    # the slice shape: 544x960 at 1/4, 4 levels
+    "slice": ((136, 240, (240, 120, 60, 30), 256), (60, 4, 256, 16, 16, 3)),
+    # the Middlebury-F width: a level row of 1350 positions in all
+    "middlebury_F": ((496, 720, (720, 360, 180, 90), 256), (60, 12, 256, 8, 32, 2)),
+    "ragged_w123": ((74, 123, (123, 61, 30, 15), 256), (62, 2, 256, 32, 8, 3)),
+    "three_levels": ((6, 77, (77, 38, 19), 100), (77, 1, 256, 32, 4, 3)),
+    "eight_levels": ((2, 300, (300, 150, 75, 37, 18, 9, 4, 2), 64), (30, 10, 256, 8, 8, 3)),
+    # a partial last chunk: 100 channels in chunks of 32
+    "d100": ((3, 41, (41, 20, 10, 5), 100), (41, 1, 192, 32, 4, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRY_CASES))
+def test_motion_in_geometry(case):
+    (rows, W, widths, D), (seg, segments, threads, dc, chunks, per_sm) = GEOMETRY_CASES[case]
+    geo = fused_update.motion_in_geometry(rows, W, widths, D)
+    assert (geo.seg, geo.segments, geo.threads, geo.dc, geo.chunks, geo.per_sm) == (
+        seg, segments, threads, dc, chunks, per_sm)
+    assert geo.blocks == rows * segments
+    L = len(widths)
+    assert seg * L <= threads <= fused_update.SEGMENT and threads % 32 == 0
+    assert (segments - 1) * seg < W <= segments * seg  # as few and as even as fit
+    assert geo.smem >= 8 * dc * (seg + sum(widths))  # two stages of the staged rows
+    assert per_sm * (geo.smem + fused_update.SMEM_RESERVED) <= fused_update.SMEM_SM
+    if case == "slice":
+        assert (geo.smem, geo.blocks) == (65280, 544)
+    if case == "middlebury_F":  # DC = 8 does not leave room for a third block
+        assert 3 * (8 * 8 * (seg + sum(widths)) + 1024) > fused_update.SMEM_SM
+
+
+def test_motion_in_geometry_refuses_a_row_too_wide_to_stage():
+    with pytest.raises(ValueError, match="stages every level's whole row"):
+        fused_update.motion_in_geometry(1, 8000, (8000, 4000, 2000, 1000), 256)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 8])
+def test_motion_in_geometry_shared_memory_never_exceeds_a_block(levels):
+    """Every width up to the widest that stages, and small D: the shared
+    memory stays within the 227 KB a block may have and covers the conv
+    phase's tiles, whatever W or D."""
+    for W in list(range(1, 70)) + list(range(70, 4000, 37)):
+        widths = [max(W >> i, 1) for i in range(levels)]
+        segments = -(-W // (fused_update.SEGMENT // levels))
+        staged = -(-W // segments) + sum(widths)  # a segment's f1 rows and the level rows
+        for D in (4, 32, 100, 256):
+            if 2 * 4 * 4 * staged > fused_update.SMEM:  # two stages at 4 channels
+                with pytest.raises(ValueError):
+                    fused_update.motion_in_geometry(3, W, widths, D)
+                continue
+            geo = fused_update.motion_in_geometry(3, W, widths, D)
+            assert geo.smem <= fused_update.SMEM
+            assert geo.smem >= fused_update._conv_phase_bytes(geo.seg, levels)
+            assert geo.dc <= D
+
+
 def test_batch_max_delta_matches_jax():
     d = np.random.RandomState(3).randn(3, 5, 7).astype(np.float32)
     d[1] *= 4.0

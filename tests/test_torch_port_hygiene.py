@@ -157,7 +157,7 @@ def test_library_name_hashes_every_header_a_kernel_includes(tmp_path, monkeypatc
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     assert [p.name for p in _build._sources("fused_update")] == [
-        "fused_update.cu", "alt_corr_lookup.cuh", "conv3x3_sm90.cuh"]
+        "fused_update.cu", "conv3x3_sm90.cuh"]
     assert [p.name for p in _build._sources("packed_conv")] == [
         "packed_conv.cu", "conv3x3_sm90.cuh"]
     assert [p.name for p in _build._sources("alt_corr")] == ["alt_corr.cu"]
@@ -169,16 +169,11 @@ def test_library_name_hashes_every_header_a_kernel_includes(tmp_path, monkeypatc
     before = paths()
     (csrc / "unused.cuh").write_text("// included by no kernel\n")
     assert paths() == before
-    # K2's lookup stage (K1 keeps its own device code)
-    header = csrc / "alt_corr_lookup.cuh"
-    header.write_text(header.read_text() + "// edited\n")
-    edited = paths()
-    assert [k for k in names if edited[k] != before[k]] == ["fused_update"]
     # the bf16 conv mainloop K2 and K3 share
     mainloop = csrc / "conv3x3_sm90.cuh"
     mainloop.write_text(mainloop.read_text() + "// edited\n")
     shared = paths()
-    assert [k for k in names if shared[k] != edited[k]] == ["fused_update", "packed_conv"]
+    assert [k for k in names if shared[k] != before[k]] == ["fused_update", "packed_conv"]
     edited = shared
     src = csrc / "fused_update.cu"
     src.write_text(src.read_text() + "// edited\n")

@@ -2,14 +2,16 @@
 stay plantable: each K2_MUTANTS and K3_MUTANTS text occurs exactly once in
 its kernel's source, so a rewrite that orphans one fails here and not on
 the card. The faults that target the bf16 convolutions must sit in the
-bf16 code (the wgmma kernels), not in the fp32 path that bf16 never runs.
+bf16 code (the wgmma kernels), not in the fp32 path that bf16 never runs;
+those that target K2's stage 1 must sit in its templated code, which both
+dtypes run, before the wgmma kernels.
 """
 
 from pathlib import Path
 
 import pytest
 
-from chip_smoke import K2_MUTANTS, K3_MUTANTS
+from chip_smoke import K2_MUTANTS, K2_STAGE1_FAULTS, K3_MUTANTS
 
 CSRC = Path(__file__).resolve().parent.parent / "raft_stereo_tpu_torch" / "csrc"
 
@@ -22,6 +24,8 @@ KERNELS = {
                     {"prologue_on_padding", "prologue_mul_rounding_skipped",
                      "bottom_row_dropped"}),
 }
+# the banner that opens K2's stage 1 (the lookup with convc1 and convf1)
+STAGE1_MARKER = "// " + "-" * 64 + " stage 1\n"
 CASES = ([("fused_update", *m) for m in K2_MUTANTS]
          + [("packed_conv", *m) for m in K3_MUTANTS])
 
@@ -41,14 +45,20 @@ def test_bf16_faults_sit_in_the_wgmma_kernel(kernel, name, text, replacement):
     if name in bf16_faults:
         assert src.index(text) > start, f"{name} is planted before the bf16 kernel"
     else:  # stage 1 of K2, which runs in both dtypes
+        assert name in K2_STAGE1_FAULTS
+        stage1 = src.index(STAGE1_MARKER)
+        assert stage1 < src.index(text) < start, f"{name} is planted outside stage 1"
         assert "template <typename T" in src[:src.index(text)]
 
 
 def test_every_fault_class_is_planted():
     """The fault classes the checks must catch: a dropped input chunk, a
-    skipped rounding point, a cast added to z, a padding row read wrong and
-    the prologue applied to the padding."""
+    skipped rounding point, a cast added to z, a padding row read wrong, the
+    prologue applied to the padding, and in stage 1's staging a chunk of
+    channels never copied and a level row staged short."""
     names = {m[0] for m in K2_MUTANTS} | {m[0] for m in K3_MUTANTS}
     assert {"inp16_chunk_dropped", "flow_cast_skipped", "z_cast_added", "top_row_dropped",
             "bottom_row_dropped", "prologue_on_padding",
-            "prologue_mul_rounding_skipped"} <= names
+            "prologue_mul_rounding_skipped", "last_chunk_unstaged",
+            "level_row_short"} <= names
+    assert set(K2_STAGE1_FAULTS) <= {m[0] for m in K2_MUTANTS}
