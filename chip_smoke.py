@@ -18,7 +18,7 @@ Phases, each printing one JSON line:
      at the same shape; on the slice case each of its 7 launches timed
      under torch.profiler, each beside its own bound, each conv launch
      beside cuDNN's conv at its channel counts, stage 1 with its launch
-     geometry); faults planted in copies of K2's source must fail the bf16
+     geometry, stage 7 beside cuDNN's bare 256 -> 1 conv); faults planted in copies of K2's source must fail the bf16
      check, those in stage 1 the stage-1 check too; K2's stage 1 alone
      (``fused_update.motion_in``: the lookup, convc1 and convf1) against
      its plain version, bf16 and fp32, at the slice shape, ragged rows, the
@@ -49,7 +49,22 @@ Phases, each printing one JSON line:
      peak memory, launches; the served batch against an eager run of it,
      bitwise, and batched against per-image disparities); and
      ``evaluate.main --dataset eth3d`` on a synthetic ETH3D tree through the
-     engine and ``--per_image`` (``evaluate_eth3d``);
+     engine and ``--per_image`` (``evaluate_eth3d``); the engine's fault
+     tolerance on the realtime-packed engine cell (``engine_faults``: a
+     clean run, then one fresh engine for each of the four injectors, a
+     failed decode, a capture that fails once and one that always fails,
+     an OOM at batch 4, a hung device wait; each run's counts as its
+     injector implies, the per-image path's K1 and K3 launches counted,
+     every completed output bitwise a clean run's at the same effective
+     batch size; then three captures that break midway, planted in the
+     forward while the second bucket's graph is captured, a raise, a host
+     read-back that invalidates the capture and a real allocator OOM: the
+     first two retried, the OOM halved, the shared graph pool kept, every
+     output bitwise the clean run's), the OOM halving under a real
+     allocator limit set halfway between the batch-4 and batch-2 peaks
+     (``engine_oom_real``), and the engine's pairs/s with and without a
+     telemetry sink over streams of 270 pairs (``telemetry_cost``, by
+     ``tools/engine_overhead.py``);
   7. path parity: one pair through the fp32 forward (TF32 off), every
      lookup held to the plain version on the same inputs, and the whole
      forward with the kernel held to the forward with the plain lookup;
@@ -64,7 +79,9 @@ Phases, each printing one JSON line:
  11. training: K1 and K3 through their autograd Functions against the
      plain versions' autograd at the training shapes (``train_grad_check``:
      K1 [8, 80, 180, 256], K3 at the realtime stem [16, 160, 360, 64] fp32
-     and bf16; a dropped level scale planted in K1's backward must fail);
+     and bf16; a dropped level scale planted in K1's backward must fail;
+     K2 at the slice shape with inp16, bf16 and fp32, its gradients with
+     the kernel forward bitwise the plain autograd's, its backward timed);
      one fp32 train step with K1 against the step with the plain lookup
      (``train_step_check``, the same planted fault must fail);
      ``raft_stereo_tpu_torch.train.main`` on a synthetic FlyingThings3D
@@ -73,9 +90,14 @@ Phases, each printing one JSON line:
      the ``reg`` lookup) and with ``--corr_implementation alt`` for 4
      (``train_path_alt``: K1 steps x 22 x 2 times, one more step profiled);
      SIGTERM at step 2, then ``--resume auto`` to step 4 (``train_resume``,
-     batch 2, 4 iterations; the restored state held bitwise to the saved).
+     batch 2, 4 iterations; the restored state held bitwise to the saved);
+     then ``evaluate.main --telemetry_dir`` and ``train.main --telemetry
+     --profile_steps 2:3`` (3 steps), each run directory's events.jsonl,
+     heartbeat.json (the card's memory in it), metrics.prom and
+     trace_host.json parsed, every event declared in ``EVENT_SCHEMA``, and
+     ``tools/run_report.py`` run on it (``telemetry_runs``).
      The training phases run in a temp directory.
-Then the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
+Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
 
@@ -746,6 +768,17 @@ def phase_k2_launches(reps: int = 20):
             entry["tflops"] = flops / entry["ms"] / 1e9
     for name, bound in _k2_stage_bounds(args, "bfloat16").items():
         launches.setdefault(name, {"kernel": None, "ms": None}).update(bound)
+    # stage 7's yardstick: cuDNN's bare conv of fh1 with the x column of the
+    # flow head's conv2 (256 -> 1, 3x3), channels-last bf16, no bias
+    fh1 = torch.randn((B, fused_update.HEAD_CH, H, W), generator=g, device="cuda").to(dtype)
+    fh1 = fh1.contiguous(memory_format=torch.channels_last)
+    kfh2 = args[0]["kfh2"].to(dtype)  # [9, 256]
+    w2 = kfh2.t().reshape(1, fused_update.HEAD_CH, 3, 3).contiguous(
+        memory_format=torch.channels_last)
+    launches["head_out (flow head conv2)"].update(
+        library_ms=_time_ms(lambda: F.conv2d(fh1, w2, padding=1), 50),
+        library_call="torch.nn.functional.conv2d (cuDNN) 256 -> 1, 3x3, channels-last bf16, "
+                     "no bias")
     launches["motion_in (lookup, convc1, convf1)"]["geometry"] = _stage1_geometry(args[1],
                                                                                   args[2])
     res = {"profiler_saw_device_time": bool(times), "launches": launches}
@@ -1548,6 +1581,31 @@ def phase_engine_path(tmp: Path, preset: str = "raftstereo-middlebury", iters: i
 # one at batch 1, where the engine must give the per-image metrics exactly
 # (the same forward at the same batch).
 EVAL_TOL = {"eth3d-epe": 0.02, "eth3d-d1": 5e-4}
+ETH3D_SCENES = ((4, 480, 720), (2, 400, 640))
+
+
+def _eth3d_tree(tmp: Path) -> Path:
+    """A synthetic tree in ETH3D's layout under ``tmp/eth3d`` (written once,
+    with the port's ``frame_io``: ETH3D_SCENES, ground truth each scene's
+    constant disparity); returns its root."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.data import frame_io
+
+    root = tmp / "eth3d"
+    base = root / "datasets" / "ETH3D"
+    if base.exists():
+        return root
+    first = 0
+    for n, H, W in ETH3D_SCENES:
+        disps = _write_pairs(base / "two_view_training", n, H, W, seed=SEED + 20 + first,
+                             first=first)
+        for k, d in enumerate(disps, start=first):
+            gt = base / "two_view_training_gt" / f"pair{k}"
+            gt.mkdir(parents=True)
+            frame_io.write_pfm(str(gt / "disp0GT.pfm"), np.full((H, W), float(d), np.float32))
+        first += n
+    return root
 
 
 def phase_evaluate_eth3d(tmp: Path, preset: str = "raftstereo-middlebury", iters: int = 32):
@@ -1559,23 +1617,11 @@ def phase_evaluate_eth3d(tmp: Path, preset: str = "raftstereo-middlebury", iters
     ones equal."""
     import os
 
-    import numpy as np
-
     from raft_stereo_tpu_torch import evaluate
-    from raft_stereo_tpu_torch.data import frame_io
     from raft_stereo_tpu_torch.runtime import infer
 
-    root = tmp / "eth3d"
-    base = root / "datasets" / "ETH3D"
-    first = 0
-    for n, H, W in ((4, 480, 720), (2, 400, 640)):
-        disps = _write_pairs(base / "two_view_training", n, H, W, seed=SEED + 20 + first,
-                             first=first)
-        for k, d in enumerate(disps, start=first):
-            gt = base / "two_view_training_gt" / f"pair{k}"
-            gt.mkdir(parents=True)
-            frame_io.write_pfm(str(gt / "disp0GT.pfm"), np.full((H, W), float(d), np.float32))
-        first += n
+    root = _eth3d_tree(tmp)
+    first = sum(n for n, _, _ in ETH3D_SCENES)
     argv = ["--dataset", "eth3d", "--preset", preset, "--valid_iters", str(iters)]
     cwd = os.getcwd()
     os.chdir(root)
@@ -1608,6 +1654,604 @@ def phase_evaluate_eth3d(tmp: Path, preset: str = "raftstereo-middlebury", iters
     if any(not math.isfinite(engine[k]) or diff[k] > EVAL_TOL[k] for k in EVAL_TOL):
         raise AssertionError(f"evaluate_eth3d: engine {engine} vs per-image {per_image}")
     return res
+
+
+# ------------------------------------------------ engine faults, telemetry
+
+# The engine's fault runs: the realtime-packed engine cell (ENGINE_PAIRS,
+# batch 4, 7 iterations, bf16), each run on a fresh engine with one injector
+# set in the environment. FAULT_DEADLINE_S bounds every wait of the hang
+# run; RUN_LIMIT_S bounds each run's wall time, captures included, and
+# HANG_SLACK_S what the hang run may take past its deadline (its captures
+# and the other batches: under a second on an H100).
+FAULT_DEADLINE_S = 3.0
+RUN_LIMIT_S = 120.0
+HANG_SLACK_S = 30.0
+FAULT_RUNS = (
+    # name, injector env var, value, the injector's implied counts
+    ("decode_fail", "RAFT_FI_INFER_DECODE_FAIL", "3",
+     {"completed": 8, "failed": 1, "degraded": 0, "retries": 0, "circuits_open": 0,
+      "watchdog_trips": 0}),
+    ("capture_fail_once", "RAFT_FI_INFER_COMPILE_FAIL", "1",
+     {"completed": 9, "failed": 0, "degraded": 0, "retries": 1, "circuits_open": 0,
+      "watchdog_trips": 0}),
+    ("capture_fail_always", "RAFT_FI_INFER_COMPILE_FAIL", ",".join(map(str, range(1, 31))),
+     {"completed": 9, "failed": 0, "degraded": 3, "retries": 4, "circuits_open": 2,
+      "watchdog_trips": 0}),
+    ("oom", "RAFT_FI_INFER_OOM", "4",
+     {"completed": 9, "failed": 0, "degraded": 3, "retries": 0, "circuits_open": 0,
+      "watchdog_trips": 0}),
+    ("hang", "RAFT_FI_INFER_HANG", "1",
+     {"completed": 5, "failed": 4, "degraded": 0, "retries": 0, "circuits_open": 0,
+      "watchdog_trips": 1}),
+)
+
+# Captures that break midway, planted in the model's forward (not the
+# injector, which fires before a capture begins): each fires once, while the
+# stream captures the 480x640 bucket's batch-4 graph, after the 544x960
+# bucket's graph, and so the engine's shared graph pool, already exists. A
+# raise; a host read-back, which CUDA refuses while the stream captures and
+# which invalidates the capture; a real allocator OOM. The first two must
+# be retried (one retry, the recaptured graph bitwise the clean batch-4
+# run); the OOM must halve that bucket to batch 2 (its pairs bitwise the
+# clean batch-2 run, the other bucket's the batch-4 run). The raise and the
+# OOM must keep the pool the first graph made; after the read-back the
+# retried capture must take a fresh pool (the spoiled one refuses it).
+CAPTURE_BREAK_BUCKET = (480, 640)
+CAPTURE_BREAK_RUNS = (
+    # name, what breaks, the implied counts, whether the first pool is kept
+    ("capture_raise", "raise",
+     {"completed": 9, "failed": 0, "degraded": 0, "retries": 1, "circuits_open": 0,
+      "watchdog_trips": 0}, True),
+    ("capture_readback", "readback",
+     {"completed": 9, "failed": 0, "degraded": 0, "retries": 1, "circuits_open": 0,
+      "watchdog_trips": 0}, False),
+    ("capture_oom_real", "oom",
+     {"completed": 9, "failed": 0, "degraded": 1, "retries": 0, "circuits_open": 0,
+      "watchdog_trips": 0}, True),
+)
+
+
+@contextlib.contextmanager
+def _capture_break(model, kind: str, seen: dict):
+    """Plant ``kind`` in ``model``'s forward for the block: it fires once,
+    while the stream captures a batch-4 graph of CAPTURE_BREAK_BUCKET, and
+    records in ``seen`` the engine's graph pool and entries at that moment
+    (``seen["engine"]`` is set by the caller)."""
+    import torch
+
+    forward = model.forward
+
+    def breaking(a, b, *args, **kw):
+        out = forward(a, b, *args, **kw)
+        if (not seen.get("fired") and torch.cuda.is_current_stream_capturing()
+                and a.shape[0] == 4 and tuple(a.shape[1:3]) == CAPTURE_BREAK_BUCKET):
+            graphs = seen["engine"].graphs
+            seen.update(fired=True, pool=graphs._pool, entries=len(graphs))
+            try:
+                if kind == "raise":
+                    raise RuntimeError("planted: raised while the stream captures")
+                if kind == "readback":
+                    a.sum().item()
+                if kind == "oom":
+                    torch.empty(1 << 50, dtype=torch.uint8, device=a.device)
+            except Exception as e:
+                seen["error"] = f"{type(e).__name__}: {e}"[:300]
+                raise
+            seen["error"] = None  # the planted fault did not raise
+        return out
+
+    model.forward = breaking
+    try:
+        yield
+    finally:
+        del model.forward
+
+
+@contextlib.contextmanager
+def _injector(name=None, value=None):
+    """Set one fault injector's environment variable for the block; reset
+    the injection counters (and release a parked hang) on both sides."""
+    import os
+
+    from raft_stereo_tpu_torch.runtime import faultinject
+
+    faultinject.reset()
+    if name is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if name is not None:
+            os.environ.pop(name, None)
+        faultinject.reset()
+
+
+def _engine_pairs(tmp: Path):
+    """ENGINE_PAIRS as host arrays (the engine phases' PNGs, decoded)."""
+    from raft_stereo_tpu_torch.demo import load_image
+
+    data = tmp / "engine_pairs"
+    if not data.exists():
+        first = 0
+        for n, H, W in ENGINE_PAIRS:
+            _write_pairs(data, n, H, W, seed=SEED + first, first=first)
+            first += n
+    n_pairs = sum(n for n, _, _ in ENGINE_PAIRS)
+    return [(load_image(str(data / f"pair{k}" / "im0.png"))[0],
+             load_image(str(data / f"pair{k}" / "im1.png"))[0]) for k in range(n_pairs)]
+
+
+def _realtime_packed_model():
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+
+    return load_model(PRESETS["raftstereo-realtime"], seed=SEED)
+
+
+def _serve_once(model, imgs, batch, deadline_s=None, retries=2, seen=None):
+    """A fresh engine over ``imgs``: (engine, results by payload, wall s,
+    summary). The stream's end is held to RUN_LIMIT_S. ``seen["engine"]``,
+    when given, is the engine, set before the stream starts."""
+    import gc
+
+    import torch
+
+    from raft_stereo_tpu_torch.evaluate import make_engine
+    from raft_stereo_tpu_torch.runtime import infer
+
+    engine = make_engine(model, 7, infer.InferOptions(batch=batch, deadline_s=deadline_s,
+                                                      retries=retries))
+    if seen is not None:
+        seen["engine"] = engine
+    requests = [infer.InferRequest(payload=k, inputs=p) for k, p in enumerate(imgs)]
+    t0 = time.perf_counter()
+    results = {r.payload: r for r in engine.stream(iter(requests))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = infer.publish_summary(engine.stats, label=f"engine batch {batch}")
+    gc.collect()
+    if wall > RUN_LIMIT_S:
+        raise AssertionError(f"an engine run took {wall:.1f}s, past {RUN_LIMIT_S}s")
+    return engine, results, wall, summary
+
+
+def _eager_per_image(model, imgs, iters=7):
+    """Each pair alone through the eager forward (batch 1, padded by the
+    per-image padder): the degraded path's reference."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops.pad import InputPadder
+
+    out = {}
+    for k, (i1, i2) in enumerate(imgs):
+        ip = InputPadder(i1[None].shape, divis_by=32)
+        p1, p2 = (torch.from_numpy(x).cuda() for x in ip.pad(i1[None], i2[None]))
+        out[k] = ip.unpad(model(p1, p2, iters=iters)[1])[0].cpu().numpy()
+    return out
+
+
+def _outputs_equal(results, want) -> dict:
+    """Each completed result against ``want`` (by payload), bitwise."""
+    import numpy as np
+
+    done = [k for k, r in results.items() if r.ok]
+    return {"compared": len(done),
+            "bitwise_equal": sum(int(np.array_equal(results[k].output, want[k])) for k in done)}
+
+
+def phase_engine_faults(tmp: Path):
+    """The engine's fault tolerance on the card, on the realtime-packed
+    engine cell: one clean run, then one run for each injector on a fresh
+    engine (FAULT_RUNS): a failed decode fails its request alone; a capture
+    that fails once is retried; a capture that always fails opens each
+    bucket's circuit and the pairs are served one at a time by the eager
+    per-image path, on the card, through K1 and K3 (their launch counts
+    must move); an OOM at batch 4 halves each batch to 2, and the cap is
+    kept; a hung device wait trips the watchdog after FAULT_DEADLINE_S, its
+    batch fails and the stream ends. Each run's counts must be as its
+    injector implies, and every completed output must equal, bitwise, a
+    clean run at the same effective batch size: batch 4, batch 2 (the
+    halved runs) or the eager per-image forward (the circuit run)."""
+    import gc
+
+    import torch
+
+    from raft_stereo_tpu_torch.models import extractor
+
+    imgs = _engine_pairs(tmp)
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    runs, paths = {}, []
+    try:
+        model = _realtime_packed_model()
+        with _launches_kept(), _injector():
+            _, clean4, wall4, s4 = _serve_once(model, imgs, 4)
+            _, clean2, wall2, s2 = _serve_once(model, imgs, 2)
+            per_image = _eager_per_image(model, imgs)
+        want = {"batch4": {k: r.output for k, r in clean4.items()},
+                "batch2": {k: r.output for k, r in clean2.items()}, "per_image": per_image}
+        runs["clean"] = {"batch4": {"completed": s4.completed, "wall_s": wall4},
+                         "batch2": {"completed": s2.completed, "wall_s": wall2}}
+        for name, var, value, expect in FAULT_RUNS:
+            deadline = FAULT_DEADLINE_S if name == "hang" else None
+            with _injector(var, value):
+                _zero_launches()
+                engine, results, wall, s = _serve_once(model, imgs, 4, deadline_s=deadline)
+                launches = _launches()
+            st = engine.stats
+            got = {"completed": s.completed, "failed": s.failed, "degraded": s.degraded,
+                   "retries": st.retries, "circuits_open": st.circuits_open,
+                   "watchdog_trips": s.watchdog_trips}
+            ref = ("per_image" if name == "capture_fail_always"
+                   else "batch2" if name == "oom" else "batch4")
+            run = {"injector": f"{var}={value if len(value) < 8 else '1..30'}", "counts": got,
+                   "expected": expect, "wall_s": wall, "launches": launches,
+                   "bucket_caps": {f"{b[0]}x{b[1]}": c for b, c in engine._bucket_cap.items()},
+                   "broken_buckets": sorted(f"{b[0]}x{b[1]}" for b in engine._broken),
+                   "failed_payloads": sorted(k for k, r in results.items() if not r.ok),
+                   "errors": sorted({type(r.error).__name__ for r in results.values()
+                                     if not r.ok}),
+                   "reference": ref, **_outputs_equal(results, want[ref])}
+            runs[name] = run
+            if name == "capture_fail_always":
+                paths.append({"phase": "engine_faults_degraded", "launches": launches})
+            del engine, results
+            gc.collect()
+            torch.cuda.empty_cache()
+        # payloads of CAPTURE_BREAK_BUCKET: the last ENGINE_PAIRS entry's
+        broken = set(range(ENGINE_PAIRS[0][0], len(imgs)))
+        for name, kind, expect, _ in CAPTURE_BREAK_RUNS:
+            seen: dict = {}
+            with _injector(), _launches_kept(), _capture_break(model, kind, seen):
+                engine, results, wall, s = _serve_once(model, imgs, 4, seen=seen)
+            st, graphs = engine.stats, engine.graphs
+            got = {"completed": s.completed, "failed": s.failed, "degraded": s.degraded,
+                   "retries": st.retries, "circuits_open": st.circuits_open,
+                   "watchdog_trips": s.watchdog_trips}
+            ref = {k: want["batch2" if kind == "oom" and k in broken else "batch4"][k]
+                   for k in want["batch4"]}
+            runs[name] = {
+                "planted": kind, "counts": got, "expected": expect, "wall_s": wall,
+                "fired": bool(seen.get("fired")), "error": seen.get("error"),
+                "entries_when_it_broke": seen.get("entries"),
+                "pool_when_it_broke": seen.get("pool") is not None,
+                "pool_kept": graphs._pool == seen.get("pool"),
+                "graphs": sorted(f"{k[0][0]}x{k[0][1]}x{k[1]}" for k, _ in graphs.items()),
+                "captures": graphs.captures, "misses": graphs.misses,
+                "bucket_caps": {f"{b[0]}x{b[1]}": c for b, c in engine._bucket_cap.items()},
+                "errors": sorted({type(r.error).__name__ for r in results.values()
+                                  if not r.ok}),
+                "reference": "batch2 (480x640), batch4" if kind == "oom" else "batch4",
+                **_outputs_equal(results, ref)}
+            del engine, results, graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        extractor._ENABLE_PACKED = saved
+    n_pairs = len(imgs)
+    res = {"phase": "engine_faults", "preset": "raftstereo-realtime", "packed_stage": True,
+           "iters": 7, "batch": 4, "inputs": [[n, H, W] for n, H, W in ENGINE_PAIRS],
+           "deadline_s_hang_run": FAULT_DEADLINE_S, "run_limit_s": RUN_LIMIT_S, "runs": runs,
+           "card": smi_line()}
+    emit(res)
+    if runs["clean"]["batch4"]["completed"] != n_pairs or runs["clean"]["batch2"]["completed"] \
+            != n_pairs:
+        raise AssertionError(f"engine_faults: the clean runs {runs['clean']}")
+    for name, _, _, expect in FAULT_RUNS:
+        r = runs[name]
+        if r["counts"] != expect:
+            raise AssertionError(f"engine_faults {name}: counts {r['counts']}, expected {expect}")
+        if r["bitwise_equal"] != r["compared"] or r["compared"] != expect["completed"]:
+            raise AssertionError(f"engine_faults {name}: {r['bitwise_equal']} of "
+                                 f"{r['compared']} outputs equal the {r['reference']} run")
+    deg = runs["capture_fail_always"]
+    want_launches = {"alt_corr": 7 * n_pairs, "fused_update": 0,
+                     "packed_conv": K3_PER_TRUNK * n_pairs}
+    if deg["launches"] != want_launches or len(deg["broken_buckets"]) != 2:
+        raise AssertionError(f"engine_faults: the per-image path launched {deg['launches']}, "
+                             f"expected {want_launches}; broken {deg['broken_buckets']}")
+    if runs["oom"]["bucket_caps"] != {"544x960": 2, "480x640": 2}:
+        raise AssertionError(f"engine_faults: OOM caps {runs['oom']['bucket_caps']}")
+    if runs["hang"]["failed_payloads"] != [0, 1, 2, 3] or runs["decode_fail"][
+            "failed_payloads"] != [2]:
+        raise AssertionError("engine_faults: the wrong requests failed")
+    for name, kind, expect, pool_kept in CAPTURE_BREAK_RUNS:
+        r = runs[name]
+        graphs = ["480x640x2", "544x960x4"] if kind == "oom" else ["480x640x4", "544x960x4"]
+        if not (r["fired"] and r["error"] and r["entries_when_it_broke"] == 1
+                and r["pool_when_it_broke"] and r["pool_kept"] == pool_kept):
+            raise AssertionError(f"engine_faults {name}: fired {r['fired']} ({r['error']}), "
+                                 f"entries when it broke {r['entries_when_it_broke']}, pool "
+                                 f"kept {r['pool_kept']} (expected {pool_kept})")
+        if r["counts"] != expect or r["graphs"] != graphs or r["captures"] != 2:
+            raise AssertionError(f"engine_faults {name}: counts {r['counts']} (expected "
+                                 f"{expect}), graphs {r['graphs']}, {r['captures']} captures")
+        if r["bitwise_equal"] != r["compared"] or r["compared"] != n_pairs:
+            raise AssertionError(f"engine_faults {name}: {r['bitwise_equal']} of "
+                                 f"{r['compared']} outputs equal the {r['reference']} run")
+    if runs["hang"]["wall_s"] > FAULT_DEADLINE_S + HANG_SLACK_S:
+        raise AssertionError(f"engine_faults: the hang run took {runs['hang']['wall_s']:.1f}s "
+                             f"against a {FAULT_DEADLINE_S}s deadline")
+    return res, paths
+
+
+def phase_engine_oom_real(tmp: Path):
+    """The OOM halving driven by the allocator, not the injector: the
+    realtime-packed engine over the 6 pairs of the 544x960 bucket. A clean
+    engine's ``max_memory_allocated`` at batch 4 and at batch 2, then the
+    process's memory fraction set halfway between the two and a fresh
+    engine at batch 4: a real ``torch.cuda.OutOfMemoryError`` must halve the
+    batch to 2 (an ``infer_degraded`` event with reason ``oom``), every
+    request must complete and equal the clean batch-2 run bitwise. The
+    fraction is restored in ``finally``."""
+    import gc
+
+    import torch
+
+    from raft_stereo_tpu_torch.models import extractor
+    from raft_stereo_tpu_torch.runtime import telemetry
+
+    imgs = _engine_pairs(tmp)[:ENGINE_PAIRS[0][0]]
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    total = torch.cuda.get_device_properties(0).total_memory
+    tel_dir = tmp / "oom_real_telemetry"
+    try:
+        model = _realtime_packed_model()
+        peaks, clean = {}, {}
+        with _launches_kept(), _injector():
+            for b in (4, 2):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                engine, results, _, _ = _serve_once(model, imgs, b)
+                peaks[b] = torch.cuda.max_memory_allocated()
+                clean[b] = {k: r.output for k, r in results.items()}
+                del engine, results
+            gc.collect()
+            torch.cuda.empty_cache()
+            limit = (peaks[4] + peaks[2]) // 2
+            torch.cuda.set_per_process_memory_fraction(limit / total)
+            tel = telemetry.install(telemetry.Telemetry(str(tel_dir)))
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                engine, results, wall, s = _serve_once(model, imgs, 4)
+                peak_limited = torch.cuda.max_memory_allocated()
+                reserved_limited = torch.cuda.max_memory_reserved()
+            finally:
+                telemetry.uninstall(tel)
+            caps = {f"{b[0]}x{b[1]}": c for b, c in engine._bucket_cap.items()}
+            eq = _outputs_equal(results, clean[2])
+            del engine, results
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        extractor._ENABLE_PACKED = saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    events = [json.loads(ln) for ln in (tel_dir / "events.jsonl").read_text().splitlines()]
+    degraded = [e for e in events if e["event"] == "infer_degraded"]
+    res = {"phase": "engine_oom_real", "preset": "raftstereo-realtime", "packed_stage": True,
+           "pairs": len(imgs), "shape": [540, 960],
+           "max_memory_allocated_bytes": {"batch4": peaks[4], "batch2": peaks[2],
+                                          "limit_halfway": limit,
+                                          "fraction_run_peak": peak_limited,
+                                          "fraction_run_peak_reserved": reserved_limited},
+           "fraction": limit / total, "card_memory_bytes": total,
+           "summary": {"completed": s.completed, "failed": s.failed, "degraded": s.degraded},
+           "bucket_caps": caps,
+           "degraded_events": [{k: e.get(k) for k in ("reason", "micro_batch", "error")}
+                               for e in degraded],
+           "wall_s": wall, "reference": "batch2", **eq, "card": smi_line()}
+    emit(res)
+    print(f"engine_oom_real: max_memory_allocated batch 4 {peaks[4]} B, batch 2 {peaks[2]} B, "
+          f"limit {limit} B ({smi_line()})", flush=True)
+    real = [e for e in degraded if e["reason"] == "oom"
+            and str(e.get("error", "")).startswith("OutOfMemoryError")]
+    if not real or real[0]["micro_batch"] != 2:
+        raise AssertionError(f"engine_oom_real: no real OOM halved the batch to 2: {degraded}")
+    if caps != {"544x960": 2} or s.completed != len(imgs) or s.failed:
+        raise AssertionError(f"engine_oom_real: caps {caps}, summary {res['summary']}")
+    if eq["bitwise_equal"] != len(imgs):
+        raise AssertionError(f"engine_oom_real: {eq} outputs equal the clean batch-2 run")
+    return res
+
+
+def phase_telemetry_cost(tmp: Path, rounds: int = 2):
+    """The engine_path_realtime_packed cell's pairs/s (captured engine,
+    batch 4, the cell's 9 pairs in memory) with no telemetry sink installed
+    and with one, in turns (none, sink, sink, none), ``rounds`` times, each
+    stream the 9 pairs STREAM_REPEAT times over: ``tools/engine_overhead.py``'s
+    ``stream_rates``, which also times another checkout's engine against
+    this one. Every request must complete."""
+    from raft_stereo_tpu_torch.evaluate import make_engine
+    from raft_stereo_tpu_torch.models import extractor
+    from raft_stereo_tpu_torch.runtime import infer
+    from tools.engine_overhead import ROUND, STREAM_REPEAT, spread, stream_rates
+
+    imgs = _engine_pairs(tmp)
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    try:
+        model = _realtime_packed_model()
+        engine = make_engine(model, 7, infer.InferOptions(batch=ENGINE_BATCH))
+        requests = [infer.InferRequest(payload=k, inputs=p)
+                    for k, p in enumerate(imgs * STREAM_REPEAT)]
+        with _launches_kept():
+            list(engine.stream(iter(requests[:len(imgs)])))  # captures
+            rates = stream_rates({"none": (engine, requests, False),
+                                  "sink": (engine, requests, True)}, ROUND[1:-1], rounds,
+                                 str(tmp / "cost_telemetry"))
+    finally:
+        extractor._ENABLE_PACKED = saved
+    med = {m: spread(v)["median"] for m, v in rates.items()}
+    res = {"phase": "telemetry_cost", "cell": "engine_path_realtime_packed",
+           "pairs_a_stream": len(requests), "pairs_per_s": rates, "median_pairs_per_s": med,
+           "sink_over_none": med["sink"] / med["none"], "card": smi_line()}
+    emit(res)
+    print(f"telemetry_cost: engine_path_realtime_packed pairs/s, no sink {med['none']:.2f}, "
+          f"sink {med['sink']:.2f} ({smi_line()})", flush=True)
+    return res
+
+
+def _check_run_dir(run_dir: Path, want_memory: bool) -> dict:
+    """A telemetry run directory on disk: events.jsonl, heartbeat.json,
+    metrics.prom and trace_host.json exist and parse; every event names a
+    declared schema entry, carries the framing keys and only declared
+    payload keys; ``tools/run_report.py`` reads the directory (exit 0)."""
+    from raft_stereo_tpu_torch.runtime import telemetry
+
+    events = [json.loads(ln) for ln in (run_dir / "events.jsonl").read_text().splitlines()
+              if ln.strip()]
+    heartbeat = json.loads((run_dir / "heartbeat.json").read_text())
+    trace = json.loads((run_dir / "trace_host.json").read_text())
+    prom = (run_dir / "metrics.prom").read_text()
+    bad = []
+    for e in events:
+        declared = telemetry.EVENT_SCHEMA.get(e.get("event"))
+        framing = {"event", "t_wall", "t_mono", "host"}
+        if declared is None or not framing <= set(e) or not (
+                set(e) <= set(declared) | telemetry.RESERVED_KEYS):
+            bad.append(e)
+    report = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "tools"
+                                                 / "run_report.py"), str(run_dir)],
+                            capture_output=True, text=True, timeout=120)
+    out = {"events": len(events), "event_names": sorted({e["event"] for e in events}),
+           "undeclared_or_malformed": bad[:5], "heartbeat_keys": sorted(heartbeat),
+           "device_memory": heartbeat.get("device_memory"),
+           "trace_spans": trace.get("otherData", {}).get("spans"),
+           "metrics_prom_lines": len(prom.splitlines()), "run_report_rc": report.returncode,
+           "run_report_head": report.stdout.splitlines()[:3]}
+    if bad or report.returncode != 0 or not events or not out["trace_spans"]:
+        raise AssertionError(f"telemetry run dir {run_dir}: {out}; {report.stderr[-400:]}")
+    if want_memory and not (out["device_memory"] or {}).get("peak_bytes_in_use"):
+        raise AssertionError(f"telemetry run dir {run_dir}: no card memory in the heartbeat")
+    return out
+
+
+def phase_telemetry_runs(tmp: Path):
+    """The CLIs with telemetry on: ``evaluate.main --dataset eth3d
+    --telemetry_dir`` (the realtime preset through the engine) on the
+    synthetic ETH3D tree, and ``train.main --telemetry --profile_steps 2:3``
+    for 3 steps of the train_path recipe; each run directory is checked
+    (``_check_run_dir``), the training one with the card's memory in its
+    heartbeat and a torch.profiler trace of steps 2-3."""
+    from raft_stereo_tpu_torch import evaluate, train
+
+    root = _eth3d_tree(tmp)
+    eval_dir = tmp / "telemetry_eval"
+    with _chdir(root), _launches_kept():
+        metrics = evaluate.main(["--dataset", "eth3d", "--preset", "raftstereo-realtime",
+                                 "--valid_iters", "7", "--telemetry_dir", str(eval_dir)])
+    res = {"phase": "telemetry_runs", "evaluate": {"metrics": metrics,
+                                                   **_check_run_dir(eval_dir, True)}}
+    train_root = tmp / "train"
+    if not (train_root / "datasets").exists():
+        _write_things_tree(train_root)
+    argv = ["--name", "telemetry_run", "--train_datasets", "sceneflow", "--num_steps", "3",
+            *TRAIN_RECIPE, "--telemetry", "--profile_steps", "2:3"]
+    with _chdir(train_root), _launches_kept():
+        result = train.main(argv)
+    run_dir = train_root / "runs" / "telemetry_run"
+    traces = sorted(str(p.relative_to(run_dir)) for p in (run_dir / "profile").glob("*.json"))
+    res["train"] = {"steps": result.total_steps, "profile_traces": traces,
+                    **_check_run_dir(run_dir, True)}
+    emit(res)
+    if result.total_steps != 3 or not traces:
+        raise AssertionError(f"telemetry_runs: train {res['train']}")
+    for want in ("run_start", "run_end", "checkpoint_commit", "profile_start", "profile_stop"):
+        if want not in res["train"]["event_names"]:
+            raise AssertionError(f"telemetry_runs: the training run wrote no {want}")
+    for want in ("bucket_compile", "infer_batch_commit", "stream_summary"):
+        if want not in res["evaluate"]["event_names"]:
+            raise AssertionError(f"telemetry_runs: the evaluate run wrote no {want}")
+    return res
+
+
+@contextlib.contextmanager
+def _determinism(level: str):
+    """``none``, or ``cudnn``: cuDNN's deterministic algorithms for the
+    block, restored afterwards."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = saved or level == "cudnn"
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _k2_grad_check():
+    """K2's gradient at the slice shape ([1, 136, 240, 256], 4 levels,
+    radius 4, with inp16), bf16 and fp32: ``fused_refine_step`` with the
+    kernel forward (its autograd Function recomputes the plain version in
+    its backward) against the plain version's own autograd, bitwise, for
+    every input that takes a gradient (fmap1, each level, h, inp16, ctx,
+    each packed weight); ``flow_x`` must get none. The plain autograd runs
+    twice first: where the two differ, the check runs again with cuDNN's
+    deterministic algorithms, and says whether it needed them. The backward (``fused_step_vjp``) is timed with CUDA events.
+    Returns the check and the kernel-forward run's launch counts."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    cases, launches = [], None
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        _, args = _fused_inputs(1, 136, 240, 256, 4, 4, True, dtype, seed=SEED + 46)
+        packed, f1, pyr, flow, h, inp, ctx, radius = args
+        g = torch.Generator(device="cuda").manual_seed(SEED + 47)
+        gh = torch.randn(h.shape, generator=g, device="cuda").to(dtype)
+        gd = torch.randn(flow.shape, generator=g, device="cuda")
+        n_lv = len(pyr)
+
+        def grads(step):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (f1, h, inp, ctx, *pyr, *packed.values())]
+            fl = flow.detach().clone().requires_grad_(step is not fused_update.reference_refine_step)
+            lp = dict(zip(packed, leaves[4 + n_lv:]))
+            out = step(lp, leaves[0], leaves[4:4 + n_lv], fl, leaves[1], leaves[2], leaves[3],
+                       radius, dtype)
+            torch.autograd.backward(out, (gh, gd))
+            torch.cuda.synchronize()
+            return [t.grad for t in leaves], fl.grad
+
+        def equal(a, b):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
+        level = None
+        for lvl in ("none", "cudnn"):
+            with _determinism(lvl):
+                p1, _ = grads(fused_update.reference_refine_step)
+                p2, _ = grads(fused_update.reference_refine_step)
+                if not equal(p1, p2):
+                    continue
+                level = lvl
+                _zero_launches()
+                k, k_flow = grads(fused_update.fused_refine_step)
+                if dname == "bfloat16":
+                    launches = _launches()
+                break
+        names = (["fmap1", "h", "inp16", "ctx"] + [f"level{i}" for i in range(n_lv)]
+                 + list(packed))
+        c = {"dtype": dname, "shape": [1, 136, 240, 256], "levels": n_lv, "radius": radius,
+             "determinism_needed": level}
+        if level is not None:
+            diff = {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in zip(names, k, p1) if not torch.equal(a, b)}
+            c.update(bitwise_equal=not diff, differing=diff, flow_grad_is_none=k_flow is None,
+                     grads=len(names))
+            with _determinism(level):
+                c["bwd_ms"] = _time_ms(lambda: fused_update.fused_step_vjp(
+                    packed, f1, pyr, flow, h, inp, ctx, radius, dtype, (gh, gd), set(names)),
+                    5, warmup=1)
+            c["fwd_ms"] = _time_ms(lambda: fused_update.fused_refine_step(
+                packed, f1, pyr, flow, h, inp, ctx, radius, compute_dtype=dtype), 20)
+        cases.append(c)
+        del args, packed, f1, pyr, flow, h, inp, ctx, gh, gd
+        torch.cuda.empty_cache()
+    return cases, launches
 
 
 def _first_pair(tmp: Path):
@@ -2239,6 +2883,7 @@ def phase_train_grad_check():
             del xp, w, sc, sh, g3, out_k, out_p, d_k, d_p
             torch.cuda.empty_cache()
         res["k3_prologue"] = k3p
+        res["k2"], k2_launches = _k2_grad_check()
     emit(res)
     if not ok:
         raise AssertionError(f"K1's autograd disagrees with the plain version's: {k1}")
@@ -2249,7 +2894,12 @@ def phase_train_grad_check():
         raise AssertionError(f"K3's autograd disagrees with the plain version's in {bad}")
     if not k3_fault_caught:
         raise AssertionError("the K3 gradient check passes a dropped prologue")
-    return res
+    bad = [c["dtype"] for c in res["k2"] if not (c.get("bitwise_equal")
+                                                  and c.get("flow_grad_is_none"))]
+    if bad:
+        raise AssertionError(f"K2's gradients with the kernel forward differ from the plain "
+                             f"autograd's in {bad}: {res['k2']}")
+    return res, {"phase": "train_grad_check_k2", "launches": k2_launches}
 
 
 def _synthetic_batch(B, H, W, seed):
@@ -2641,6 +3291,8 @@ PATH_KERNELS = {
     "engine_path_realtime_packed": ("alt_corr", "packed_conv"),
     "train_path": (),
     "train_path_alt": ("alt_corr",),
+    "engine_faults_degraded": ("alt_corr", "packed_conv"),
+    "train_grad_check_k2": ("fused_update",),
 }
 
 
@@ -2651,6 +3303,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     import raft_stereo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     checks = phase_kernel_check()
@@ -2672,15 +3325,20 @@ def main() -> int:
             phase_engine_path(Path(tmp), preset="raftstereo-realtime", iters=7, packed=True),
         ]
         phase_evaluate_eth3d(Path(tmp))
+        paths += phase_engine_faults(Path(tmp))[1]
+        phase_engine_oom_real(Path(tmp))
+        phase_telemetry_cost(Path(tmp))
         phase_parity(Path(tmp))
         dnorms = phase_parity_fused(Path(tmp))
         phase_early_exit(Path(tmp), dnorms)
         phase_parity_packed(Path(tmp))
-        grad_check = phase_train_grad_check()
+        grad_check, k2_grad_path = phase_train_grad_check()
+        paths.append(k2_grad_path)
         phase_train_step_check()
         paths += [phase_train_path(Path(tmp)),
                   phase_train_path(Path(tmp), corr="alt", steps=4)]
         phase_train_resume(Path(tmp))
+        phase_telemetry_runs(Path(tmp))
     by_path = {r["phase"]: r["launches"] for r in paths}
     for path, counts in by_path.items():
         if any(counts[k] < 1 for k in PATH_KERNELS[path]):
@@ -2690,6 +3348,7 @@ def main() -> int:
     alt_prof = paths[-1]["profiled_step"]
     # the main paths' shapes (K2, K3: bf16, the presets' dtype)
     k1, k2, k3 = checks[0], fused_checks[0], k3_checks[0]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "card": dev["smi"]})
     emit({"kernels": [
         {
             "name": "alt_corr", "route": "cuda",
@@ -2734,7 +3393,15 @@ def main() -> int:
                         "bfloat16": K2_STAGE1_BF16_TOL},
                 "checks": stage1_checks,
             },
-            "backward": "none: test mode only (fused_refine_step raises under grad)",
+            "backward": {
+                "route": "plain autograd recompute (ops/fused_update.py::fused_step_vjp)",
+                "shape": grad_check["k2"][0]["shape"],
+                "ms": {c["dtype"]: c.get("bwd_ms") for c in grad_check["k2"]},
+                "forward_ms_at_that_shape": {c["dtype"]: c.get("fwd_ms")
+                                             for c in grad_check["k2"]},
+                "determinism_needed": {c["dtype"]: c["determinism_needed"]
+                                       for c in grad_check["k2"]},
+            },
         },
         {
             "name": "packed_conv", "route": "cuda",

@@ -40,6 +40,7 @@ import numpy as np
 
 from raft_stereo_tpu_torch.data import frame_io
 from raft_stereo_tpu_torch.data.augmentor import FlowAugmentor, SparseFlowAugmentor
+from raft_stereo_tpu_torch.runtime import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -336,6 +337,8 @@ class PrefetchLoader:
             self.quarantined.add(index)
             logger.warning("quarantining %s %d after %s: %s (%d total quarantined)", what,
                            index, type(err).__name__, err, len(self.quarantined))
+            telemetry.emit("quarantine", index=int(index), reason=f"{type(err).__name__}: {err}",
+                           total=len(self.quarantined))
 
     def _quarantine_and_resample(self, epoch: int, pos: int, index: int, err, domain=None):
         """Quarantine ``index`` and return a replacement item, or the
@@ -353,6 +356,8 @@ class PrefetchLoader:
             if bad_here > self.max_quarantine_frac * n:
                 logger.error("quarantine is systemic: %d of %d samples of this epoch's slice",
                              bad_here, n)
+                telemetry.emit("quarantine_systemic", quarantined=bad_here, domain=n,
+                               threshold=self.max_quarantine_frac)
                 return RuntimeError(
                     f"{bad_here}/{n} samples of this host's current epoch domain quarantined "
                     f"(> {self.max_quarantine_frac:.0%}): this is systemic (bad dataset root "

@@ -3,7 +3,11 @@ the readers of ``raft_stereo_tpu/data/frame_io.py`` that the evaluation and
 training sets use, and the writers its tests and smoke run need).
 
 Disparities come back as float32 [H, W], valid masks as bool [H, W]. PNGs,
-16-bit ones included, go through Pillow.
+16-bit ones included, go through Pillow. A transient storage error (an
+``OSError``) is retried ``RAFT_IO_RETRIES`` times (default ``IO_RETRIES``)
+after ``RAFT_IO_BACKOFF`` seconds (default ``IO_BACKOFF_S``), doubled at
+each attempt, with an ``io_retry`` event each time;
+``RAFT_FI_IO_FAIL_READS`` plants such errors (``runtime/faultinject.py``).
 """
 
 from __future__ import annotations
@@ -19,12 +23,21 @@ from typing import Tuple
 import numpy as np
 from PIL import Image, UnidentifiedImageError
 
+from raft_stereo_tpu_torch.runtime import faultinject, telemetry
+
 logger = logging.getLogger(__name__)
 
-# A transient storage error (an OSError) is retried this many more times,
-# after IO_BACKOFF_S seconds, doubled at each attempt.
+# The defaults of RAFT_IO_RETRIES and RAFT_IO_BACKOFF.
 IO_RETRIES = 2
 IO_BACKOFF_S = 0.05
+
+
+def _io_retries() -> int:
+    return int(os.environ.get("RAFT_IO_RETRIES", IO_RETRIES))
+
+
+def _io_backoff() -> float:
+    return float(os.environ.get("RAFT_IO_BACKOFF", IO_BACKOFF_S))
 
 
 def with_io_retry(fn):
@@ -34,17 +47,21 @@ def with_io_retry(fn):
 
     @functools.wraps(fn)
     def wrapper(path, *args, **kwargs):
-        for attempt in range(IO_RETRIES + 1):
+        retries = _io_retries()
+        for attempt in range(retries + 1):
             try:
+                faultinject.maybe_fail_io(path)
                 return fn(path, *args, **kwargs)
             except (FileNotFoundError, UnidentifiedImageError):
                 raise
             except OSError as e:
-                if attempt == IO_RETRIES:
+                if attempt == retries:
                     raise
-                delay = IO_BACKOFF_S * 2 ** attempt
+                delay = _io_backoff() * 2 ** attempt
                 logger.warning("transient IO error reading %s (attempt %d/%d): %s; "
-                               "retrying in %.2fs", path, attempt + 1, IO_RETRIES + 1, e, delay)
+                               "retrying in %.2fs", path, attempt + 1, retries + 1, e, delay)
+                telemetry.emit("io_retry", path=str(path), attempt=attempt + 1,
+                               error=f"{type(e).__name__}: {e}")
                 time.sleep(delay)
 
     return wrapper

@@ -10,7 +10,8 @@ card, each pair's decode on the engine's stager thread, where a pair that
 fails to load fails alone and is logged and skipped. ``--per_image`` keeps
 the synchronous one-pair loop (its forward captured once per shape on the
 card). Each pair is padded to /32 and unpadded; outputs are named after the
-left image's directory.
+left image's directory. ``--telemetry_dir`` writes the engine's events,
+spans, heartbeat and latency metrics there (``runtime/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ from raft_stereo_tpu_torch.runtime.infer import (
     InferenceEngine,
     InferRequest,
     add_infer_args,
+    install_cli_telemetry,
     options_from_args,
 )
+from raft_stereo_tpu_torch.runtime import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -149,7 +152,11 @@ def main(argv=None, device=None) -> DemoRun:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     infer_mod.reset_summary()
-    run = demo(args, device=device)
+    tel = install_cli_telemetry(args)
+    try:
+        run = demo(args, device=device)
+    finally:
+        telemetry.uninstall(tel)
     infer_mod.enforce_failure_budget(args.max_failed_frac)
     return run
 

@@ -18,7 +18,8 @@ reference's one-pair-at-a-time protocol, whose forward (``make_forward``) is
 captured once per input shape on the card. Per-image metrics fold in
 dataset index order on both paths. KITTI's per-pair FPS is defined on the
 per-image path; the engine reports its throughput with capture time
-excluded instead.
+excluded instead. ``--telemetry_dir`` writes the engine's events, spans,
+heartbeat and latency metrics there (``runtime/telemetry.py``).
 
 Everything here runs on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that request it raises. On
@@ -47,6 +48,7 @@ from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops.pad import InputPadder
 from raft_stereo_tpu_torch.runtime import infer as infer_mod
+from raft_stereo_tpu_torch.runtime import telemetry
 from raft_stereo_tpu_torch.runtime.infer import (
     GraphCache,
     InferenceEngine,
@@ -133,7 +135,8 @@ def make_engine(model: RAFTStereo, iters: int, infer: InferOptions) -> Inference
     return InferenceEngine(
         fwd, device=next(model.parameters()).device, batch=infer.batch,
         prefetch_depth=infer.prefetch, max_executables=infer.max_executables,
-        deadline_s=infer.deadline_s, capture=model.config.converge_eps == 0,
+        deadline_s=infer.deadline_s, retries=infer.retries,
+        capture=model.config.converge_eps == 0,
         # what a graph bakes in besides its shapes: the model (its weights'
         # addresses) and the iteration count
         graph_key=(id(model), repr(model.config), int(iters)))
@@ -376,9 +379,13 @@ def main(argv=None, device=None) -> Dict[str, float]:
         level=logging.INFO,
         format="%(asctime)s %(levelname)-8s [%(filename)s:%(lineno)d] %(message)s")
     infer_mod.reset_summary()
-    model = load_model(args, device=device)
-    res = VALIDATORS[args.dataset](model, iters=args.valid_iters,
-                                   infer=options_from_args(args))
+    tel = infer_mod.install_cli_telemetry(args)
+    try:
+        model = load_model(args, device=device)
+        res = VALIDATORS[args.dataset](model, iters=args.valid_iters,
+                                       infer=options_from_args(args))
+    finally:
+        telemetry.uninstall(tel)
     # metrics cover completed pairs only; exit non-zero past the budget
     infer_mod.enforce_failure_budget(args.max_failed_frac)
     return res

@@ -15,10 +15,13 @@ on CPU tensors; on CUDA tensors it launches the kernel or raises.
 ``motion_in`` does the same for the kernel's first launch alone (the
 lookup with convc1 and convf1, plain version ``reference_motion_in``);
 ``motion_in_geometry`` is that launch's geometry.
-Inference only: there is no backward yet (the JAX VJP,
-``pallas_fused_update.py:474-497``, is still to port), so a call under
-grad mode with an input that requires grad raises on either device rather
-than return a result without a gradient.
+``fused_refine_step`` is differentiable on both devices, as the JAX
+``_fused_op`` is (``pallas_fused_update.py:465-497``): its backward is the
+plain version's autograd, recomputed from the saved inputs, and gives
+gradients to the packed weights, fmap1, every pyramid level, h, inp16 and
+ctx; ``flow_x`` gets none (the model detaches the flow every step).
+``motion_in`` has no backward: under grad mode, an input that requires
+grad raises.
 """
 
 from __future__ import annotations
@@ -83,11 +86,12 @@ def _taps(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).reshape(kh * kw, i, o)
 
 
-@torch.no_grad()
-def pack_fused_params(update_block, dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+def pack_fused_params(update_block, dtype: torch.dtype = torch.float32, *,
+                      grad: bool = False) -> Dict[str, torch.Tensor]:
     """The kernel's weights from the port's ``BasicMultiUpdateBlock``
     (``encoder``, ``gru08``, ``flow_head``): weights in ``dtype``, biases
-    in fp32, all contiguous.
+    in fp32, all contiguous; detached, unless ``grad`` asks for a packing
+    that gradients flow through to the block's convs.
 
     The counterpart of the JAX ``pack_fused_params``. It drops the TPU's
     layout pads where the kernel has no use for them: convf1 keeps only its
@@ -97,28 +101,29 @@ def pack_fused_params(update_block, dtype: torch.dtype = torch.float32) -> Dict[
     conv keeps its two zero output channels (126 → 128), so m comes out at
     full width with the flow added in channel 126.
     """
-    enc, gru, head = update_block.encoder, update_block.gru08, update_block.flow_head
-    conv_m = _taps(enc.conv.weight)
-    packed = {
-        "wc1": enc.convc1.weight[:, :, 0, 0].t(),
-        "bc1": enc.convc1.bias,
-        "kf7": _taps(enc.convf1.weight[:, :1])[:, 0],
-        "bf7": enc.convf1.bias,
-        "wcf": torch.cat([_taps(enc.convc2.weight), _taps(enc.convf2.weight)], dim=2),
-        "bcf": torch.cat([enc.convc2.bias, enc.convf2.bias]),
-        "km": F.pad(conv_m, (0, MOTION_CH - conv_m.shape[2])),
-        "bm": F.pad(enc.conv.bias, (0, MOTION_CH - conv_m.shape[2])),
-        "wzr": torch.cat([_taps(gru.convz.weight), _taps(gru.convr.weight)], dim=2),
-        "bzr": torch.cat([gru.convz.bias, gru.convr.bias]),
-        "wq": _taps(gru.convq.weight),
-        "bq": gru.convq.bias,
-        "kfh1": _taps(head.conv1.weight),
-        "bfh1": head.conv1.bias,
-        "kfh2": _taps(head.conv2.weight[:1])[:, :, 0],
-        "bfh2": head.conv2.bias[:1],
-    }
-    return {k: v.detach().to(dtype if k in WEIGHT_KEYS else torch.float32).contiguous()
-            for k, v in packed.items()}
+    with torch.set_grad_enabled(grad):
+        enc, gru, head = update_block.encoder, update_block.gru08, update_block.flow_head
+        conv_m = _taps(enc.conv.weight)
+        packed = {
+            "wc1": enc.convc1.weight[:, :, 0, 0].t(),
+            "bc1": enc.convc1.bias,
+            "kf7": _taps(enc.convf1.weight[:, :1])[:, 0],
+            "bf7": enc.convf1.bias,
+            "wcf": torch.cat([_taps(enc.convc2.weight), _taps(enc.convf2.weight)], dim=2),
+            "bcf": torch.cat([enc.convc2.bias, enc.convf2.bias]),
+            "km": F.pad(conv_m, (0, MOTION_CH - conv_m.shape[2])),
+            "bm": F.pad(enc.conv.bias, (0, MOTION_CH - conv_m.shape[2])),
+            "wzr": torch.cat([_taps(gru.convz.weight), _taps(gru.convr.weight)], dim=2),
+            "bzr": torch.cat([gru.convz.bias, gru.convr.bias]),
+            "wq": _taps(gru.convq.weight),
+            "bq": gru.convq.bias,
+            "kfh1": _taps(head.conv1.weight),
+            "bfh1": head.conv1.bias,
+            "kfh2": _taps(head.conv2.weight[:1])[:, :, 0],
+            "bfh2": head.conv2.bias[:1],
+        }
+        return {k: (v if grad else v.detach()).to(dtype if k in WEIGHT_KEYS else torch.float32)
+                .contiguous() for k, v in packed.items()}
 
 
 def _conv(x: torch.Tensor, taps: torch.Tensor, cd: torch.dtype, bias=None, groups: int = 1):
@@ -169,7 +174,9 @@ def reference_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
     cf = nchw(reference_motion_in(fmap1, fmap2_pyramid, flow_x, packed, radius, cd))
     cf2 = torch.relu(_conv(cf, packed["wcf"], cd, packed["bcf"], groups=2)).to(cd)
     m = torch.relu(_conv(cf2, packed["km"], cd, packed["bm"]))
-    m[:, FLOW_CH] += flow_x  # m's channel layout: [126 conv, x-flow, 0]
+    # m's channel layout: [126 conv, x-flow, 0] (out of place: relu keeps
+    # its output for the backward)
+    m = torch.cat([m[:, :FLOW_CH], (m[:, FLOW_CH] + flow_x)[:, None], m[:, FLOW_CH + 1:]], 1)
     m = m.to(cd)
 
     xs = [m] + ([nchw(inp16).to(cd)] if inp16 is not None else [])
@@ -376,14 +383,15 @@ def _check(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius, cd) -> None:
 
 
 def _refuse_grad(name: str, tensors) -> None:
-    """The kernel has no backward: under grad mode, an input that requires
-    grad raises on either device rather than give a result without one."""
+    """Stage 1 alone has no backward: under grad mode, an input that
+    requires grad raises on either device rather than give a result
+    without one."""
     if torch.is_grad_enabled():
         needs = [k for k, t in tensors if t is not None and t.requires_grad]
         if needs:
             raise RuntimeError(
-                f"{name} has no backward yet, but {needs} require grad: the fused step "
-                "runs in test mode only (call it under torch.no_grad())")
+                f"{name} has no backward, but {needs} require grad "
+                "(call it under torch.no_grad())")
 
 
 def _aligned(tensors) -> None:
@@ -440,18 +448,75 @@ def fused_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One refinement step: ``(h' [B, H, W, dh] in h's dtype, delta_disp
     [B, H, W] fp32)`` (see the module docstring)."""
-    global LAUNCHES
-    _refuse_grad("fused_refine_step",
-                 [("fmap1", fmap1), ("flow_x", flow_x), ("h", h), ("inp16", inp16), ("ctx", ctx),
-                  *packed.items(),
-                  *((f"pyramid level {i}", f) for i, f in enumerate(fmap2_pyramid))])
-    if fmap1.device.type == "cpu":
-        return reference_refine_step(packed, fmap1, fmap2_pyramid, flow_x, h, inp16, ctx,
-                                     radius, compute_dtype)
-    if fmap1.device.type != "cuda":
+    if fmap1.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_update runs on CPU or CUDA tensors, not {fmap1.device}")
-    cd = compute_dtype
-    _check(packed, fmap1, fmap2_pyramid, flow_x, h, inp16, ctx, radius, cd)
+    if fmap1.device.type == "cuda":
+        _check(packed, fmap1, fmap2_pyramid, flow_x, h, inp16, ctx, radius, compute_dtype)
+    keys = tuple(packed)
+    return _FusedStep.apply(radius, compute_dtype, keys, flow_x, fmap1, h, inp16, ctx,
+                            *fmap2_pyramid, *(packed[k] for k in keys))
+
+
+def fused_step_vjp(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
+                   fmap2_pyramid: Sequence[torch.Tensor], flow_x: torch.Tensor,
+                   h: torch.Tensor, inp16: Optional[torch.Tensor], ctx: torch.Tensor,
+                   radius: int, compute_dtype: torch.dtype, grads, wrt):
+    """The step's backward: ``reference_refine_step``'s autograd at the
+    given inputs, for the output gradients ``grads = (d h', d delta)``, with
+    respect to the named inputs in ``wrt`` (``"fmap1"``, ``"h"``,
+    ``"inp16"``, ``"ctx"``, ``"level<i>"`` or a packed key). Returns a dict
+    of gradients by name (None where the input does not reach the output)."""
+    names = (["fmap1", "h", "inp16", "ctx"] + [f"level{i}" for i in range(len(fmap2_pyramid))]
+             + list(packed))
+    values = [fmap1, h, inp16, ctx, *fmap2_pyramid, *packed.values()]
+    with torch.enable_grad():
+        leaf = {n: None if v is None else v.detach().requires_grad_(n in wrt)
+                for n, v in zip(names, values)}
+        levels = [leaf[f"level{i}"] for i in range(len(fmap2_pyramid))]
+        out = reference_refine_step({k: leaf[k] for k in packed}, leaf["fmap1"], levels,
+                                    flow_x.detach(), leaf["h"], leaf["inp16"], leaf["ctx"],
+                                    radius, compute_dtype)
+        asked = [n for n in names if n in wrt and leaf[n] is not None]
+        got = torch.autograd.grad(out, [leaf[n] for n in asked], grads, allow_unused=True)
+    return dict(zip(asked, got))
+
+
+class _FusedStep(torch.autograd.Function):
+    """The step's forward (the kernel on CUDA, the plain version on the
+    CPU) with :func:`fused_step_vjp` as its backward, as the JAX
+    ``_fused_op_bwd`` recomputes ``reference_refine_step``. ``flow_x`` gets
+    no gradient."""
+
+    @staticmethod
+    def forward(fctx, radius, cd, keys, flow_x, fmap1, h, inp16, context, *rest):
+        levels, weights = rest[:len(rest) - len(keys)], rest[len(rest) - len(keys):]
+        packed = dict(zip(keys, weights))
+        fctx.radius, fctx.cd, fctx.keys, fctx.n_levels = radius, cd, keys, len(levels)
+        fctx.save_for_backward(flow_x, fmap1, h, inp16, context, *levels, *weights)
+        if fmap1.device.type == "cpu":
+            return reference_refine_step(packed, fmap1, levels, flow_x, h, inp16, context,
+                                         radius, cd)
+        return _launch(packed, fmap1, levels, flow_x, h, inp16, context, radius, cd)
+
+    @staticmethod
+    def backward(fctx, g_h, g_delta):
+        flow_x, fmap1, h, inp16, context, *rest = fctx.saved_tensors
+        L = fctx.n_levels
+        levels, weights = rest[:L], rest[L:]
+        names = (["fmap1", "h", "inp16", "ctx"] + [f"level{i}" for i in range(L)]
+                 + list(fctx.keys))
+        wrt = {n for n, need in zip(names, fctx.needs_input_grad[4:]) if need}
+        got = fused_step_vjp(dict(zip(fctx.keys, weights)), fmap1, levels, flow_x, h, inp16,
+                             context, fctx.radius, fctx.cd, (g_h, g_delta), wrt)
+        return (None, None, None, None, *(got.get(n) for n in names))
+
+
+def _launch(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
+            fmap2_pyramid: Sequence[torch.Tensor], flow_x: torch.Tensor, h: torch.Tensor,
+            inp16: Optional[torch.Tensor], ctx: torch.Tensor, radius: int,
+            cd: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Function's forward on CUDA: one kernel call on checked inputs."""
+    global LAUNCHES
     B, H, W, D = fmap1.shape
     dh = h.shape[-1]
     dev = fmap1.device

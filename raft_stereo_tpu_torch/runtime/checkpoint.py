@@ -34,7 +34,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-from raft_stereo_tpu_torch.runtime import faultinject
+from raft_stereo_tpu_torch.runtime import faultinject, telemetry
 from raft_stereo_tpu_torch.utils.checkpoints import (
     apply_tree,
     checkpoint_exists,
@@ -91,15 +91,18 @@ def commit_checkpoint(path: str, state, *, step: Optional[int] = None, tag: str 
     t0 = time.perf_counter()
     tree = to_host(state_tree(state))
     extra = dict(extra or {})
-    save_train_state(path, tree, stream_pos=extra.get("stream_pos"))
+    with telemetry.span("ckpt_payload_save", tag=tag):
+        save_train_state(path, tree, stream_pos=extra.get("stream_pos"))
     leaves = {k: {"crc32": _leaf_crc(x), **leaf_meta(x)} for k, x in keyed_leaves(tree).items()}
     if step is None:
         step = int(tree.get("step", 0)) if isinstance(tree, dict) else 0
     manifest = {"format": MANIFEST_FORMAT, "step": int(step), "tag": tag,
                 "leaf_count": len(leaves), "leaves": leaves, **extra}
     _write_json_atomic(manifest_path(path), manifest, crash_name="manifest_commit")
-    logger.info("committed %s checkpoint at step %d: %s (%.1f ms)", tag, step, path,
-                (time.perf_counter() - t0) * 1e3)
+    commit_ms = (time.perf_counter() - t0) * 1e3
+    logger.info("committed %s checkpoint at step %d: %s (%.1f ms)", tag, step, path, commit_ms)
+    telemetry.emit("checkpoint_commit", step=int(step), tag=tag, path=path,
+                   bytes=os.path.getsize(payload_path(path)), commit_ms=round(commit_ms, 3))
     return CheckpointInfo(path=path, step=int(step), tag=tag)
 
 
@@ -238,6 +241,9 @@ def rotate_checkpoints(ckpt_dir: str, keep: int) -> List[CheckpointInfo]:
     for info in removed:
         logger.info("rotating out %s checkpoint %s (step %d)", info.tag, info.path, info.step)
         delete_checkpoint(info.path)
+    if removed:
+        telemetry.emit("checkpoint_rotate",
+                       removed=[{"step": c.step, "tag": c.tag} for c in removed], kept=keep)
     _sweep_orphans(ckpt_dir)
     return removed
 

@@ -13,7 +13,35 @@ run) or programmatically with ``arm()`` (which wins over the environment):
                             checkpoint layer declares ``ckpt_commit``
                             (payload written, before its rename) and
                             ``manifest_commit`` (manifest written, before
+                            its rename), the telemetry sink
+                            ``heartbeat_write`` (heartbeat written, before
                             its rename)
+  ``RAFT_FI_IO_FAIL_READS`` comma list of 1-indexed global read-attempt
+                            ordinals of ``data/frame_io`` that raise
+                            ``OSError``
+
+Serving points (``runtime/infer.py``; each proves one of the engine's
+recovery paths):
+
+  ``RAFT_FI_INFER_DECODE_FAIL``  comma list of 1-indexed decode ordinals
+                                 (one a request the stager pulls) that raise
+                                 ``OSError``: the request fails alone
+  ``RAFT_FI_INFER_COMPILE_FAIL`` comma list of 1-indexed ordinals of the
+                                 engine's "compiles" (a warm-up and capture
+                                 of a new graph key on the card, a key's
+                                 first eager run on the CPU) that raise
+                                 ``RuntimeError``: one proves the retry,
+                                 more than the retry budget the circuit
+                                 breaker and the degraded path
+  ``RAFT_FI_INFER_OOM``          int: every device wait whose micro-batch
+                                 is at least this raises
+                                 ``torch.cuda.OutOfMemoryError``, the type a
+                                 real one has: the batch halves until it fits
+  ``RAFT_FI_INFER_HANG``         comma list of 1-indexed device-wait
+                                 ordinals that block until ``reset()``: the
+                                 watchdog trips
+
+Every point is deterministic: the same arming fails the same ordinal.
 """
 
 from __future__ import annotations
@@ -21,7 +49,8 @@ from __future__ import annotations
 import logging
 import os
 import signal
-from typing import Optional
+import threading
+from typing import Optional, Set
 
 logger = logging.getLogger(__name__)
 
@@ -33,27 +62,70 @@ class InjectedCrash(RuntimeError):
 _armed_nan_step: Optional[int] = None
 _armed_sigterm_step: Optional[int] = None
 _armed_crash: Optional[str] = None
+_armed_io_fail_reads: Optional[Set[int]] = None
+_armed_infer_decode_fail: Optional[Set[int]] = None
+_armed_infer_compile_fail: Optional[Set[int]] = None
+_armed_infer_oom_batch: Optional[int] = None
+_armed_infer_hang: Optional[Set[int]] = None
 _sigterm_fired = False
+
+# Attempt counters span retries and call sites; the lock keeps ordinals
+# exact when several threads read.
+_lock = threading.Lock()
+_io_read_attempts = 0
+_infer_decode_attempts = 0
+_infer_compile_attempts = 0
+_infer_wait_attempts = 0
+# An injected hang parks the engine's device-wait thread on this event, so a
+# test never sleeps past its deadline; ``reset()`` releases parked threads.
+_hang_release = threading.Event()
 
 
 def reset() -> None:
-    """Clear programmatic arming and the once-only SIGTERM latch (the
-    environment is left alone)."""
+    """Clear programmatic arming, the counters and the once-only SIGTERM
+    latch (the environment is left alone), and release any device-wait
+    thread parked by an injected hang."""
     global _armed_nan_step, _armed_sigterm_step, _armed_crash, _sigterm_fired
+    global _armed_io_fail_reads, _armed_infer_decode_fail, _armed_infer_compile_fail
+    global _armed_infer_oom_batch, _armed_infer_hang, _hang_release
+    global _io_read_attempts, _infer_decode_attempts, _infer_compile_attempts
+    global _infer_wait_attempts
     _armed_nan_step = _armed_sigterm_step = _armed_crash = None
+    _armed_io_fail_reads = _armed_infer_decode_fail = _armed_infer_compile_fail = None
+    _armed_infer_oom_batch = _armed_infer_hang = None
     _sigterm_fired = False
+    _io_read_attempts = _infer_decode_attempts = _infer_compile_attempts = 0
+    _infer_wait_attempts = 0
+    _hang_release.set()
+    _hang_release = threading.Event()
 
 
 def arm(nan_step: Optional[int] = None, sigterm_step: Optional[int] = None,
-        crash: Optional[str] = None) -> None:
+        crash: Optional[str] = None, io_fail_reads: Optional[Set[int]] = None,
+        infer_decode_fail: Optional[Set[int]] = None,
+        infer_compile_fail: Optional[Set[int]] = None,
+        infer_oom_batch: Optional[int] = None,
+        infer_hang: Optional[Set[int]] = None) -> None:
     """Programmatic arming for in-process tests (overrides env vars)."""
-    global _armed_nan_step, _armed_sigterm_step, _armed_crash
+    global _armed_nan_step, _armed_sigterm_step, _armed_crash, _armed_io_fail_reads
+    global _armed_infer_decode_fail, _armed_infer_compile_fail, _armed_infer_oom_batch
+    global _armed_infer_hang
     if nan_step is not None:
         _armed_nan_step = nan_step
     if sigterm_step is not None:
         _armed_sigterm_step = sigterm_step
     if crash is not None:
         _armed_crash = crash
+    if io_fail_reads is not None:
+        _armed_io_fail_reads = set(io_fail_reads)
+    if infer_decode_fail is not None:
+        _armed_infer_decode_fail = set(infer_decode_fail)
+    if infer_compile_fail is not None:
+        _armed_infer_compile_fail = set(infer_compile_fail)
+    if infer_oom_batch is not None:
+        _armed_infer_oom_batch = int(infer_oom_batch)
+    if infer_hang is not None:
+        _armed_infer_hang = set(infer_hang)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -88,3 +160,101 @@ def crash_point(name: str) -> None:
     armed = _armed_crash or os.environ.get("RAFT_FI_CRASH", "").strip()
     if armed == name:
         raise InjectedCrash(f"[faultinject] injected crash at {name!r}")
+
+
+# ------------------------------------------------------------------- IO
+
+
+def _env_ordinals(name: str) -> Optional[Set[int]]:
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    return {int(x) for x in raw.split(",") if x.strip()}
+
+
+def _next(counter: str) -> int:
+    with _lock:
+        globals()[counter] += 1
+        return globals()[counter]
+
+
+def io_read_attempts() -> int:
+    """Read attempts of ``data/frame_io`` observed (for test assertions)."""
+    return _io_read_attempts
+
+
+def maybe_fail_io(path: str) -> None:
+    """Count one read attempt; raise ``OSError`` if its ordinal is armed."""
+    ordinal = _next("_io_read_attempts")
+    armed = _armed_io_fail_reads
+    if armed is None:
+        armed = _env_ordinals("RAFT_FI_IO_FAIL_READS")
+    if armed and ordinal in armed:
+        raise OSError(f"[faultinject] injected IO failure on read attempt {ordinal}: {path}")
+
+
+# -------------------------------------------------------------- serving
+
+
+def infer_decode_attempts() -> int:
+    """Engine decodes observed (for test assertions)."""
+    return _infer_decode_attempts
+
+
+def infer_compile_attempts() -> int:
+    """Engine compiles (captures, or first eager runs) observed."""
+    return _infer_compile_attempts
+
+
+def infer_wait_attempts() -> int:
+    """Engine device waits observed."""
+    return _infer_wait_attempts
+
+
+def infer_decode_point(payload=None) -> None:
+    """Count one decode (the stager calls it once a request, before the
+    request's inputs are resolved); raise ``OSError`` if its ordinal is
+    armed."""
+    ordinal = _next("_infer_decode_attempts")
+    armed = _armed_infer_decode_fail
+    if armed is None:
+        armed = _env_ordinals("RAFT_FI_INFER_DECODE_FAIL")
+    if armed and ordinal in armed:
+        raise OSError(f"[faultinject] injected decode failure on request attempt {ordinal} "
+                      f"(payload={payload!r})")
+
+
+def infer_compile_point(key=None) -> None:
+    """Count one compile of a new graph key; raise ``RuntimeError`` if its
+    ordinal is armed."""
+    ordinal = _next("_infer_compile_attempts")
+    armed = _armed_infer_compile_fail
+    if armed is None:
+        armed = _env_ordinals("RAFT_FI_INFER_COMPILE_FAIL")
+    if armed and ordinal in armed:
+        raise RuntimeError(f"[faultinject] injected compile failure on attempt {ordinal} "
+                           f"(key={key!r})")
+
+
+def infer_wait_point(batch_size: int) -> None:
+    """One device wait of a dispatched micro-batch, where real device errors
+    and hangs surface: an armed hang ordinal parks this thread until
+    ``reset()``; an armed OOM threshold raises ``torch.cuda.OutOfMemoryError``
+    for every wait whose micro-batch is at least the threshold, so halving
+    fits once the batch is below it."""
+    ordinal = _next("_infer_wait_attempts")
+    release = _hang_release
+    hang = _armed_infer_hang
+    if hang is None:
+        hang = _env_ordinals("RAFT_FI_INFER_HANG")
+    if hang and ordinal in hang:
+        logger.warning("[faultinject] hanging device wait %d until reset()", ordinal)
+        release.wait()
+    oom = _armed_infer_oom_batch
+    if oom is None:
+        oom = _env_int("RAFT_FI_INFER_OOM")
+    if oom is not None and batch_size >= oom:
+        import torch
+
+        raise torch.cuda.OutOfMemoryError(
+            f"[faultinject] injected device OOM at micro-batch {batch_size} (threshold {oom})")

@@ -21,6 +21,8 @@ from typing import Any, Iterable, List, Tuple
 
 import torch
 
+from raft_stereo_tpu_torch.runtime import telemetry
+
 logger = logging.getLogger(__name__)
 
 
@@ -86,7 +88,11 @@ class NonFiniteGuard:
                 self.total_skipped += 1
                 logger.warning("non-finite train step %d skipped (%d consecutive, %d total)",
                                step, self.consecutive, self.total_skipped)
+                telemetry.emit("nan_skip", step=step, consecutive=self.consecutive,
+                               total=self.total_skipped)
                 if self.consecutive >= self.max_consecutive:
+                    telemetry.emit("guard_abort", step=step, consecutive=self.consecutive,
+                                   threshold=self.max_consecutive)
                     raise NonFiniteStepError(
                         f"aborting: {self.consecutive} consecutive train steps produced "
                         f"non-finite loss/grads (last at step {step}; threshold "

@@ -1,6 +1,6 @@
 """Batched inference engine, with each forward captured once per (bucket,
-batch) as a CUDA graph (PyTorch port of the plain engine of
-``raft_stereo_tpu/runtime/infer.py``).
+batch) as a CUDA graph (PyTorch port of ``raft_stereo_tpu/runtime/infer.py``:
+its plain engine, its fault tolerance and its telemetry).
 
   * **Shape buckets.** Pairs are grouped by their /32-padded shape
     (``ops.pad.bucket_shape``). Each member of a bucket is edge-padded with
@@ -14,8 +14,9 @@ batch) as a CUDA graph (PyTorch port of the plain engine of
     counterpart of the JAX package's ``AOTCache``: on the first batch of a
     key the forward runs once eagerly (which builds the kernels and settles
     every lazy choice), is captured into a ``torch.cuda.CUDAGraph``, and
-    every batch of the key then replays it. On the CPU, or with
-    ``capture=False``, each batch runs the forward eagerly.
+    every batch of the key then replays it. This warm-up and capture is the
+    engine's "compile". On the CPU, or with ``capture=False``, each batch
+    runs the forward eagerly and a key's compile is its first use.
   * **A stager thread** decodes (a request's lazy ``inputs`` callable),
     accounts buckets, pads and stacks batch N+1 on the host while batch N
     computes, behind a queue of ``prefetch_depth`` batches. It touches no
@@ -25,12 +26,41 @@ batch) as a CUDA graph (PyTorch port of the plain engine of
     pinned host memory on the same stream; it keeps one dispatch in flight,
     so the host work on batch N's results overlaps batch N+1's compute.
 
-Failures stay with their requests: a decode, validation or staging error,
-or a failed forward (a kernel launch that raises, during warm-up, capture
-or replay), becomes an ``InferResult`` whose ``error`` is set, and the
-stream goes on. Nothing falls back to another path. The stager puts its
-end-of-stream sentinel in ``finally``, and with ``deadline_s`` a stager that
-stages nothing for that long fails the stream with ``InferStallError``.
+**Fault tolerance**, the JAX engine's contract:
+
+  * **Per-request isolation.** A decode, validation or staging failure
+    becomes an ``InferResult`` whose ``error`` is set (``request_failed``),
+    and the stream goes on. The stager puts its end-of-stream sentinel in
+    ``finally``, so a dying stager surfaces at the consumer.
+  * **Deadlines and a watchdog.** ``deadline_s`` bounds both waits the
+    consumer can block on: a stager that stages nothing for that long fails
+    the stream with ``InferStallError``, and a device wait (the wait on the
+    batch's output copy) runs on a ``_WaitWorker`` thread, so a batch whose
+    wait passes the deadline fails with ``watchdog_trip`` and the stream
+    goes on; the wedged worker is abandoned for a fresh one. The watchdog
+    fails the batch; it cannot cancel work a card has hung on.
+  * **Retries and the circuit breaker.** A failed compile (warm-up or
+    capture) or dispatch retries with exponential backoff (``retries``,
+    ``infer_retry``). A bucket that keeps failing is circuit-broken
+    (``bucket_circuit_open``) for the engine's life: its batches are served
+    by the degraded path, one pair at a time, eagerly, on the same card and
+    through the same kernels (``infer_degraded``).
+  * **OOM halving.** A ``torch.cuda.OutOfMemoryError`` (at warm-up, capture,
+    replay or wait) halves the micro-batch until it fits: the sub-batches
+    run as graphs of the key (bucket, B/2), and the size that fit is kept as
+    the bucket's cap, so later batches dispatch straight at it. A failed
+    warm-up or capture leaves no entry in the ``GraphCache``.
+  * **Fault injection.** ``RAFT_FI_INFER_DECODE_FAIL``, ``_COMPILE_FAIL``,
+    ``_OOM`` and ``_HANG`` (``runtime.faultinject``) drive each path.
+
+**Observability.** Every request carries a ``trace_id`` (the caller's or a
+fresh one), which rides its spans and every event on its path
+(``bucket_compile``, ``infer_batch_commit``, ``infer_retry``,
+``bucket_circuit_open``, ``infer_degraded``, ``watchdog_trip``,
+``request_failed``, ``stager_underrun``) and its result. ``InferStats.latency``
+holds per-bucket ``LogHistogram``s of queue wait, decode, h2d, device and end
+to end, fed to the installed telemetry registry too; ``publish_summary``
+prints the completed/failed/degraded line and emits ``stream_summary``.
 
 Results stream in micro-batch completion order: buckets interleave, and
 within a batch the request order is kept. Each result carries its request's
@@ -38,8 +68,9 @@ within a batch the request order is kept. Each result carries its request's
 
 Kernel launches. The kernels' ``LAUNCHES`` counters count wrapper calls,
 so a replay does not move them: they count the warm-up's launches and the
-capture's. ``GraphCache`` records each graph's launches at capture and
-sums, over replays, the launches the card ran (``replayed_launches``).
+capture's, and every eager launch (the degraded path). ``GraphCache``
+records each graph's launches at capture and sums, over replays, the
+launches the card ran (``replayed_launches``).
 """
 
 from __future__ import annotations
@@ -48,7 +79,7 @@ import logging
 import queue
 import threading
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Tuple
 
@@ -58,6 +89,7 @@ import torch
 from raft_stereo_tpu_torch.experiments import packed_conv
 from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 from raft_stereo_tpu_torch.ops.pad import BatchPadder, bucket_shape
+from raft_stereo_tpu_torch.runtime import faultinject, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -73,8 +105,45 @@ class InferStallError(RuntimeError):
     instead of blocking its consumer."""
 
 
+class _WatchdogTimeout(RuntimeError):
+    """A device wait passed the deadline (fails its batch)."""
+
+
 def _errstr(e: BaseException) -> str:
     return f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def _span_ids(trace_ids: Optional[List[str]], cap: int = 8):
+    """A bounded view of a batch's trace ids for span arguments (spans stay
+    in memory until flushed; events carry the full list)."""
+    if not trace_ids or len(trace_ids) <= cap:
+        return trace_ids
+    return trace_ids[:cap] + [f"+{len(trace_ids) - cap} more"]
+
+
+def _is_oom(e: BaseException) -> bool:
+    """A device allocation failure, raised or chained (a capture that an OOM
+    broke may end in another error whose context is the OOM)."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, torch.cuda.OutOfMemoryError):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
+def _released(e: BaseException) -> BaseException:
+    """``e`` without its traceback (and its chain's): a kept exception must
+    not keep the failed forward's frames, and with them its tensors, alive
+    while the engine retries at a smaller batch."""
+    seen = set()
+    x = e
+    while x is not None and id(x) not in seen:
+        seen.add(id(x))
+        x.__traceback__ = None
+        x = x.__cause__ or x.__context__
+    return e
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -104,17 +173,23 @@ class GraphCache:
 
     Every graph draws from one shared memory pool: each capture reuses the
     memory earlier graphs free after their own captures, so sixteen graphs
-    of large activations do not each hold their own. That is safe because
+    of large activations do not each hold their own. (A capture that CUDA
+    invalidates spoils the pool for later captures: they start a new one,
+    ``_end_broken_capture``.) That is safe because
     replays run one at a time on one stream, and the caller copies
     each output out on that stream before the next replay, which may write
     over it. Static inputs live outside the pool. Eviction drops the graph
     and its buffers.
 
-    ``get`` warms up and captures on the first call of a key; ``replay``
-    runs a captured forward. Counters: ``captures``, ``capture_s`` (warm-up
-    included), ``hits`` (a ``get`` that found its key), ``replays``,
-    ``evictions``, and ``replayed_launches``: each kernel's launches at
-    capture, summed over replays.
+    ``get`` warms up and captures on the first call of a key (the engine's
+    compile: ``faultinject.infer_compile_point`` fires there); a warm-up or
+    capture that raises leaves no entry, resets its graph and, with no
+    graph left, releases the pool. ``replay`` runs a captured forward.
+    Counters: ``captures``, ``capture_s`` (warm-up included), ``hits`` and
+    ``misses`` (a ``get`` that found its key, or not, failed captures
+    included), ``replays``, ``evictions``, ``captures_by_key`` (a key
+    captured twice was evicted while in use), and ``replayed_launches``:
+    each kernel's launches at capture, summed over replays.
     """
 
     def __init__(self, max_entries: int = 16):
@@ -126,8 +201,10 @@ class GraphCache:
         self.captures = 0
         self.capture_s = 0.0
         self.hits = 0
+        self.misses = 0
         self.replays = 0
         self.evictions = 0
+        self.captures_by_key: Counter = Counter()
         self.replayed_launches = {k: 0 for k in kernel_launches()}
 
     def __len__(self) -> int:
@@ -152,7 +229,10 @@ class GraphCache:
             self.hits += 1
             self._entries.move_to_end(key)
             return entry
+        self.misses += 1
+        faultinject.infer_compile_point(key)
         entry = self._entries[key] = self._capture(fn, inputs)
+        self.captures_by_key[key] += 1
         if len(self._entries) > self.max_entries:
             old_key, old = self._entries.popitem(last=False)
             old.graph.reset()
@@ -185,24 +265,54 @@ class GraphCache:
         builds, allocates outside the pool and reads back nothing."""
         t0 = time.perf_counter()
         dev = torch.device("cuda", torch.cuda.current_device())
-        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs)
-        for dst, src in zip(static, inputs):
-            dst.copy_(src, non_blocking=True)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = kernel_launches()
-        with torch.cuda.graph(graph, pool=self._pool):
-            output = fn(*static)
+        stream = torch.cuda.current_stream(dev)
+        graph = None
+        try:
+            static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs)
+            for dst, src in zip(static, inputs):
+                dst.copy_(src, non_blocking=True)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn(*static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            before = kernel_launches()
+            with torch.cuda.graph(graph, pool=self._pool):
+                output = fn(*static)
+        except BaseException:
+            if graph is not None:
+                self._end_broken_capture(dev, stream)
+                graph.reset()
+            if not self._entries:
+                self._pool = None
+            raise
         launches = {k: n - before[k] for k, n in kernel_launches().items()}
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return CapturedForward(graph, static, output, launches)
+
+    def _end_broken_capture(self, dev: torch.device, stream) -> None:
+        """Finish what a failed capture leaves behind. One that CUDA
+        invalidated (a host read-back or a sync inside it) raises out of
+        ``capture_end`` before the allocator stops routing the capture to
+        the pool and before ``torch.cuda.graph`` restores the caller's
+        stream; and its pool refuses every later capture ("already
+        recording to mempool_id"), even once that recording is ended. So:
+        end the recording, release the graph's hold on the pool, as a
+        capture that ended and a ``reset`` would have, and leave the pool to
+        the graphs that hold it: the next capture starts a fresh one. A
+        capture that ended (a raise inside it) is not recording and keeps
+        the pool. Either way the caller's stream is current again."""
+        torch.cuda.set_stream(stream)
+        try:
+            torch._C._cuda_endAllocateToPool(dev.index, self._pool)
+        except RuntimeError:
+            return  # not recording: capture_end got past the allocator
+        torch._C._cuda_releasePool(dev.index, self._pool)
+        self._pool = None
 
 
 # ------------------------------------------------------ requests, results
@@ -213,10 +323,13 @@ class InferRequest:
     """One inference item: ``inputs`` are [H, W, C] host arrays sharing one
     (H, W) (the image pair), or a zero-argument callable that returns them
     (the lazy decode form: it runs on the stager thread, and what it raises
-    fails this request alone). ``payload`` is carried onto the result."""
+    fails this request alone). ``payload`` is carried onto the result;
+    ``trace_id`` names the request in every span and event on its path
+    (None: the stager assigns one)."""
 
     payload: Any
     inputs: Any  # Tuple[np.ndarray, ...] | Callable[[], Tuple[np.ndarray, ...]]
+    trace_id: Optional[str] = None
 
     def resolve(self) -> Tuple[np.ndarray, ...]:
         """Materialise and validate the input arrays (stager thread)."""
@@ -251,12 +364,14 @@ class FlushRequest:
 class InferResult:
     """On success ``output`` is the item's original [H, W, C'] window of the
     batched output (host numpy). On failure ``error`` holds the exception,
-    ``output`` is None, and ``bucket`` is None for a failed decode."""
+    ``output`` is None, and ``bucket`` is None for a failed decode.
+    ``trace_id`` is the request's."""
 
     payload: Any
     output: Optional[np.ndarray] = None
     bucket: Optional[Tuple[int, int]] = None
     error: Optional[BaseException] = None
+    trace_id: Optional[str] = None
 
     @property
     def ok(self) -> bool:
@@ -269,6 +384,18 @@ class _FailedRequest:
 
     payload: Any
     error: BaseException
+    trace_id: Optional[str] = None
+
+
+@dataclass
+class _Decoded:
+    """A resolved request waiting in the stager's bucket map."""
+
+    payload: Any
+    arrays: Tuple[np.ndarray, ...]
+    trace_id: str = ""
+    t_start: float = 0.0   # perf_counter at decode start (the e2e clock's zero)
+    decode_s: float = 0.0  # the lazy decode and validation
 
 
 @dataclass
@@ -279,6 +406,74 @@ class _StagedBatch:
     arrays: Tuple[np.ndarray, ...]  # host [B, Hb, Wb, C] per input slot
     valid: int
     stage_s: float
+    wait_s: float = 0.0  # the consumer's wait for it
+    # per valid item, parallel to payloads
+    trace_ids: List[str] = field(default_factory=list)
+    t_starts: List[float] = field(default_factory=list)
+    decode_s: List[float] = field(default_factory=list)
+    t_got: float = 0.0  # perf_counter when the consumer took it
+
+    @property
+    def label(self) -> str:
+        return f"{self.bucket[0]}x{self.bucket[1]}"
+
+
+@dataclass
+class _Launch:
+    """A forward launched on some rows of a batch: its output (on the host,
+    or being copied there), and on CUDA the events around it."""
+
+    host: Optional[torch.Tensor] = None
+    done: Any = None   # torch.cuda.Event recorded after the output copy
+    start: Any = None  # torch.cuda.Event recorded before the input copy
+    ms: Optional[float] = None  # start → done, once waited on
+
+
+@dataclass
+class _DispatchFailure:
+    """A dispatch that raised before any wait: ``_finalize`` walks it down
+    the same recovery ladder as a failed wait."""
+
+    error: BaseException
+
+
+class _WaitWorker:
+    """One long-lived daemon thread running deadline-bounded device waits.
+
+    Reused across the batches of a stream. After a watchdog trip the worker
+    is wedged on the hung wait and must be abandoned (its late result must
+    never be read as a later batch's), so the engine drops it and makes a
+    fresh one on the next wait."""
+
+    def __init__(self):
+        self._req: "queue.Queue" = queue.Queue()
+        self._res: "queue.Queue" = queue.Queue()
+        self.thread = threading.Thread(target=self._loop, name="infer-device-wait",
+                                       daemon=True)
+        self.thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            fn = self._req.get()
+            if fn is None:
+                return
+            try:
+                self._res.put(("ok", fn()))
+            except BaseException as e:  # noqa: BLE001 — re-raised by run()
+                self._res.put(("err", e))
+
+    def run(self, fn: Callable, timeout: float):
+        """Run ``fn`` on the worker and return its result or re-raise its
+        exception; ``queue.Empty`` when nothing came back within ``timeout``."""
+        self._req.put(fn)
+        kind, val = self._res.get(timeout=timeout)
+        if kind == "err":
+            raise val
+        return val
+
+    def close(self) -> None:
+        """Let an idle worker exit (a wedged one stays parked: daemon)."""
+        self._req.put(None)
 
 
 @dataclass
@@ -293,12 +488,21 @@ class InferStats:
     h2d_stage_s: float = 0.0    # stager: pad + stack (host)
     device_batch_s: float = 0.0  # consumer blocked on device results
     stream_s: float = 0.0       # wall time inside stream(), captures included
+    compile_s: float = 0.0      # new keys: warm-up and capture (CPU: first use)
+    compiles: int = 0
     underruns: int = 0
+    retries: int = 0         # compile and dispatch retry attempts
+    degraded: int = 0        # batches served by halving or the per-image path
+    watchdog_trips: int = 0  # stalled stager or device wait past the deadline
+    circuits_open: int = 0   # buckets circuit-broken in the engine's life
     buckets: Dict[Tuple[int, int], int] = field(default_factory=dict)
-    # each batch's device time on CUDA (ms, by CUDA events from the input
-    # copy to the end of the output copy) and its valid items
+    # each full batch's device time on CUDA (ms, by CUDA events from the
+    # input copy to the end of the output copy) and its valid items
     batch_ms: List[float] = field(default_factory=list)
     batch_valid: List[int] = field(default_factory=list)
+    # (component, bucket label) → histogram: queue_wait, decode and e2e a
+    # request, h2d and device a batch (consumer thread only)
+    latency: Dict[Tuple[str, str], telemetry.LogHistogram] = field(default_factory=dict)
 
     def breakdown_ms(self) -> Dict[str, float]:
         """Per-batch means of the host-side waits."""
@@ -309,13 +513,46 @@ class InferStats:
             "device_batch_ms": round(self.device_batch_s / n * 1e3, 3),
         }
 
+    def observe_latency(self, component: str, bucket_label: str, seconds: float) -> None:
+        """Record into the local histogram and the installed registry
+        (``infer_<component>_seconds{bucket=...}``)."""
+        key = (component, bucket_label)
+        h = self.latency.get(key)
+        if h is None:
+            h = self.latency[key] = telemetry.LogHistogram()
+        h.record(seconds)
+        telemetry.observe(f"infer_{component}_seconds", seconds, bucket=bucket_label)
+
+    def latency_summary(self) -> Dict[str, Dict[str, Dict[str, float]]]:
+        """{bucket: {component: {count, p50_ms, p95_ms, p99_ms, max_ms}}}."""
+        out: Dict[str, Dict[str, Dict[str, float]]] = {}
+        for (component, label), h in sorted(self.latency.items()):
+            snap = h.snapshot()
+            if not snap["count"]:
+                continue
+            out.setdefault(label, {})[component] = {
+                "count": snap["count"],
+                "p50_ms": round(snap["p50"] * 1e3, 3),
+                "p95_ms": round(snap["p95"] * 1e3, 3),
+                "p99_ms": round(snap["p99"] * 1e3, 3),
+                "max_ms": round(snap["max"] * 1e3, 3),
+            }
+        return out
+
 
 @dataclass(frozen=True)
 class StreamSummary:
-    """Completed against failed requests of one serving run."""
+    """Completed against failed requests of one serving run, the batches
+    the degraded paths served, the watchdog's trips, and the per-bucket
+    latency percentiles (``InferStats.latency_summary``)."""
 
     completed: int
     failed: int
+    degraded: int
+    watchdog_trips: int = 0
+    latency: Optional[Dict[str, Any]] = None
+    # the installed sink's SLO posture at publish time, None without one
+    slo: Optional[Dict[str, Any]] = None
 
     @property
     def total(self) -> int:
@@ -333,11 +570,37 @@ _last_summary: Optional[StreamSummary] = None
 
 
 def publish_summary(stats: InferStats, label: str = "serving") -> StreamSummary:
-    """Derive, print and record the run's completed/failed summary."""
+    """Derive, print, record and emit the run's summary: the
+    completed/failed/degraded line, each bucket's end-to-end percentiles,
+    and, with a sink installed, ``stream_summary`` and a serving heartbeat
+    with ``metrics.prom``."""
     global _last_summary
-    s = StreamSummary(completed=stats.images, failed=stats.failed)
+    latency = stats.latency_summary() or None
+    tel = telemetry.get()
+    slo = tel.slo.snapshot() or None if tel is not None and tel.slo is not None else None
+    s = StreamSummary(completed=stats.images, failed=stats.failed, degraded=stats.degraded,
+                      watchdog_trips=stats.watchdog_trips, latency=latency, slo=slo)
     _last_summary = s
-    print(f"[{label}] requests: {s.completed}/{s.total} completed, {s.failed} failed")
+    line = (f"[{label}] requests: {s.completed}/{s.total} completed, {s.failed} failed, "
+            f"{s.degraded} degraded batch(es)")
+    if s.watchdog_trips:
+        line += f", {s.watchdog_trips} watchdog trip(s)"
+    print(line)
+    for bucket, comps in (latency or {}).items():
+        e2e = comps.get("e2e")
+        if e2e:
+            print(f"[{label}] latency {bucket}: e2e p50 {e2e['p50_ms']:g} / p95 "
+                  f"{e2e['p95_ms']:g} / p99 {e2e['p99_ms']:g} / max {e2e['max_ms']:g} ms "
+                  f"(n={e2e['count']})")
+    for tier, row in (slo or {}).items():
+        print(f"[{label}] slo [{tier}]: {row['hit_rate']:.1%} hit (target p95 "
+              f"{row['target_p95_ms']:g} ms), budget burn {row['budget_burn']:g}x over "
+              f"{row['total']} request(s)")
+    telemetry.emit("stream_summary", completed=s.completed, failed=s.failed,
+                   degraded=s.degraded, watchdog_trips=s.watchdog_trips)
+    if tel is not None:
+        tel.write_heartbeat(mode="serving", requests=s.completed, failed_requests=s.failed,
+                            degraded=s.degraded, watchdog_trips=s.watchdog_trips)
     return s
 
 
@@ -366,15 +629,6 @@ def enforce_failure_budget(max_failed_frac: float) -> None:
 # ----------------------------------------------------------------- engine
 
 
-@dataclass
-class _Dispatched:
-    staged: _StagedBatch
-    host: Optional[torch.Tensor] = None  # the batch's output on the host
-    done: Any = None  # torch.cuda.Event recorded after the output copy
-    start: Any = None  # torch.cuda.Event recorded before the input copy
-    error: Optional[BaseException] = None
-
-
 class InferenceEngine:
     """Batched, pipelined inference over pairs of any shape.
 
@@ -387,50 +641,298 @@ class InferenceEngine:
     ``forward_fn`` eagerly; the model's ``converge_eps`` exit, which reads a
     scalar back each step, must run so (``evaluate.make_engine`` passes
     ``capture=False`` for it). ``stream(requests)`` yields ``InferResult``s,
-    error results included (check ``result.ok``).
+    error results included (check ``result.ok``). ``deadline_s`` bounds
+    every wait the consumer can block on; ``retries`` is the compile and
+    dispatch retry budget, ``retry_backoff_s`` its first backoff.
     """
 
     def __init__(self, forward_fn: Callable[..., torch.Tensor], *, device,
                  batch: int = 4, prefetch_depth: int = 2, max_executables: int = 16,
                  deadline_s: Optional[float] = None, capture: bool = True,
-                 graph_key: Tuple = ()):
+                 graph_key: Tuple = (), retries: int = 2, retry_backoff_s: float = 0.05):
         if batch < 1:
             raise ValueError("InferenceEngine batch must be >= 1")
         if prefetch_depth < 1:
             raise ValueError("InferenceEngine prefetch_depth must be >= 1")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("InferenceEngine deadline_s must be > 0 or None")
+        if retries < 0:
+            raise ValueError("InferenceEngine retries must be >= 0")
         self.forward_fn = forward_fn
         self.device = torch.device(device)
         self.batch = int(batch)
         self.prefetch_depth = int(prefetch_depth)
         self.deadline_s = deadline_s
+        self.retries = int(retries)
+        self.retry_backoff_s = float(retry_backoff_s)
         self.capture = bool(capture) and self.device.type == "cuda"
         self.graph_key = tuple(graph_key)
         self.graphs = GraphCache(max_executables)
         self.stats = InferStats()
+        # degradation memory, by bucket: a broken bucket is served one pair
+        # at a time; a capped one at the micro-batch that last fit
+        self._broken: Dict[Tuple[int, int], str] = {}
+        self._bucket_cap: Dict[Tuple[int, int], int] = {}
+        self._compiled: set = set()  # eager keys past their first use
+        self._wait_worker: Optional[_WaitWorker] = None
+
+    def snapshot(self) -> Dict[str, Any]:
+        """An introspection view: the degradation memory and the counts."""
+        s = self.stats
+        return {
+            "batch": self.batch, "deadline_s": self.deadline_s, "retries": self.retries,
+            "capture": self.capture, "executables": len(self.graphs),
+            "cache_hits": self.graphs.hits, "cache_misses": self.graphs.misses,
+            "broken_buckets": {f"{b[0]}x{b[1]}": r for b, r in dict(self._broken).items()},
+            "bucket_caps": {f"{b[0]}x{b[1]}": c for b, c in dict(self._bucket_cap).items()},
+            "stats": {"images": s.images, "batches": s.batches,
+                      "padded_slots": s.padded_slots, "compiles": s.compiles,
+                      "failed": s.failed, "retries": s.retries, "degraded": s.degraded,
+                      "watchdog_trips": s.watchdog_trips, "circuits_open": s.circuits_open,
+                      "underruns": s.underruns},
+            "buckets": {f"{b[0]}x{b[1]}": n for b, n in dict(s.buckets).items()},
+        }
+
+    # ---------------------------------------------------------- compile
+
+    def _key(self, bucket, arrays) -> Tuple:
+        return (bucket, int(arrays[0].shape[0]),
+                *((tuple(a.shape), str(a.dtype)) for a in arrays), *self.graph_key)
+
+    def _is_compiled(self, key) -> bool:
+        return key in self.graphs if self.capture else key in self._compiled
+
+    def _compile(self, key, arrays, trace_ids=None) -> None:
+        """Compile a new key: on the card, its warm-up and capture into the
+        ``GraphCache``; eagerly, its first use. Raises what the compile
+        raises."""
+        t0 = time.perf_counter()
+        with telemetry.span("bucket_compile", trace_ids=_span_ids(trace_ids)):
+            if self.capture:
+                self.graphs.get(key, self.forward_fn,
+                                tuple(torch.from_numpy(a).pin_memory() for a in arrays))
+            else:
+                faultinject.infer_compile_point(key)
+                self._compiled.add(key)
+        dt = time.perf_counter() - t0
+        self.stats.compile_s += dt
+        self.stats.compiles += 1
+        telemetry.emit("bucket_compile", bucket=list(key[0]), batch=key[1],
+                       compile_ms=round(dt * 1e3, 1),
+                       cache_size=len(self.graphs) if self.capture else len(self._compiled),
+                       trace_ids=trace_ids)
+
+    def _executable(self, staged: _StagedBatch) -> Optional[Callable]:
+        """A launcher of the batch's key, ``run(arrays) -> _Launch``,
+        compiling the key first with retry and backoff. An OOM is raised at
+        once (the caller halves the batch); a compile that fails past the
+        retry budget opens the bucket's circuit and returns None."""
+        key = self._key(staged.bucket, staged.arrays)
+        if not self._is_compiled(key):
+            last: Optional[BaseException] = None
+            for attempt in range(self.retries + 1):
+                if attempt:
+                    self._note_retry("compile", attempt, staged.bucket, last, staged.trace_ids)
+                try:
+                    self._compile(key, staged.arrays, staged.trace_ids)
+                    break
+                except Exception as e:  # noqa: BLE001 — a compile failure retries
+                    if _is_oom(e):
+                        raise
+                    last = _released(e)
+                    logger.warning("bucket %s compile attempt %d failed: %s", staged.bucket,
+                                   attempt + 1, _errstr(e))
+            else:
+                self._open_circuit(staged.bucket, "compile", last, staged.trace_ids)
+                return None
+        return lambda arrays: self._launch(key, arrays, captured=self.capture)
+
+    def _note_retry(self, kind: str, attempt: int, bucket, error: Optional[BaseException],
+                    trace_ids: Optional[List[str]] = None) -> None:
+        """One retry's bookkeeping: count, emit, exponential backoff."""
+        self.stats.retries += 1
+        telemetry.emit("infer_retry", kind=kind, attempt=attempt, bucket=list(bucket),
+                       error=_errstr(error) if error else None, trace_ids=trace_ids)
+        time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
+
+    def _open_circuit(self, bucket, reason: str, error: Optional[BaseException],
+                      trace_ids: Optional[List[str]] = None) -> None:
+        if bucket in self._broken:
+            return
+        self._broken[bucket] = reason
+        self.stats.circuits_open += 1
+        logger.error("bucket %s circuit-broken (%s failed persistently: %s): its requests "
+                     "are served by the degraded per-image path", bucket, reason,
+                     _errstr(error) if error else "?")
+        telemetry.emit("bucket_circuit_open", bucket=list(bucket), reason=reason,
+                       error=_errstr(error) if error else None, trace_ids=trace_ids)
+
+    # -------------------------------------------------- launch and wait
+
+    def _launch(self, key, arrays: Tuple[np.ndarray, ...], captured: bool) -> _Launch:
+        """Launch the forward on host ``arrays`` (one batch, or some rows of
+        one): a replay of ``key``'s graph when ``captured``, else eagerly."""
+        if self.device.type != "cuda":
+            inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                           for a in arrays)
+            return _Launch(host=self.forward_fn(*inputs).detach())
+        pinned = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays)
+        launch = _Launch(start=torch.cuda.Event(enable_timing=True))
+        if captured:
+            entry = self.graphs.get(key, self.forward_fn, pinned)
+            launch.start.record()
+            out = self.graphs.replay(entry, pinned)
+        else:
+            launch.start.record()
+            out = self.forward_fn(*(x.to(self.device, non_blocking=True) for x in pinned))
+        # a static output is overwritten by the next replay: copy it out on
+        # the stream now
+        launch.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        launch.host.copy_(out, non_blocking=True)
+        launch.done = torch.cuda.Event(enable_timing=True)
+        launch.done.record()
+        return launch
+
+    def _wait_device(self, launch: _Launch, batch_size: int,
+                     trace_ids: Optional[List[str]] = None) -> np.ndarray:
+        """Block until a launch's output is on the host, under the deadline.
+
+        With ``deadline_s`` the wait runs on the engine's ``_WaitWorker``: a
+        wait past the deadline raises ``_WatchdogTimeout`` (the batch fails)
+        and the wedged worker is abandoned. The injected hang and OOM
+        (``faultinject.infer_wait_point``) fire on the same thread, where
+        real device errors surface."""
+
+        def wait():
+            with telemetry.span("device_wait", trace_ids=_span_ids(trace_ids)):
+                faultinject.infer_wait_point(batch_size)
+                if launch.done is not None:
+                    launch.done.synchronize()
+                    launch.ms = launch.start.elapsed_time(launch.done)
+                return launch.host.numpy()
+
+        if self.deadline_s is None:
+            return wait()
+        if self._wait_worker is None:
+            self._wait_worker = _WaitWorker()
+        try:
+            return self._wait_worker.run(wait, self.deadline_s)
+        except queue.Empty:
+            self._wait_worker = None  # wedged: never read its late result
+            raise _WatchdogTimeout(
+                f"device wait (micro-batch {batch_size}) exceeded the {self.deadline_s:g}s "
+                f"deadline (--infer_timeout); the wait thread is abandoned and the batch "
+                f"fails") from None
+
+    def _run_degraded(self, staged: _StagedBatch, start_b: int, reason: str,
+                      error: Optional[BaseException] = None) -> np.ndarray:
+        """Serve a staged batch in sub-batches of ``start_b`` rows, halving
+        on OOM until a sub-batch fits (1 is the floor). After an OOM
+        (``reason`` ``oom``, ``oom_capped``) each sub-batch replays the
+        graph of (bucket, b); an open circuit (``circuit``) runs one pair at
+        a time eagerly, on the same card and kernels. A size that fit after
+        an OOM becomes the bucket's cap. Returns the [rows, Hb, Wb, C'] host
+        result (at least the valid rows); raises if the floor fails."""
+        halving = reason != "circuit"
+        b = max(1, min(int(start_b), self.batch))
+        last = error
+        outs: List[np.ndarray] = []
+        s = 0  # rows done so far: a halving resumes here
+        while s < staged.valid:  # filler rows past ``valid`` are never run alone
+            # every sub-batch is exactly b rows (one graph a bucket and
+            # size): near the end, the window shifts back over rows done
+            start = max(0, min(s, self.batch - b))
+            rows = tuple(a[start:start + b] for a in staged.arrays)
+            ids = staged.trace_ids[start:start + b] or staged.trace_ids
+            try:
+                key = self._key(staged.bucket, rows)
+                if halving and not self._is_compiled(key):
+                    self._compile(key, rows, ids)
+                host = self._wait_device(self._launch(key, rows, self.capture and halving), b,
+                                         ids)
+            except _WatchdogTimeout:
+                raise
+            except Exception as e:  # noqa: BLE001 — halve on OOM only
+                if _is_oom(e) and b > 1:
+                    last = _released(e)
+                    b //= 2
+                    logger.warning("bucket %s: OOM; halving the micro-batch to %d",
+                                   staged.bucket, b)
+                    continue
+                raise
+            outs.append(host[s - start:])
+            s = start + b
+        if b < self.batch and reason.startswith("oom"):
+            self._bucket_cap[staged.bucket] = b
+        self.stats.degraded += 1
+        telemetry.emit("infer_degraded", bucket=list(staged.bucket), micro_batch=b,
+                       reason=reason, error=_errstr(last) if last else None,
+                       pixels=staged.bucket[0] * staged.bucket[1], bucket_hw=staged.label,
+                       trace_ids=staged.trace_ids)
+        return np.concatenate(outs, axis=0)
+
+    def _wait_retrying(self, staged: _StagedBatch, run, launch):
+        """Wait for a dispatch through the recovery ladder: OOM → halving;
+        another error → re-dispatch with backoff; past the budget → circuit
+        and the per-image path; deadline → ``_WatchdogTimeout`` (the caller
+        fails the batch). Returns ``(host rows, the launch that served them
+        or None when a degraded path did)``."""
+        try:
+            if isinstance(launch, _DispatchFailure):
+                raise launch.error
+            return self._wait_device(launch, self.batch, staged.trace_ids), launch
+        except _WatchdogTimeout:
+            raise
+        except Exception as e:  # noqa: BLE001 — classified below
+            if _is_oom(e):
+                return self._run_degraded(staged, self.batch // 2, "oom", _released(e)), None
+            last = _released(e)
+        for attempt in range(1, self.retries + 1):
+            self._note_retry("dispatch", attempt, staged.bucket, last, staged.trace_ids)
+            try:
+                launch = run(staged.arrays)
+                return self._wait_device(launch, self.batch, staged.trace_ids), launch
+            except _WatchdogTimeout:
+                raise
+            except Exception as e:  # noqa: BLE001
+                if _is_oom(e):
+                    return self._run_degraded(staged, self.batch // 2, "oom",
+                                              _released(e)), None
+                last = _released(e)
+        self._open_circuit(staged.bucket, "dispatch", last, staged.trace_ids)
+        return self._run_degraded(staged, 1, "circuit"), None
 
     # ----------------------------------------------------------- stager
 
-    def _stage(self, items: List[Tuple[Any, Tuple[np.ndarray, ...]]], bucket) -> _StagedBatch:
+    def _stage(self, items: List[_Decoded], bucket) -> _StagedBatch:
         """Pack one bucket's items into a fixed micro-batch on the host."""
         valid = len(items)
         items = items + [items[-1]] * (self.batch - valid)  # filler, masked by ``valid``
+        trace_ids = [x.trace_id for x in items[:valid]]
         t0 = time.perf_counter()
-        padder = BatchPadder([x[1][0].shape[:2] for x in items])
-        arrays = tuple(padder.pad([x[1][k] for x in items]) for k in range(len(items[0][1])))
-        return _StagedBatch(bucket=bucket, payloads=[x[0] for x in items[:valid]],
+        with telemetry.span("h2d_stage", trace_ids=_span_ids(trace_ids)):
+            padder = BatchPadder([x.arrays[0].shape[:2] for x in items])
+            arrays = tuple(padder.pad([x.arrays[k] for x in items])
+                           for k in range(len(items[0].arrays)))
+        return _StagedBatch(bucket=bucket, payloads=[x.payload for x in items[:valid]],
                             padder=padder, arrays=arrays, valid=valid,
-                            stage_s=time.perf_counter() - t0)
+                            stage_s=time.perf_counter() - t0, trace_ids=trace_ids,
+                            t_starts=[x.t_start for x in items[:valid]],
+                            decode_s=[x.decode_s for x in items[:valid]])
 
-    def _stage_put(self, put, items, bucket) -> bool:
+    def _stage_put(self, put, items: List[_Decoded], bucket) -> bool:
         """Stage one micro-batch; a staging failure fails its requests only."""
         try:
             staged = self._stage(items, bucket)
         except Exception as e:  # noqa: BLE001 — isolated to the batch
             logger.warning("staging bucket %s failed (%s): failing its %d request(s)",
                            bucket, _errstr(e), len(items))
-            return all(put(_FailedRequest(payload, e)) for payload, _ in items)
+            for x in items:
+                telemetry.emit("request_failed", stage="stage", bucket=list(bucket),
+                               error=_errstr(e), trace_id=x.trace_id)
+                if not put(_FailedRequest(x.payload, e, x.trace_id)):
+                    return False
+            return True
         return put(staged)
 
     def _stager_run(self, requests: Iterable, q: "queue.Queue", stop: threading.Event) -> None:
@@ -444,27 +946,35 @@ class InferenceEngine:
             return False
 
         try:
-            acc: Dict[Tuple[int, int], list] = {}
+            acc: Dict[Tuple[int, int], List[_Decoded]] = {}
             it = iter(requests)
             while not stop.is_set():
-                try:
-                    req = next(it)
-                except StopIteration:
-                    break
+                with telemetry.span("decode"):
+                    try:
+                        req = next(it)
+                    except StopIteration:
+                        break
                 if isinstance(req, FlushRequest):
                     for b in [req.bucket] if req.bucket is not None else sorted(acc):
                         items = acc.pop(b, None)
                         if items and not self._stage_put(put, items, b):
                             return
                     continue
+                tid = getattr(req, "trace_id", None) or telemetry.new_trace_id()
+                t_start = time.perf_counter()
                 try:
-                    arrays = req.resolve()  # the lazy decode runs here
+                    with telemetry.span("request_decode", trace_id=tid):
+                        faultinject.infer_decode_point(getattr(req, "payload", None))
+                        arrays = req.resolve()  # the lazy decode runs here
                     bucket = bucket_shape(*arrays[0].shape[:2])
                 except Exception as e:  # noqa: BLE001 — isolated to the request
-                    if not put(_FailedRequest(req.payload, e)):
+                    telemetry.emit("request_failed", stage="decode", error=_errstr(e),
+                                   trace_id=tid)
+                    if not put(_FailedRequest(req.payload, e, tid)):
                         return
                     continue
-                acc.setdefault(bucket, []).append((req.payload, arrays))
+                acc.setdefault(bucket, []).append(
+                    _Decoded(req.payload, arrays, tid, t_start, time.perf_counter() - t_start))
                 if len(acc[bucket]) == self.batch:
                     if not self._stage_put(put, acc.pop(bucket), bucket):
                         return
@@ -482,7 +992,8 @@ class InferenceEngine:
     def stream(self, requests: Iterable) -> Iterator[InferResult]:
         """Run the engine over ``requests`` (``InferRequest``s and
         ``FlushRequest``s); yield unpadded results. One stream at a time per
-        engine; the graphs and stats persist across streams.
+        engine; the graphs, the circuit and cap state, and the stats persist
+        across streams.
 
         A failed request or batch yields error results and the stream goes
         on; the request iterable raising, or a stager that stages nothing
@@ -492,34 +1003,47 @@ class InferenceEngine:
         thread = threading.Thread(target=self._stager_run, args=(requests, q, stop),
                                   name="infer-stager", daemon=True)
         thread.start()
-        pending: Optional[_Dispatched] = None
+        pending = None
         stalled = False
         t_stream = time.perf_counter()
         try:
             while True:
                 t0 = time.perf_counter()
-                try:
-                    item = q.get() if self.deadline_s is None else q.get(timeout=self.deadline_s)
-                except queue.Empty:
-                    stalled = True
-                    raise InferStallError(
-                        f"stager staged nothing for {self.deadline_s:g}s (--infer_timeout); "
-                        f"stager thread alive={thread.is_alive()}, {self.stats.batches} "
-                        f"batch(es) done") from None
-                wait_s = time.perf_counter() - t0
+                with telemetry.span("decode_wait"):
+                    try:
+                        item = (q.get() if self.deadline_s is None
+                                else q.get(timeout=self.deadline_s))
+                    except queue.Empty:
+                        stalled = True
+                        self.stats.watchdog_trips += 1
+                        telemetry.emit("watchdog_trip", where="stager",
+                                       deadline_s=self.deadline_s,
+                                       stager_alive=thread.is_alive(),
+                                       batches_done=self.stats.batches)
+                        raise InferStallError(
+                            f"stager staged nothing for {self.deadline_s:g}s "
+                            f"(--infer_timeout); stager thread alive={thread.is_alive()}, "
+                            f"{self.stats.batches} batch(es) done") from None
+                t_got = time.perf_counter()
+                wait_s = t_got - t0
                 if isinstance(item, BaseException):
                     raise item
                 if item is _END:
                     break
                 if isinstance(item, _FailedRequest):
                     self.stats.failed += 1
+                    telemetry.inc_metric("infer_requests_total", status="failed")
+                    telemetry.observe_slo("serving", None, ok=False)
                     logger.warning("request %r failed before dispatch: %s", item.payload,
                                    _errstr(item.error))
-                    yield InferResult(payload=item.payload, error=item.error)
+                    yield InferResult(payload=item.payload, error=item.error,
+                                      trace_id=item.trace_id)
                     continue
                 self.stats.decode_wait_s += wait_s
                 if self.stats.batches > 0 and wait_s > STAGER_UNDERRUN_S:
                     self.stats.underruns += 1
+                    telemetry.emit("stager_underrun", wait_ms=round(wait_s * 1e3, 1))
+                item.wait_s, item.t_got = wait_s, t_got
                 dispatched = self._dispatch(item)
                 self._account(item)
                 if pending is not None:
@@ -537,66 +1061,107 @@ class InferenceEngine:
                     break
             # a stager already declared stalled is abandoned (daemon thread)
             thread.join(timeout=0.1 if stalled else 5.0)
+            if self._wait_worker is not None:
+                self._wait_worker.close()
+                self._wait_worker = None
+            close = getattr(requests, "close", None)
+            if not thread.is_alive() and close is not None:
+                close()
             self.stats.stream_s += time.perf_counter() - t_stream
 
-    def _dispatch(self, staged: _StagedBatch) -> _Dispatched:
-        """Launch one staged batch; a failure is kept for ``_finalize``."""
-        d = _Dispatched(staged)
+    def _dispatch(self, staged: _StagedBatch):
+        """Launch a staged batch: ``(staged, run, launch)`` on its graph or
+        eager key, or ``(staged, None, (micro_batch, reason[, error]))`` for
+        a batch that goes straight to a degraded path (a broken or capped
+        bucket: no repeated compiles, no repeated OOMs; or an OOM at its
+        warm-up or capture)."""
+        if staged.bucket in self._broken:
+            return staged, None, (1, "circuit")
+        cap = self._bucket_cap.get(staged.bucket)
+        if cap is not None:
+            return staged, None, (cap, "oom_capped")
         try:
-            if self.device.type != "cuda":
-                inputs = tuple(torch.from_numpy(a).to(self.device) for a in staged.arrays)
-                d.host = self.forward_fn(*inputs).detach()
-                return d
-            inputs = tuple(torch.from_numpy(a).pin_memory() for a in staged.arrays)
-            if self.capture:
-                key = (staged.bucket, self.batch,
-                       *((tuple(a.shape), str(a.dtype)) for a in staged.arrays), *self.graph_key)
-                entry = self.graphs.get(key, self.forward_fn, inputs)
-                d.start = torch.cuda.Event(enable_timing=True)
-                d.start.record()
-                out = self.graphs.replay(entry, inputs)
-            else:
-                d.start = torch.cuda.Event(enable_timing=True)
-                d.start.record()
-                out = self.forward_fn(*(x.to(self.device, non_blocking=True) for x in inputs))
-            # the static output is overwritten by the next replay: copy it
-            # out on the stream now
-            d.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            d.host.copy_(out, non_blocking=True)
-            d.done = torch.cuda.Event(enable_timing=True)
-            d.done.record()
-        except Exception as e:  # noqa: BLE001 — fails the batch, not the stream
-            d.error = e
-        return d
+            run = self._executable(staged)
+        except Exception as e:  # noqa: BLE001 — an OOM at warm-up or capture
+            return staged, None, (self.batch // 2, "oom", _released(e))
+        if run is None:  # the compile circuit just opened
+            return staged, None, (1, "circuit")
+        try:
+            launch = run(staged.arrays)
+        except Exception as e:  # noqa: BLE001 — walks the ladder at finalize
+            launch = _DispatchFailure(_released(e))
+        return staged, run, launch
 
     def _account(self, staged: _StagedBatch) -> None:
+        # ``images`` is counted at finalize: a batch that fails later must
+        # not count as completed
         self.stats.batches += 1
         self.stats.padded_slots += self.batch - staged.valid
         self.stats.h2d_stage_s += staged.stage_s
         self.stats.buckets[staged.bucket] = self.stats.buckets.get(staged.bucket, 0) + staged.valid
 
-    def _finalize(self, d: _Dispatched) -> Iterator[InferResult]:
-        staged = d.staged
+    def _finalize(self, dispatched) -> Iterator[InferResult]:
+        staged, run, out = dispatched
+        # device_batch: the time the consumer is blocked on device results,
+        # from the wait on (not from the dispatch)
         t0 = time.perf_counter()
-        if d.error is None and d.done is not None:
-            try:
-                d.done.synchronize()
-                self.stats.batch_ms.append(d.start.elapsed_time(d.done))
-                self.stats.batch_valid.append(staged.valid)
-            except Exception as e:  # noqa: BLE001 — fails the batch, not the stream
-                d.error = e
-        if d.error is not None:
-            logger.error("batch of %d request(s) in bucket %s failed: %s", staged.valid,
-                         staged.bucket, _errstr(d.error))
-            for payload in staged.payloads:
-                self.stats.failed += 1
-                yield InferResult(payload=payload, bucket=staged.bucket, error=d.error)
+        try:
+            with telemetry.span("device_batch", bucket=staged.label,
+                                trace_ids=_span_ids(staged.trace_ids)):
+                if run is None:
+                    host, launch = self._run_degraded(staged, *out), None
+                else:
+                    host, launch = self._wait_retrying(staged, run, out)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:  # noqa: BLE001 — the batch fails, not the stream
+            yield from self._fail_batch(staged, e)
             return
-        self.stats.device_batch_s += time.perf_counter() - t0
-        host = d.host.numpy()
-        for payload, window in zip(staged.payloads, staged.padder.unpad_all(host, staged.valid)):
+        t1 = time.perf_counter()
+        device_s = t1 - t0
+        self.stats.device_batch_s += device_s
+        if launch is not None and launch.ms is not None:
+            self.stats.batch_ms.append(launch.ms)
+            self.stats.batch_valid.append(staged.valid)
+        telemetry.emit("infer_batch_commit", bucket=list(staged.bucket), valid=staged.valid,
+                       padded=self.batch - staged.valid, wait_ms=round(staged.wait_s * 1e3, 1),
+                       h2d_ms=round(staged.stage_s * 1e3, 1),
+                       device_ms=round(device_s * 1e3, 1), trace_ids=staged.trace_ids)
+        self.stats.observe_latency("h2d", staged.label, staged.stage_s)
+        self.stats.observe_latency("device", staged.label, device_s)
+        for i, window in enumerate(staged.padder.unpad_all(host, staged.valid)):
             self.stats.images += 1
-            yield InferResult(payload=payload, output=np.array(window), bucket=staged.bucket)
+            # decode: the stager's resolve; queue_wait: decoded → taken by
+            # the consumer; e2e: decode start → result ready
+            self.stats.observe_latency("decode", staged.label, staged.decode_s[i])
+            self.stats.observe_latency(
+                "queue_wait", staged.label,
+                max(staged.t_got - staged.t_starts[i] - staged.decode_s[i], 0.0))
+            self.stats.observe_latency("e2e", staged.label, t1 - staged.t_starts[i])
+            telemetry.inc_metric("infer_requests_total", status="completed")
+            telemetry.observe_slo("serving", t1 - staged.t_starts[i])
+            yield InferResult(payload=staged.payloads[i], output=np.array(window),
+                              bucket=staged.bucket, trace_id=staged.trace_ids[i])
+
+    def _fail_batch(self, staged: _StagedBatch, e: BaseException) -> Iterator[InferResult]:
+        """Every recovery failed (or the watchdog tripped): the batch's
+        requests become error results and the stream goes on."""
+        if isinstance(e, _WatchdogTimeout):
+            self.stats.watchdog_trips += 1
+            telemetry.emit("watchdog_trip", where="device", bucket=list(staged.bucket),
+                           deadline_s=self.deadline_s, error=_errstr(e),
+                           trace_ids=staged.trace_ids)
+        logger.error("batch of %d request(s) in bucket %s failed: %s", staged.valid,
+                     staged.bucket, _errstr(e))
+        err = _released(e if isinstance(e, Exception) else RuntimeError(_errstr(e)))
+        for i, payload in enumerate(staged.payloads):
+            self.stats.failed += 1
+            telemetry.emit("request_failed", stage="device", bucket=list(staged.bucket),
+                           error=_errstr(e), trace_id=staged.trace_ids[i])
+            telemetry.inc_metric("infer_requests_total", status="failed")
+            telemetry.observe_slo("serving", None, ok=False)
+            yield InferResult(payload=payload, bucket=staged.bucket, error=err,
+                              trace_id=staged.trace_ids[i])
 
 
 # ----------------------------------------------------------------- CLI glue
@@ -610,6 +1175,7 @@ class InferOptions:
     prefetch: int = 2
     max_executables: int = 16
     deadline_s: Optional[float] = 300.0
+    retries: int = 2
 
 
 def add_infer_args(parser, default_batch: int = 4) -> None:
@@ -628,13 +1194,26 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
         help="staged-batch queue depth of the engine's decode/pad stager thread")
     parser.add_argument(
         "--infer_timeout", type=float, default=300.0, metavar="SECONDS",
-        help="stager watchdog: a stager that stages nothing for this long fails the "
-        "stream instead of hanging it; <= 0 disables it")
+        help="deadline of every wait the engine blocks on: a stager that stages nothing "
+        "for this long fails the stream, a device wait that passes it fails its batch "
+        "(watchdog); <= 0 disables both")
+    parser.add_argument(
+        "--infer_retries", type=int, default=2,
+        help="compile (warm-up and capture) and dispatch retry budget per micro-batch, "
+        "with exponential backoff; past it the shape bucket is circuit-broken and served "
+        "one pair at a time by the degraded path")
     parser.add_argument(
         "--max_failed_frac", type=float, default=0.0, metavar="FRAC",
         help="tolerated fraction of failed requests before the run exits non-zero "
         "(default 0: any failure fails the run); failed requests are always excluded "
         "from metrics and counted in the summary line")
+    parser.add_argument(
+        "--telemetry_dir", default=None, metavar="DIR",
+        help="write runtime telemetry under DIR: events.jsonl (bucket_compile, "
+        "infer_batch_commit, stager_underrun, request_failed, infer_retry, "
+        "bucket_circuit_open, infer_degraded, watchdog_trip, each with the requests' "
+        "trace ids), trace_host.json spans, a serving heartbeat.json and metrics.prom "
+        "with per-bucket latency percentiles")
 
 
 def options_from_args(args) -> Optional[InferOptions]:
@@ -643,4 +1222,17 @@ def options_from_args(args) -> Optional[InferOptions]:
         return None
     timeout = args.infer_timeout
     return InferOptions(batch=args.infer_batch, prefetch=args.infer_prefetch,
-                        deadline_s=None if timeout is None or timeout <= 0 else timeout)
+                        deadline_s=None if timeout is None or timeout <= 0 else timeout,
+                        retries=args.infer_retries)
+
+
+def install_cli_telemetry(args) -> Optional[telemetry.Telemetry]:
+    """Install a telemetry sink for a serving CLI run (``--telemetry_dir``),
+    with SLO accounting armed when the args carry ``slo_p95_ms``."""
+    if getattr(args, "telemetry_dir", None):
+        tel = telemetry.install(telemetry.Telemetry(args.telemetry_dir))
+        slo_ms = getattr(args, "slo_p95_ms", None)
+        if slo_ms:
+            tel.configure_slo(slo_ms, getattr(args, "slo_budget", 0.01))
+        return tel
+    return None

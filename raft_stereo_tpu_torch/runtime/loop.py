@@ -17,6 +17,16 @@
     + validation, the final checkpoint (deduped from a periodic commit of
     the same step), the heartbeat, and the per-step wall-time breakdown
     (``data_wait``, ``h2d_stage``, ``device_step``, ``ckpt_stall``).
+
+With a telemetry sink installed (``runtime.telemetry``; ``train.py
+--telemetry``) the loop emits ``run_start``, ``run_end``,
+``geometry_change``, ``checkpoint_enqueue``, ``stager_underrun`` and
+``preempt``, times ``data_wait``, ``h2d_stage``, ``device_step``,
+``ckpt_snapshot``, ``ckpt_stall`` and ``heartbeat`` as host spans, records
+each step's seconds and data wait into ``train_step_seconds`` and
+``train_data_wait_seconds``, writes the sink's heartbeat (with the card's
+memory) every ``heartbeat_every_s``, and runs ``torch.profiler`` over
+``--profile_steps A:B``.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from raft_stereo_tpu_torch.runtime import faultinject
+from raft_stereo_tpu_torch.runtime import faultinject, telemetry
 from raft_stereo_tpu_torch.runtime.checkpoint import (
     CheckpointInfo,
     clone_checkpoint,
@@ -54,6 +64,10 @@ logger = logging.getLogger(__name__)
 _END = object()  # stager sentinel: the batch stream is exhausted
 
 HEARTBEAT_NAME = "heartbeat.json"
+
+# A step that waited on the stager longer than this is an underrun: the
+# loader and staging failed to keep a batch ready.
+STAGER_UNDERRUN_S = 0.05
 
 
 def _state_step(state) -> int:
@@ -159,7 +173,8 @@ class DeviceStager:
                 if self._inject_nan:
                     batch = _poison_batch(step, batch)
                 t0 = time.perf_counter()
-                staged = self._stage_fn(batch)
+                with telemetry.span("h2d_stage"):
+                    staged = self._stage_fn(batch)
                 if not self._put((staged, time.perf_counter() - t0)):
                     return
             self._put(_END)
@@ -215,7 +230,8 @@ class _SyncStager:
             batch = _poison_batch(self._step, batch)
         wait_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        staged = self._stage_fn(batch)
+        with telemetry.span("h2d_stage"):
+            staged = self._stage_fn(batch)
         return staged, time.perf_counter() - t1, wait_s
 
     def close(self) -> None:
@@ -243,8 +259,13 @@ class AsyncCheckpointer:
     def commit_async(self, path: str, state, *, step: int, tag: str = "periodic",
                      extra: Optional[dict] = None, rotate_dir: Optional[str] = None,
                      keep: int = 3) -> CheckpointInfo:
+        # 1: this request had to wait for a commit still running (the
+        # commit cadence outruns serialisation)
+        depth = int(self._inflight is not None and not self._inflight.done())
         self.join()  # at most one commit in flight
-        host_state = to_host(state_tree(state), copy=True)
+        with telemetry.span("ckpt_snapshot"):
+            host_state = to_host(state_tree(state), copy=True)
+        telemetry.emit("checkpoint_enqueue", step=step, tag=tag, async_queue_depth=depth)
 
         def _commit():
             info = commit_checkpoint(path, host_state, step=step, tag=tag, extra=extra)
@@ -349,6 +370,15 @@ def add_loop_args(parser: argparse.ArgumentParser) -> None:
         "--async_ckpt", action=argparse.BooleanOptionalAction, default=True,
         help="commit periodic checkpoints on a background thread from a host snapshot; "
         "emergency and final checkpoints are always synchronous")
+    parser.add_argument(
+        "--telemetry", action=argparse.BooleanOptionalAction, default=True,
+        help="write runtime telemetry under runs/NAME: events.jsonl (typed runtime events), "
+        "trace_host.json (host spans in Chrome-trace format, open in Perfetto), "
+        "heartbeat.json (run health, replaced atomically) and metrics.prom")
+    parser.add_argument(
+        "--profile_steps", default=None, metavar="A:B", type=telemetry.parse_profile_steps,
+        help="run torch.profiler over exactly steps A..B (1-indexed, inclusive) of this run; "
+        "the Chrome trace goes to runs/NAME/profile")
 
 
 def resume_state(resume: str, ckpt_dir: Path, target):
@@ -407,6 +437,8 @@ def run_training_loop(
     validate_fn: Optional[Callable[[int, Any], None]] = None,
     run_dir: Optional[str] = None,
     heartbeat_every_s: float = 30.0,
+    profile_steps: Optional[tuple] = None,
+    profile_dir: Optional[str] = None,
 ) -> LoopResult:
     """Run the loop to ``num_steps`` (or a preemption).
 
@@ -414,8 +446,11 @@ def run_training_loop(
     ``state['step']``); ``step_fn(state, staged_batch) -> (state,
     metrics)``. Batches come from ``loader.stream(stream_pos)`` or, for
     harnesses, an explicit ``batches`` iterable. Each step's time is taken
-    after the card has finished it. The caller owns the model and
-    optimizer, the resume restore (``resume_state``) and ``mlog.close()``."""
+    after the card has finished it. The heartbeat goes to the installed
+    telemetry sink or, without one, to ``run_dir``; ``profile_steps``
+    (A, B) profiles those steps into ``profile_dir``. The caller owns the
+    model and optimizer, the resume restore (``resume_state``) and
+    ``mlog.close()``."""
     ckpt_dir = Path(ckpt_dir)
     total_steps = start_steps = _state_step(state)
     if (resumed and resume_manifest is not None and stream_geometry is not None
@@ -423,6 +458,8 @@ def run_training_loop(
         logger.warning("resume: loader geometry changed %s -> %s; the data stream continues "
                        "only approximately from the interrupted position",
                        resume_manifest["stream_geometry"], stream_geometry)
+        telemetry.emit("geometry_change", step=total_steps,
+                       manifest=resume_manifest["stream_geometry"], run=stream_geometry)
 
     def ckpt_extra() -> dict:
         extra = {"stream_pos": stream_pos}
@@ -448,6 +485,10 @@ def run_training_loop(
         return commit_checkpoint(str(ckpt_dir / f"{total_steps}_{name}"), state,
                                  step=total_steps, tag=tag, extra=ckpt_extra())
 
+    tel = telemetry.get()
+    recompile_detector = telemetry.RecompileDetector(step_fn)
+    pw = (telemetry.ProfileWindow(profile_steps[0], profile_steps[1], profile_dir)
+          if profile_steps is not None and profile_dir is not None else None)
     t_loop0 = time.monotonic()
     last_hb = [0.0]
 
@@ -455,12 +496,13 @@ def run_training_loop(
         """Run-health snapshot, at most every ``heartbeat_every_s`` (forced
         at the first step, a preemption and the end)."""
         now = time.monotonic()
-        if run_dir is None or (not force and now - last_hb[0] < heartbeat_every_s):
+        if (tel is None and run_dir is None) or (not force
+                                                 and now - last_hb[0] < heartbeat_every_s):
             return
         last_hb[0] = now
         dt = now - t_loop0
         rate = (total_steps - start_steps) / dt if dt > 0 else 0.0
-        _write_heartbeat(run_dir, {
+        fields = {
             "name": name, "step": total_steps, "num_steps": num_steps,
             "steps_per_s": round(rate, 4),
             "eta_s": (round((num_steps - total_steps) / rate, 1)
@@ -472,27 +514,50 @@ def run_training_loop(
             "consecutive_skipped": guard.consecutive if guard is not None else 0,
             "quarantined": len(getattr(loader, "quarantined", ())) if loader is not None else 0,
             "preempted": preempted,
-        })
+        }
+        if tel is None:
+            _write_heartbeat(run_dir, fields)
+            return
+        with telemetry.span("heartbeat"):
+            tel.write_heartbeat(**fields)
+            tel.flush_trace()
 
+    telemetry.emit("run_start", step=total_steps, name=name, num_steps=num_steps,
+                   resumed=resumed, prefetch_depth=prefetch_depth,
+                   async_ckpt=committer is not None, host_id=0, num_hosts=1,
+                   stream_pos=stream_pos)
+    outcome = "aborted"  # set by the success and preemption exits
     pending_stall = 0.0  # last commit's loop-thread stall, logged with the next step
     try:
         with GracefulShutdown() as stopper:
             while should_keep_training:
-                item = stager.get()
+                with telemetry.span("data_wait"):
+                    item = stager.get()
                 if item is None:  # a finite harness stream is exhausted
                     break
                 staged, stage_s, wait_s = item
+                if pw is not None:
+                    pw.on_step_start(total_steps + 1)
                 t0 = time.perf_counter()
-                state, metrics = step_fn(state, staged)
-                if torch.cuda.is_initialized():
-                    # the guard already waits for the card once a step (its
-                    # finiteness flag); waiting again here costs the
-                    # update's tail and makes each step's time its own
-                    torch.cuda.synchronize()
+                with telemetry.span("device_step"):
+                    state, metrics = step_fn(state, staged)
+                    if torch.cuda.is_initialized():
+                        # the guard already waits for the card once a step
+                        # (its finiteness flag); waiting again here costs
+                        # the update's tail and makes each step's time its own
+                        torch.cuda.synchronize()
                 step_s = time.perf_counter() - t0
                 total_steps += 1
                 stream_pos += 1
+                if pw is not None:
+                    pw.on_step_end(total_steps)
+                recompile_detector.check(total_steps)
                 timings.add(wait_s, stage_s, step_s)
+                telemetry.observe("train_step_seconds", step_s)
+                telemetry.observe("train_data_wait_seconds", wait_s)
+                if timings.steps > 1 and wait_s > STAGER_UNDERRUN_S:
+                    telemetry.emit("stager_underrun", step=total_steps,
+                                   wait_ms=round(wait_s * 1e3, 1))
                 write_heartbeat(force=timings.steps == 1)
                 if mlog is not None:
                     mlog.push(total_steps, metrics,
@@ -521,17 +586,21 @@ def run_training_loop(
                                    "— restart with --resume auto to continue", total_steps,
                                    last_committed.path)
                     preempted = True
+                    telemetry.emit("preempt", step=total_steps,
+                                   emergency_ckpt=last_committed.path, stream_pos=stream_pos)
                     break
 
                 if total_steps % validation_frequency == 0:
                     t_ck = time.perf_counter()
-                    if committer is not None:
-                        last_committed = committer.commit_async(
-                            str(ckpt_dir / f"{total_steps}_{name}"), state, step=total_steps,
-                            extra=ckpt_extra(), rotate_dir=str(ckpt_dir), keep=keep_ckpts)
-                    else:
-                        last_committed = sync_commit("periodic")
-                        rotate_checkpoints(str(ckpt_dir), keep=keep_ckpts)
+                    with telemetry.span("ckpt_stall"):
+                        if committer is not None:
+                            last_committed = committer.commit_async(
+                                str(ckpt_dir / f"{total_steps}_{name}"), state,
+                                step=total_steps, extra=ckpt_extra(),
+                                rotate_dir=str(ckpt_dir), keep=keep_ckpts)
+                        else:
+                            last_committed = sync_commit("periodic")
+                            rotate_checkpoints(str(ckpt_dir), keep=keep_ckpts)
                     stall_s = time.perf_counter() - t_ck
                     timings.stall(stall_s)
                     pending_stall += stall_s
@@ -546,6 +615,7 @@ def run_training_loop(
         if committer is not None:
             committer.join()  # the final/dedupe logic below needs it durable
         if preempted:
+            outcome = "preempted"
             return LoopResult(final_path=None, last_committed=last_committed, preempted=True,
                               total_steps=total_steps, stream_pos=stream_pos, state=state,
                               timings=timings)
@@ -564,10 +634,13 @@ def run_training_loop(
         else:
             commit_checkpoint(str(final), state, step=total_steps, tag="final",
                               extra=ckpt_extra())
+        outcome = "completed"
         return LoopResult(final_path=final, last_committed=last_committed, preempted=False,
                           total_steps=total_steps, stream_pos=stream_pos, state=state,
                           timings=timings)
     finally:
+        if pw is not None:
+            pw.close()  # a preemption inside the window still writes the trace
         if stager is not None:
             stager.close()
         if committer is not None:
@@ -575,6 +648,12 @@ def run_training_loop(
                 committer.close()
             except Exception:
                 logger.exception("async checkpoint committer failed at close")
+        # ``outcome`` stays "aborted" while an exception (a guard abort, a
+        # committer failure, an injected crash) leaves the loop
+        telemetry.emit("run_end", step=total_steps, outcome=outcome,
+                       total_steps=total_steps - start_steps,
+                       wall_s=round(time.monotonic() - t_loop0, 3),
+                       ckpt_commits=timings.ckpt_commits)
         try:
             write_heartbeat(force=True)
         except Exception:  # noqa: BLE001 — never mask the real exit
@@ -585,6 +664,7 @@ __all__ = [
     "AsyncCheckpointer",
     "DeviceStager",
     "LoopResult",
+    "STAGER_UNDERRUN_S",
     "StagedBatch",
     "StepTimeBreakdown",
     "add_loop_args",

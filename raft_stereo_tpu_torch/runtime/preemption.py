@@ -16,6 +16,8 @@ import threading
 from types import FrameType
 from typing import Optional, Tuple
 
+from raft_stereo_tpu_torch.runtime import telemetry
+
 logger = logging.getLogger(__name__)
 
 
@@ -63,6 +65,12 @@ class GracefulShutdown:
         self._stop.set()
         logger.warning("received %s: will stop at the next step boundary and save an "
                        "emergency checkpoint", self._last_signal)
+        try:
+            # the sink is reentrant, but a signal handler must never crash
+            # the run it is stopping
+            telemetry.emit("preempt_signal", signal=self._last_signal)
+        except Exception:  # noqa: BLE001
+            pass
 
     @property
     def should_stop(self) -> bool:

@@ -5,9 +5,13 @@
         --mixed_precision --spatial_scale -0.2 0.4 --saturation_range 0 1.4
 
 The flag surface is the JAX package's (reference train_stereo.py:214-249)
-without its multi-host and telemetry flags. Checkpoints carry the model,
-the optimizer's moments, the schedule, the step and the data-stream
-position, so ``--resume auto`` continues exactly where a run stopped; the
+without its multi-host flags. With ``--telemetry`` (the default) the run
+writes ``runs/NAME/{events.jsonl,trace_host.json,heartbeat.json,
+metrics.prom}`` (``runtime/telemetry.py``); ``--profile_steps A:B`` adds a
+``torch.profiler`` trace of those steps under ``runs/NAME/profile``.
+Checkpoints carry the model, the optimizer's moments, the schedule, the
+step and the data-stream position, so ``--resume auto`` continues exactly
+where a run stopped; the
 loop (``runtime/loop.py``) stages batches ahead of the step and commits
 periodic checkpoints on a background thread.
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
 from typing import Optional
 
@@ -41,6 +46,7 @@ from raft_stereo_tpu_torch.parallel.train_step import (
     make_train_step,
     onecycle_linear,
 )
+from raft_stereo_tpu_torch.runtime import telemetry
 from raft_stereo_tpu_torch.runtime.guard import NonFiniteGuard
 from raft_stereo_tpu_torch.runtime.loop import (
     LoopResult,
@@ -88,6 +94,17 @@ def train(args, device=None) -> LoopResult:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     run_dir = f"runs/{args.name}"
 
+    # The sink is installed before the resume, so restore decisions reach
+    # events.jsonl too, and uninstalled after the metric logger closes (its
+    # last flush folds in the event counters).
+    tel = telemetry.install(telemetry.Telemetry(run_dir)) if args.telemetry else None
+    try:
+        return _train_under_telemetry(args, dev, tcfg, state, ckpt_dir, run_dir)
+    finally:
+        telemetry.uninstall(tel)
+
+
+def _train_under_telemetry(args, dev, tcfg, state, ckpt_dir, run_dir) -> LoopResult:
     # A resume wins over a warm start: the resumed checkpoint already holds
     # the warm-started and trained state.
     resumed = False
@@ -100,6 +117,8 @@ def train(args, device=None) -> LoopResult:
             stream_pos = int((rm or {}).get("stream_pos", state.step))
             logger.info("Resumed from %s at step %d (stream position %d)", resume_path,
                         state.step, stream_pos)
+            telemetry.emit("resume", step=int(state.step), path=resume_path,
+                           stream_pos=stream_pos)
     if not resumed and args.restore_ckpt:
         state = restore_train_state(args.restore_ckpt, state)
         logger.info("Restored checkpoint %s at step %d", args.restore_ckpt, state.step)
@@ -142,6 +161,8 @@ def train(args, device=None) -> LoopResult:
             async_ckpt=args.async_ckpt,
             validate_fn=validate_fn if args.validate else None,
             run_dir=run_dir,
+            profile_steps=args.profile_steps,
+            profile_dir=os.path.join(run_dir, "profile"),
         )
     finally:
         mlog.close()

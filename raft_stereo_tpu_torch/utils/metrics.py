@@ -1,7 +1,9 @@
 """Training metric logging: running means flushed every SUM_FREQ steps into
 ``<run_dir>/metrics.jsonl`` (the port's own copy of
 ``raft_stereo_tpu/utils/metrics.py:25-177``, without the TensorBoard
-writer).
+writer). Each flushed row carries the installed telemetry sink's event
+counters as ``event/<name>`` (monotonic totals), so skips, quarantines, IO
+retries and checkpoint commits line up against the loss curve.
 
 A flushed non-finite running mean raises ``NonFiniteMetricError`` after its
 row is written: the reference's fail-fast on a NaN loss, at no per-step
@@ -16,6 +18,8 @@ import math
 import os
 import time
 from typing import Callable, Dict, Optional
+
+from raft_stereo_tpu_torch.runtime import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -72,7 +76,10 @@ class MetricLogger:
         lr = float(self.schedule(step)) if self.schedule else None
         status = ", ".join(f"{k} {v:10.4f}" for k, v in sorted(means.items()))
         logger.info("Training Metrics (%d): lr=%s %s", step, lr, status)
-        self._write(step, dict(means, **({"lr": lr} if lr is not None else {})))
+        tel = telemetry.get()
+        counters = ({f"event/{k}": float(v) for k, v in tel.counters_snapshot().items()}
+                    if tel is not None else {})
+        self._write(step, dict(means, **({"lr": lr} if lr is not None else {}), **counters))
         self.running = {}
         self.count = 0
 

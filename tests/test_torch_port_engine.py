@@ -337,7 +337,8 @@ def test_graph_cache_lru_counts_and_launches(monkeypatch):
 
 # ------------------------------------------------------------- CLI options
 
-FLAGS = ("infer_batch", "per_image", "infer_prefetch", "infer_timeout", "max_failed_frac")
+FLAGS = ("infer_batch", "per_image", "infer_prefetch", "infer_timeout", "infer_retries",
+         "max_failed_frac", "telemetry_dir")
 
 
 def test_infer_flags_keep_the_jax_defaults():
@@ -347,7 +348,7 @@ def test_infer_flags_keep_the_jax_defaults():
     args, jargs = p.parse_args([]), jp.parse_args([])
     assert {f: getattr(args, f) for f in FLAGS} == {f: getattr(jargs, f) for f in FLAGS}
     opts, jopts = infer.options_from_args(args), jax_infer.options_from_args(jargs)
-    for f in ("batch", "prefetch", "max_executables", "deadline_s"):
+    for f in ("batch", "prefetch", "max_executables", "deadline_s", "retries"):
         assert getattr(opts, f) == getattr(jopts, f)
     assert infer.options_from_args(p.parse_args(["--per_image"])) is None
     assert infer.options_from_args(p.parse_args(["--infer_timeout", "0"])).deadline_s is None

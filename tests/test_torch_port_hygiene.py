@@ -76,7 +76,7 @@ def test_importing_the_port_loads_no_jax():
     assert "raft_stereo_tpu_torch.runtime.infer" in loaded
     assert "raft_stereo_tpu_torch.data.datasets" in loaded
     for m in ("train", "losses", "runtime.loop", "runtime.checkpoint", "parallel.train_step",
-              "data.augmentor", "native"):
+              "data.augmentor", "native", "runtime.telemetry", "runtime.faultinject"):
         assert f"raft_stereo_tpu_torch.{m}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

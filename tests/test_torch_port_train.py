@@ -394,32 +394,6 @@ def test_packed_conv_vjp_matches_the_jax_custom_vjp(monkeypatch, prologue):
     assert _rel_err(conv_w.grad.numpy().transpose(2, 3, 1, 0), want[1]) <= VJP_RTOL
 
 
-def test_fused_step_refuses_inputs_that_require_grad():
-    block_inputs = _fused_inputs()
-    packed, f1, pyr, flow, h, inp, ctx = block_inputs
-    with torch.no_grad():  # test mode: fine
-        fused_update.fused_refine_step(packed, f1, pyr, flow, h, inp, ctx, 2)
-    fused_update.fused_refine_step(packed, f1, pyr, flow, h, inp, ctx, 2)  # nothing needs grad
-    h.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward yet"):
-        fused_update.fused_refine_step(packed, f1, pyr, flow, h, inp, ctx, 2)
-
-
-def _fused_inputs():
-    from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
-
-    g = torch.Generator().manual_seed(0)
-    block = BasicMultiUpdateBlock((32, 32, 32), 1, 2, 2, 2)
-    packed = fused_update.pack_fused_params(block)
-    assert not any(v.requires_grad for v in packed.values())
-    f1 = torch.randn(1, 4, 8, 16, generator=g)
-    pyr = pool_fmap_pyramid(torch.randn(1, 4, 8, 16, generator=g), 2)
-    flow = torch.zeros(1, 4, 8)
-    h = torch.randn(1, 4, 8, 32, generator=g)
-    ctx = torch.randn(1, 4, 8, 96, generator=g)
-    return packed, f1, pyr, flow, h, None, ctx
-
-
 # --------------------------------------------------------------- optimizer
 
 
