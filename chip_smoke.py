@@ -23,7 +23,12 @@ Phases, each printing one JSON line:
      (``fused_update.motion_in``: the lookup, convc1 and convf1) against
      its plain version, bf16 and fp32, at the slice shape, ragged rows, the
      engine's batch-4 shapes and the Middlebury-F width, each with its time,
-     bound and geometry (``k2_stage1_check``); K3 (the packed stage's 3x3x64 conv,
+     bound and geometry (``k2_stage1_check``); K2's stage 7 alone
+     (``fused_update.head_out``: the flow head's conv2, x channel) against
+     its plain version, bf16 and fp32, at the same shapes and a tile larger
+     than the image, two calls bitwise equal, each case beside cuDNN's
+     bare 256 -> 1 conv (``k2_stage7_check``; K2's stage-7 faults must fail
+     it too); K3 (the packed stage's 3x3x64 conv,
      fp32 and bf16, with and without its prologue, beside cuDNN's conv at
      the same shape), whose planted faults must fail the bf16 check too;
   4. main path: ``raft_stereo_tpu_torch.demo.main --per_image`` with the
@@ -164,16 +169,36 @@ K2_MUTANTS = (
      "for (int e = 0; e < 8; ++e) zz[e] = round_to<bf16>(sigmoid_fast(o[e] + g[e]));"),
     # the bf16 3x3 convs read zeros for the image's top row (a local fault)
     ("top_row_dropped", "const bool inside = yy >= 0 &&", "const bool inside = yy >= 1 &&"),
+    # stage 7 reads the tile's right halo column as zero
+    ("right_halo_column_zero",
+     "y < H && x >= 0 && x < W;", "y < H && x >= 0 && x < W && hx + 1 < kHaloCols;"),
+    # stage 7 never loads a pixel's last channel vector (i = kVecs - 1)
+    ("last_vector_unloaded",
+     "for (int i = 0; i < kVecs; ++i) v[i].load(",
+     "for (int i = 0; i + 1 < kVecs; ++i) v[i].load("),
+    # stage 7 reads the halo rows below an image's last row from the next
+    # image of the batch instead of zero
+    ("next_image_halo_rows",
+     "y >= 0 && y < H && x >= 0", "y >= 0 && (y < H || b + 1 < B) && x >= 0"),
+    # stage 7's shift-add takes tap (kx, ky) for (ky, kx)
+    ("shift_add_taps_transposed", "t[3 * ky + kx][", "t[3 * kx + ky]["),
 )
 # The faults of K2_MUTANTS planted in stage 1, which the stage-1 check must
 # catch as well.
 K2_STAGE1_FAULTS = ("flow_cast_skipped", "last_chunk_unstaged", "level_row_short")
 # The bf16 cases that the faults run on: the main path's, where the bf16
-# check must catch each fault, and the ragged rows, where it must catch a
-# fault that only touches the pixels whose windows reach a level row's end
-# (of which the main path's shape, with disparities of up to 0.6 W, has few).
+# check must catch each fault, and the ragged rows of two images, where it
+# must catch the faults of K2_RAGGED_FAULTS: one that only touches the
+# pixels whose windows reach a level row's end (of which the main path's
+# shape, with disparities of up to 0.6 W, has few) and one that only
+# touches the last row of an image that another image follows (none in the
+# main path's batch of 1).
 K2_FAULT_CASES = ("slice_544x960_bf16", "ragged_b2_h37_w123_bf16")
-K2_ROW_END_FAULTS = ("level_row_short",)
+K2_RAGGED_FAULTS = ("level_row_short", "next_image_halo_rows")
+# The faults of K2_MUTANTS planted in stage 7, which the stage-7 check must
+# catch as well.
+K2_STAGE7_FAULTS = ("right_halo_column_zero", "last_vector_unloaded", "next_image_halo_rows",
+                    "shift_add_taps_transposed")
 # K2's first launch (stage 1: the lookup, convc1 and convf1) against
 # reference_motion_in. fp32 (TF32 off): summation order only, held to
 # K2_STAGE1_FP32_TOL times the output's scale (max(1, |plain| max)). bf16:
@@ -195,6 +220,16 @@ K2_ROW_END_FAULTS = ("level_row_short",)
 # 6 shapes x 3 seeds in bf16) at most 2.2e-4 (10 of 46,080 elements).
 K2_STAGE1_FP32_TOL = 1e-4
 K2_STAGE1_BF16_TOL = {"ulps": 1.0, "sum_eps": 32.0, "share": 6.5e-4}
+# K2's last launch (stage 7: the flow head's conv2, x channel) against
+# reference_head_out. delta is fp32 in both versions; in bf16 the products
+# of bf16 values are exact in fp32, so the two differ in summation order
+# only, and in fp32 (TF32 off) also in the products' roundings. Either is a
+# multiple of eps32 = 2^-24 times S, the sum of the magnitudes of the
+# element's terms (the conv of |fh1| with |kfh2|, plus |bfh2|, computed by
+# the plain route), so each element is held to
+# K2_STAGE7_TOL["sum_eps"]·eps32·S, K3's and stage 1's 32 to start with;
+# "order_ratio" is the largest |got - plain| / (eps32·S) of a case.
+K2_STAGE7_TOL = {"sum_eps": 32.0}
 # K3 against its plain version. fp32: summation order only over 576
 # products, held to K3_FP32_TOL times the output's scale (max(1, |plain|
 # max)); measured on an H100 at the encoder shape: 1.5e-6 of the scale.
@@ -339,13 +374,21 @@ def phase_build():
         f["dynamic_smem"] = lib_fused.fused_update_conv_smem(int(m[1])) if m else None
     for f in sm90[packed_conv.KERNEL]:
         f["dynamic_smem"] = lib_packed.packed_conv_smem()
+    stage7 = [f for f in ptxas_table(_build.BUILD_INFO[fused_update.KERNEL]["ptxas"])
+              if "head_out_kernel" in f["function"]]
+    smem7 = fused_update.head_out_geometry(1, 1, 1).smem
+    # ptxas reports the static shared memory rounded up (21,504 bytes for
+    # 21,456 with CUDA 12.8)
+    if any(not smem7 <= f["static_smem"] < smem7 + 1024 for f in stage7):
+        raise AssertionError(f"stage 7's shared memory: ptxas {stage7}, the geometry {smem7}")
     emit({"phase": "build", "kernels": kernels, "seconds": seconds,
           "nvcc_seconds": {k: v["seconds"] for k, v in _build.BUILD_INFO.items()},
           "registers": regs, "wgmma_kernels": sm90,
           "alt_corr_kernels": ptxas_table(_build.BUILD_INFO[alt_corr.KERNEL]["ptxas"]),
           "k2_stage1_kernels": [
               f for f in ptxas_table(_build.BUILD_INFO[fused_update.KERNEL]["ptxas"])
-              if "motion_in_kernel" in f["function"]]})
+              if "motion_in_kernel" in f["function"]],
+          "k2_stage7_kernels": stage7})
 
 
 def _alt_inputs(B, H, W1, D, levels, seed):
@@ -560,21 +603,26 @@ def _motion_in_bound(packed, f1, pyr, flow, radius, dtype):
                   look["flops"] + 2 * P * lk * 64 + 2 * 64 * B * _in_image_taps(H, W, 7))
 
 
+def _head_out_bound(B, H, W, dtype):
+    """Least time for K2's last launch (stage 7, head_out_kernel) over B
+    images of H x W: it reads fh1 (256 channels) and the flow head conv2's
+    x weights [9, 256] in the compute dtype and its bias, and writes delta
+    (fp32); it does the 3x3x256 reduction's in-image taps on fp32 FMA."""
+    es = 2 if dtype == "bfloat16" else 4
+    return _bound(es * B * H * W * 256 + es * 9 * 256 + 4 + 4 * B * H * W,
+                  2 * 256 * B * _in_image_taps(H, W, 3))
+
+
 def _k2_stage_bounds(args, dtype):
     """Least time for K2's first and last launches on these inputs, from
     what each does in csrc/fused_update.cu: stage 1 as
-    ``_motion_in_bound``; stage 7 (head_out_kernel) reads fh1 (256
-    channels) and the flow head conv2's x weights and writes delta (fp32);
-    it does the 3x3x256 reduction's in-image taps on fp32 FMA."""
+    ``_motion_in_bound``, stage 7 as ``_head_out_bound``."""
     packed, f1, pyr, flow, h, inp, ctx, radius = args
     B, H, W, D = f1.shape
-    es = 2 if dtype == "bfloat16" else 4
     return {
         "motion_in (lookup, convc1, convf1)": _motion_in_bound(packed, f1, pyr, flow, radius,
                                                                dtype),
-        "head_out (flow head conv2)": _bound(
-            es * B * H * W * 256 + es * packed["kfh2"].numel() + 4 + 4 * B * H * W,
-            2 * 256 * B * _in_image_taps(H, W, 3)),
+        "head_out (flow head conv2)": _head_out_bound(B, H, W, dtype),
     }
 
 
@@ -674,6 +722,30 @@ def stage1_errors(got, want, allowances) -> dict:
                tol_sum_eps=K2_STAGE1_BF16_TOL["sum_eps"], tol_share=K2_STAGE1_BF16_TOL["share"])
     res["ok"] = res["max_err_over_tol"] <= 1.0 and res["share"] <= res["tol_share"]
     return res
+
+
+def stage7_sums(fh1, packed, dtype):
+    """S for each delta element of stage 7 on these inputs, in fp32: the
+    sum of the magnitudes of its terms, |fh1·kfh2| over the in-image taps
+    plus |bfh2|, by the plain route."""
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    absolute = {"kfh2": packed["kfh2"].abs(), "bfh2": packed["bfh2"].abs()}
+    return fused_update.reference_head_out(fh1.abs(), absolute, dtype)
+
+
+def stage7_errors(got, want, sums) -> dict:
+    """Stage 7's delta against the plain version's on the same inputs, and
+    whether every element lies within K2_STAGE7_TOL["sum_eps"]·2^-24·S
+    (``sums`` is :func:`stage7_sums` of those inputs)."""
+    tiny = 1e-30  # keeps 0/0 at 0 where S is 0
+    diff = (got.float() - want.float()).abs()
+    unit = 2.0 ** -24 * sums
+    ratio = float((diff / unit.clamp_min(tiny)).max())
+    return {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "max_abs_out": float(want.abs().max()), "share": float((diff > 0).float().mean()),
+            "order_ratio": ratio, "tol_sum_eps": K2_STAGE7_TOL["sum_eps"],
+            "ok": ratio <= K2_STAGE7_TOL["sum_eps"]}  # False on NaN
 
 
 # K2's five conv launches at the slice shape (dh 128, 128 inp16 channels):
@@ -835,11 +907,14 @@ def phase_fused_check():
     if bad:
         raise AssertionError(f"fused_update disagrees with its plain step in {bad}")
     slice_case, ragged_case = K2_FAULT_CASES
-    missed = [f"{f['fault']} ({case})" for f in faults
-              for case in [ragged_case if f["fault"] in K2_ROW_END_FAULTS else slice_case]
-              if f[case]["ok"]]
+    case_of = {f["fault"]: ragged_case if f["fault"] in K2_RAGGED_FAULTS else slice_case
+               for f in faults}
+    missed = [f"{f['fault']} ({case_of[f['fault']]})" for f in faults
+              if f[case_of[f["fault"]]]["ok"]]
     missed += [f"{f['fault']} (stage 1)" for f in faults
                if f["fault"] in K2_STAGE1_FAULTS and f[slice_case]["stage1"]["ok"]]
+    missed += [f"{f['fault']} (stage 7, {case_of[f['fault']]})" for f in faults
+               if f["fault"] in K2_STAGE7_FAULTS and f[case_of[f["fault"]]]["stage7"]["ok"]]
     if len(faults) != len(K2_MUTANTS) or missed:
         raise AssertionError(f"the bf16 K2 check passes the planted faults {missed}")
     return checks
@@ -914,28 +989,113 @@ def phase_k2_stage1_check():
     return checks
 
 
+# name, (B, H, W), reps: stage 1's cases at stage 7's input, and a tile
+# larger than the image (three images of 5 x 17 in one 8 x 32 tile each)
+K2_STAGE7_CASES = (
+    *(((name, shape[:3], reps) for name, shape, reps in K2_STAGE1_CASES)),
+    ("tile_over_image_b3_h5_w17", (3, 5, 17), 50),
+)
+
+
+def stage7_fh1(B, H, W, dtype, seed):
+    """Stage 7's input at the scale the model gives it: the relu of seeded
+    unit normals, [B, H, W, 256] in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.relu(torch.randn((B, H, W, 256), generator=g, device="cuda")).to(dtype)
+
+
+def phase_k2_stage7_check():
+    """K2's last launch alone (``fused_update.head_out``) against
+    ``reference_head_out`` on the card, in bf16 and fp32 (TF32 off): each
+    case's launches, its errors (``stage7_errors``), whether two calls agree
+    bitwise, its device time under torch.profiler, its plain version's time,
+    its bound (``_head_out_bound``), cuDNN's bare 256 -> 1 conv on the same
+    input (channels-last, no bias; a yardstick the port never calls) and the
+    launch geometry. fh1 is ``stage7_fh1``; kfh2 and bfh2 are
+    ``_fused_inputs``' packed weights."""
+    import torch
+    import torch.nn.functional as F
+
+    from raft_stereo_tpu_torch.ops import fused_update
+
+    checks = []
+    with _fp32_checks():
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            for name, (B, H, W), reps in K2_STAGE7_CASES:
+                seed = SEED + 50 + len(checks)
+                packed = _fused_inputs(1, 8, 8, 256, 4, 4, True, dtype, seed=seed)[1][0]
+                fh1 = stage7_fh1(B, H, W, dtype, seed)
+                before = fused_update.HEAD_OUT_LAUNCHES
+                got = fused_update.head_out(fh1, packed, dtype)
+                again = fused_update.head_out(fh1, packed, dtype)
+                torch.cuda.synchronize()
+                launched = fused_update.HEAD_OUT_LAUNCHES - before
+                want = fused_update.reference_head_out(fh1, packed, dtype)
+                res = {"case": name, "shape": [B, H, W, fused_update.HEAD_CH], "dtype": dname,
+                       "launched": launched, "bitwise_repeatable": bool(torch.equal(got, again)),
+                       **stage7_errors(got, want, stage7_sums(fh1, packed, dtype))}
+                for _ in range(3):  # a profile may miss a short kernel's launches
+                    times = _device_ms_by_kernel(
+                        lambda: fused_update.head_out(fh1, packed, dtype), reps)
+                    res["ms"] = next((v for k, v in times.items() if "head_out_kernel" in k),
+                                     None)
+                    if res["ms"] is not None:
+                        break
+                res["plain_ms"] = _time_ms(lambda: fused_update.reference_head_out(
+                    fh1, packed, dtype), 5, warmup=1)
+                res.update(_head_out_bound(B, H, W, dname))
+                x = fh1.permute(0, 3, 1, 2)  # NCHW view of channels-last storage
+                w2 = packed["kfh2"].t().reshape(1, fused_update.HEAD_CH, 3, 3).contiguous(
+                    memory_format=torch.channels_last)
+                res["library_ms"] = _time_ms(lambda: F.conv2d(x, w2, padding=1), reps)
+                res["library_call"] = (f"torch.nn.functional.conv2d (cuDNN) 256 -> 1, 3x3, "
+                                       f"channels-last {dname}, no bias")
+                res["geometry"] = {**fused_update.head_out_geometry(B, H, W)._asdict(),
+                                   "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+                emit({"phase": "k2_stage7_check", **res})
+                checks.append(res)
+                del packed, fh1, got, again, want, x
+                torch.cuda.empty_cache()
+    bad = [f"{c['case']} {c['dtype']}" for c in checks
+           if not c["ok"] or c["launched"] != 2 or not c["bitwise_repeatable"]]
+    if bad:
+        raise AssertionError(f"fused_update stage 7 disagrees with its plain version in {bad}")
+    return checks
+
+
 def _k2_planted_faults(cases, dtype, tmp: Path):
     """Each fault of K2_MUTANTS, run on the inputs of each of ``cases``
     (name -> (step arguments, the plain step's result)): the step held to
-    the plain step and its stage 1 to the plain stage 1, case by case."""
+    the plain step, its stage 1 to the plain stage 1 and its stage 7, on
+    ``stage7_fh1`` at the case's shape, to the plain stage 7, case by
+    case."""
     from raft_stereo_tpu_torch.ops import fused_update
 
     def stage1_args(args):  # fmap1, the pyramid, the flow, the weights, the radius
         return args[1], args[2], args[3], args[0], args[7]
 
+    fh1 = {name: stage7_fh1(*args[1].shape[:3], dtype, SEED + 70 + i)
+           for i, (name, (args, _)) in enumerate(cases.items())}
     plain = {name: (fused_update.reference_motion_in(*stage1_args(args), dtype),
-                    stage1_allowances(*stage1_args(args), dtype))
+                    stage1_allowances(*stage1_args(args), dtype),
+                    fused_update.reference_head_out(fh1[name], args[0], dtype),
+                    stage7_sums(fh1[name], args[0], dtype))
              for name, (args, _) in cases.items()}
 
     def run():
         return {name: (fused_update.fused_refine_step(*args, compute_dtype=dtype),
-                       fused_update.motion_in(*stage1_args(args), dtype))
+                       fused_update.motion_in(*stage1_args(args), dtype),
+                       fused_update.head_out(fh1[name], args[0], dtype))
                 for name, (args, _) in cases.items()}
 
     def errors(out):
         return {name: {**k2_errors(step, cases[name][1], dtype),
-                       "stage1": stage1_errors(cf, *plain[name])}
-                for name, (step, cf) in out.items()}
+                       "stage1": stage1_errors(cf, *plain[name][:2]),
+                       "stage7": stage7_errors(delta, *plain[name][2:])}
+                for name, (step, cf, delta) in out.items()}
 
     return _planted_faults(fused_update, K2_MUTANTS, run, errors, tmp)
 
@@ -2279,14 +2439,14 @@ def _fp32_checks():
 
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
              alt_corr.LAUNCHES, fused_update.LAUNCHES, fused_update.MOTION_IN_LAUNCHES,
-             packed_conv.LAUNCHES)
+             fused_update.HEAD_OUT_LAUNCHES, packed_conv.LAUNCHES)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
          alt_corr.LAUNCHES, fused_update.LAUNCHES, fused_update.MOTION_IN_LAUNCHES,
-         packed_conv.LAUNCHES) = saved
+         fused_update.HEAD_OUT_LAUNCHES, packed_conv.LAUNCHES) = saved
 
 
 def _ulp32(x: float) -> float:
@@ -3309,6 +3469,7 @@ def main() -> int:
     checks = phase_kernel_check()
     fused_checks = phase_fused_check()
     stage1_checks = phase_k2_stage1_check()
+    stage7_checks = phase_k2_stage7_check()
     k3_checks = phase_packed_conv_check()
     fused_checks[0]["by_launch"] = phase_k2_launches()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3392,6 +3553,13 @@ def main() -> int:
                 "tol": {"float32": f"{K2_STAGE1_FP32_TOL} x max(1, |plain| max)",
                         "bfloat16": K2_STAGE1_BF16_TOL},
                 "checks": stage1_checks,
+            },
+            "stage7": {
+                "entry": "raft_stereo_tpu_torch/ops/fused_update.py::head_out",
+                "launch": k2["by_launch"]["launches"]["head_out (flow head conv2)"],
+                "tol": f"{K2_STAGE7_TOL['sum_eps']} x 2^-24 x S (S: the conv of |fh1| with "
+                       "|kfh2|, plus |bfh2|)",
+                "checks": stage7_checks,
             },
             "backward": {
                 "route": "plain autograd recompute (ops/fused_update.py::fused_step_vjp)",

@@ -68,14 +68,19 @@
 //      channels a block on FMA (never TF32), K in chunks of 32 input
 //      channels copied two stages deep with cp.async, the epilogue from an
 //      fp32 tile in shared memory;
-//   7. head_out_kernel: the x-only flow head conv2 as a 2304-term reduction,
-//      one warp per pixel.
+//   7. head_out_kernel: the x-only flow head conv2 as a 2304-term reduction
+//      a pixel. What bounds it is reading fh1 once (16.7 MB in bf16 at the
+//      slice shape). A block owns an 8 x 32 output tile: it projects each
+//      pixel of the tile's 10 x 34 halo onto the 9 taps (4 lanes a pixel,
+//      16-byte loads, weights in shared memory), then adds each output
+//      pixel's 9 shifted taps from shared memory. Details at the kernel.
 // Zero padding at every image edge, the TPU kernel's per-stage row mask,
 // comes from the loaders, which read zeros outside the image.
 //
 // Interface: plain C, loaded with ctypes. ``fused_update_step`` launches
 // the chain on the given stream and returns the first cudaGetLastError()
-// that is not cudaSuccess; ``fused_motion_in`` launches stage 1 alone. The
+// that is not cudaSuccess; ``fused_motion_in`` launches stage 1 alone and
+// ``fused_head_out`` stage 7 alone. The
 // wrapper allocates every output and the scratch buffers.
 
 #include <cuda_bf16.h>
@@ -104,7 +109,6 @@ enum Slot {
 constexpr int kMotionCh = 128;    // cor|flo, cf2 and m channels
 constexpr int kFlowCh = 126;      // m's flow channel
 constexpr int kHeadCh = 256;      // flow head hidden channels
-constexpr int kWarps = 8;         // warps a block in the per-pixel kernels
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -1002,30 +1006,150 @@ cudaError_t launch_conv_bf16(const ConvArgs& a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------- stage 7
-// The flow head's conv2, x channel only: a 3x3xC reduction a pixel, one
-// warp a pixel, lanes over channels.
+// The flow head's conv2, x channel only ("project, then shift-add"):
+//
+//   delta[y, x] = b2 + sum over taps (ky, kx), channels c of
+//                 fh1[y + ky - 1, x + kx - 1, c] * k2[3 ky + kx, c]
+//
+// with zeros outside the image. What bounds it is reading fh1 once (16.7
+// MB in bf16 at the slice shape, 5 us at 3.35 TB/s); its 2304 FMAs a pixel
+// take about as long. The one-warp-a-pixel kernel it replaces read each
+// fh1 byte from L2 nine times (once for every window that covers it) in
+// 2-byte loads, and each weight from global memory for every pixel.
+// Here a block owns an 8 x 32 output tile of one image and first projects
+// each of the 10 x 34 pixels of its halo onto the 9 taps: t[tap][pixel] =
+// sum_c fh1[pixel, c] * k2[tap, c], four lanes a pixel (lane j of a quad
+// loads channels 8 (j + 4 i) .. + 7 for i = 0..7 in 16-byte ld.global.nc
+// vectors, 64 contiguous bytes a quad and load), the weights converted to
+// fp32 in shared memory once a block, the quad's partial sums reduced by
+// two shuffles. So each fh1 byte is read 340 / 256 = 1.33 times, and the
+// 16-byte load count falls about 100x. Then each thread adds its pixel's 9
+// taps from shared memory (delta = sum_tap t[tap][pixel + shift(tap)]).
+// Sums in a fixed order (a lane's channels ascending, the quad by
+// shuffles, the taps ascending, then b2), no atomics: bitwise repeatable.
+namespace ho {
+constexpr int kRows = 8, kCols = 32;                       // output tile
+constexpr int kHaloRows = kRows + 2, kHaloCols = kCols + 2;
+constexpr int kHalo = kHaloRows * kHaloCols;               // 340 halo pixels
+constexpr int kThreads = kRows * kCols;                    // a thread an output pixel
+constexpr int kQuad = 4;                                   // lanes a halo pixel
+constexpr int kPixelsAWarp = 32 / kQuad;                   // halo pixels a warp a step
+constexpr int kVecs = kHeadCh / (8 * kQuad);               // 8-channel vectors a lane
+}  // namespace ho
+
+// Eight channels of T from 16-byte aligned global memory, through the
+// read-only path; at(e) widens channel e to fp32 exactly.
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarps)
-head_out_kernel(const T* __restrict__ fh1, const T* __restrict__ k2,
-                const float* __restrict__ b2, float* __restrict__ delta, int P, int H, int W,
-                int C) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= P) return;
-  const int x = p % W;
-  const int y = (p / W) % H;
-  float s = 0.f;
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const int yy = y + dy, xx = x + dx;
-    if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-    const T* src = fh1 + ((long long)p + dy * W + dx) * C;
-    const T* w = k2 + tap * C;
-    for (int c = lane; c < C; c += 32) s = fmaf(to_f(src[c]), to_f(w[c]), s);
+struct Vec8;
+template <>
+struct Vec8<bf16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
   }
+  __device__ __forceinline__ float at(int e) const {
+    const unsigned w = e < 2 ? u.x : e < 4 ? u.y : e < 6 ? u.z : u.w;
+    return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
+  }
+};
+template <>
+struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float at(int e) const {
+    const float4& v = e < 4 ? a : b;
+    const int f = e % 4;
+    return f == 0 ? v.x : f == 1 ? v.y : f == 2 ? v.z : v.w;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(ho::kThreads, 2)
+head_out_kernel(const T* __restrict__ fh1, const T* __restrict__ k2,
+                const float* __restrict__ b2, float* __restrict__ delta, int B, int H, int W) {
+  using namespace ho;
+  __shared__ __align__(16) float w[9][kHeadCh];  // 9,216 bytes
+  __shared__ float t[9][kHalo];                  // 12,240 bytes
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (W + kCols - 1) / kCols, tiles_y = (H + kRows - 1) / kRows;
+  const int x0 = (blockIdx.x % tiles_x) * kCols;
+  const int y0 = (blockIdx.x / tiles_x % tiles_y) * kRows;
+  const int b = blockIdx.x / tiles_x / tiles_y;
+  for (int i = tid; i < 9 * kHeadCh; i += kThreads) w[i / kHeadCh][i % kHeadCh] = to_f(k2[i]);
+  const float bias = b2[0];
+  __syncthreads();
+
+  // Phase A: t[tap][halo pixel], 8 halo pixels a warp a step.
+  const int j = lane % kQuad;
+  for (int base = warp * kPixelsAWarp; base < kHalo; base += kPixelsAWarp * (kThreads / 32)) {
+    const int hp = base + lane / kQuad;
+    const int hy = hp / kHaloCols, hx = hp % kHaloCols;
+    const int y = y0 + hy - 1, x = x0 + hx - 1;
+    const bool in_image = hp < kHalo && y >= 0 && y < H && x >= 0 && x < W;
+    Vec8<T> v[kVecs] = {};
+    if (in_image) {
+      const T* src = fh1 + (((long long)b * H + y) * W + x) * kHeadCh + 8 * j;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[p] = s + b2[0];
+      for (int i = 0; i < kVecs; ++i) v[i].load(src + 8 * kQuad * i);
+    }
+    float s[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) s[tap] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = 8 * (j + kQuad * i);
+#pragma unroll
+      for (int h = 0; h < 8; h += 4) {
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          // the 8 lanes that share j read one address: a broadcast
+          const float4 wv = *reinterpret_cast<const float4*>(&w[tap][c + h]);
+          s[tap] = fmaf(v[i].at(h), wv.x, s[tap]);
+          s[tap] = fmaf(v[i].at(h + 1), wv.y, s[tap]);
+          s[tap] = fmaf(v[i].at(h + 2), wv.z, s[tap]);
+          s[tap] = fmaf(v[i].at(h + 3), wv.w, s[tap]);
+        }
+      }
+    }
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      s[tap] += __shfl_xor_sync(0xffffffffu, s[tap], 1);
+      s[tap] += __shfl_xor_sync(0xffffffffu, s[tap], 2);
+    }
+    if (j == 0 && hp < kHalo) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) t[tap][hp] = in_image ? s[tap] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // Phase B: each thread's pixel from its 3 x 3 window of t.
+  const int ty = tid / kCols, tx = tid % kCols;
+  const int y = y0 + ty, x = x0 + tx;
+  float acc = 0.f;
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) acc += t[3 * ky + kx][(ty + ky) * kHaloCols + tx + kx];
+  }
+  if (y < H && x < W) delta[((long long)b * H + y) * W + x] = acc + bias;
+}
+
+// Stage 7 over B images of H x W: one block an output tile, x fastest.
+template <typename T>
+cudaError_t head_out(const void* fh1, const void* k2, const float* b2, float* delta, int B, int H,
+                     int W, cudaStream_t st) {
+  const long long blocks = (long long)B * ((H + ho::kRows - 1) / ho::kRows) *
+                           ((W + ho::kCols - 1) / ho::kCols);
+  if (B < 1 || H < 1 || W < 1 || (long long)B * H * W > (1LL << 30) || blocks > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  head_out_kernel<T><<<(unsigned)blocks, ho::kThreads, 0, st>>>(
+      static_cast<const T*>(fh1), static_cast<const T*>(k2), b2, delta, B, H, W);
+  return cudaGetLastError();
 }
 
 // Stage 1's launch geometry (ops/fused_update.py::motion_in_geometry).
@@ -1119,7 +1243,6 @@ template <typename T>
 int step(const void* const* ptrs, const MotionIn& mi_args, int B, int H, int W, int radius, int dh,
          int inp_ch, const Geometry& geo, cudaStream_t st) {
   const int P = B * H * W;
-  auto tp = [&](Slot s) { return static_cast<const T*>(ptrs[s]); };
   auto fp = [&](Slot s) { return static_cast<const float*>(ptrs[s]); };
   cudaError_t err;
 
@@ -1207,14 +1330,8 @@ int step(const void* const* ptrs, const MotionIn& mi_args, int B, int H, int W, 
     if ((err = launch_conv<T, kEpiRelu>(a, st)) != cudaSuccess) return (int)err;
   }
   // 7. flow head conv2, x channel -> delta
-  {
-    const dim3 grid((unsigned)((P + kWarps - 1) / kWarps)), block(32 * kWarps);
-    head_out_kernel<T><<<grid, block, 0, st>>>(tp(kFh1), tp(kKfh2), fp(kBfh2),
-                                               static_cast<float*>(const_cast<void*>(ptrs[kDelta])),
-                                               P, H, W, kHeadCh);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return (int)head_out<T>(ptrs[kFh1], ptrs[kKfh2], fp(kBfh2),
+                          static_cast<float*>(const_cast<void*>(ptrs[kDelta])), B, H, W, st);
 }
 
 // Stage 1's arguments, or false where the shapes are outside the kernel's
@@ -1291,6 +1408,19 @@ extern "C" int fused_motion_in(int use_bf16, const void* f1, const void* const* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = use_bf16 ? motion_in<bf16>(a, B * H, radius, g, st)
                                    : motion_in<float>(a, B * H, radius, g, st);
+  return (int)err;
+}
+
+// Stage 7 alone: delta [B*H*W] (fp32) from fh1 [B*H*W][256] and the flow
+// head conv2's x weights kfh2 [9][256], both in the compute type, and its
+// bias bfh2 [1] (fp32), with fused_update_step's buffers and types.
+extern "C" int fused_head_out(int use_bf16, const void* fh1, const void* kfh2, const void* bfh2,
+                              void* delta, int B, int H, int W, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* b2 = static_cast<const float*>(bfh2);
+  float* out = static_cast<float*>(delta);
+  const cudaError_t err = use_bf16 ? head_out<bf16>(fh1, kfh2, b2, out, B, H, W, st)
+                                   : head_out<float>(fh1, kfh2, b2, out, B, H, W, st);
   return (int)err;
 }
 

@@ -14,14 +14,16 @@ compute dtype.
 on CPU tensors; on CUDA tensors it launches the kernel or raises.
 ``motion_in`` does the same for the kernel's first launch alone (the
 lookup with convc1 and convf1, plain version ``reference_motion_in``);
-``motion_in_geometry`` is that launch's geometry.
+``motion_in_geometry`` is that launch's geometry. ``head_out`` does it
+for the last launch alone (the flow head's conv2, x channel, plain
+version ``reference_head_out``, geometry ``head_out_geometry``).
 ``fused_refine_step`` is differentiable on both devices, as the JAX
 ``_fused_op`` is (``pallas_fused_update.py:465-497``): its backward is the
 plain version's autograd, recomputed from the saved inputs, and gives
 gradients to the packed weights, fmap1, every pyramid level, h, inp16 and
 ctx; ``flow_x`` gets none (the model detaches the flow every step).
-``motion_in`` has no backward: under grad mode, an input that requires
-grad raises.
+``motion_in`` and ``head_out`` have no backward: under grad mode, an
+input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -72,10 +74,16 @@ SMEM = 227 * 1024
 SMEM_SM = 228 * 1024
 SMEM_RESERVED = 1024
 
+# Stage 7's output tile, rows x columns of one image (csrc/fused_update.cu,
+# namespace ho).
+HEAD_TILE = (8, 32)
+
 # Kernel launches since the count was last set to 0: fused steps (one a
-# step) and stage-1 launches through ``motion_in``.
+# step), stage-1 launches through ``motion_in`` and stage-7 launches
+# through ``head_out``.
 LAUNCHES = 0
 MOTION_IN_LAUNCHES = 0
+HEAD_OUT_LAUNCHES = 0
 
 _fn = None
 
@@ -190,8 +198,18 @@ def reference_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,
     h_new = (1.0 - z) * hf + z * q
 
     fh1 = torch.relu(_conv(h_new.to(cd), packed["kfh1"], cd, packed["bfh1"])).to(cd)
-    delta = _conv(fh1, packed["kfh2"][..., None], cd)[:, 0] + packed["bfh2"].float()[0]
+    delta = reference_head_out(fh1.permute(0, 2, 3, 1), packed, cd)
     return h_new.permute(0, 2, 3, 1).to(h.dtype), delta
+
+
+def reference_head_out(fh1: torch.Tensor, packed: Dict[str, torch.Tensor],
+                       compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version of the kernel's last launch: delta [B, H, W] fp32,
+    the flow head's conv2 (x output channel only, ``kfh2`` [9, 256]) of
+    fh1 [B, H, W, 256] with operands in the compute dtype and fp32 sums,
+    plus ``bfh2`` (the JAX ``reference_refine_step``'s last line)."""
+    x = fh1.permute(0, 3, 1, 2)
+    return _conv(x, packed["kfh2"][..., None], compute_dtype)[:, 0] + packed["bfh2"].float()[0]
 
 
 def batch_max_delta(delta: torch.Tensor) -> torch.Tensor:
@@ -262,9 +280,33 @@ def motion_in_geometry(rows: int, W: int, widths: Sequence[int], D: int) -> Moti
         f"of up to {SMEM // (8 * CHUNKS[-1]) - seg} positions in all)")
 
 
+class HeadOutGeometry(NamedTuple):
+    """How stage 7 covers B images of H x W: one block for each output
+    tile of ``tile`` = (rows, columns) of one image, ``blocks`` in all,
+    ``threads`` a block (one an output pixel), the tile's ``halo`` pixels
+    projected onto the 9 taps, ``smem`` bytes of static shared memory a
+    block (the weights and the projections, fp32)."""
+
+    tile: Tuple[int, int]
+    threads: int
+    halo: int
+    blocks: int
+    smem: int
+
+
+def head_out_geometry(B: int, H: int, W: int) -> HeadOutGeometry:
+    """Stage 7's launch over B images of H x W (the kernel's ``ho``
+    constants; the grid is one-dimensional, tile columns fastest)."""
+    rows, cols = HEAD_TILE
+    halo = (rows + 2) * (cols + 2)
+    return HeadOutGeometry(HEAD_TILE, rows * cols, halo, B * -(-H // rows) * -(-W // cols),
+                           4 * (9 * HEAD_CH + 9 * halo))
+
+
 class _Bound(NamedTuple):
     step: Callable[..., int]  # fused_update_step
     motion_in: Callable[..., int]  # fused_motion_in
+    head_out: Callable[..., int]  # fused_head_out
 
 
 def _kernel() -> _Bound:
@@ -305,7 +347,15 @@ def _kernel() -> _Bound:
             ctypes.c_void_p,  # stream
         ]
         mi.restype = ctypes.c_int
-        _fn = _Bound(step, mi)
+        ho = lib.fused_head_out
+        ho.argtypes = [
+            ctypes.c_int,  # bf16 compute
+            *[ctypes.c_void_p] * 4,  # fh1, kfh2, bfh2, delta
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, W
+            ctypes.c_void_p,  # stream
+        ]
+        ho.restype = ctypes.c_int
+        _fn = _Bound(step, mi, ho)
     return _fn
 
 
@@ -383,8 +433,8 @@ def _check(packed, fmap1, pyramid, flow_x, h, inp16, ctx, radius, cd) -> None:
 
 
 def _refuse_grad(name: str, tensors) -> None:
-    """Stage 1 alone has no backward: under grad mode, an input that
-    requires grad raises on either device rather than give a result
+    """Stages 1 and 7 alone have no backward: under grad mode, an input
+    that requires grad raises on either device rather than give a result
     without one."""
     if torch.is_grad_enabled():
         needs = [k for k, t in tensors if t is not None and t.requires_grad]
@@ -439,6 +489,55 @@ def motion_in(fmap1: torch.Tensor, fmap2_pyramid: Sequence[torch.Tensor], flow_x
         raise RuntimeError(f"fused_update stage 1 launch failed: CUDA error {err}")
     MOTION_IN_LAUNCHES += 1
     return cf
+
+
+def _check_head_out(fh1, kfh2, bfh2, cd) -> None:
+    """What stage 7 takes: fh1 [B, H, W, 256] and kfh2 [9, 256] in the
+    compute dtype and bfh2 [1] in fp32, contiguous, 16-byte aligned, on
+    fh1's device."""
+    if cd not in COMPUTE_DTYPES:
+        raise ValueError(f"fused_update kernel computes in {COMPUTE_DTYPES}, got {cd}")
+    if fh1.dim() != 4 or fh1.shape[-1] != HEAD_CH or fh1.numel() == 0:
+        raise ValueError(f"fh1 must be a non-empty [B, H, W, {HEAD_CH}], got {tuple(fh1.shape)}")
+    if tuple(kfh2.shape) != (9, HEAD_CH) or tuple(bfh2.shape) != (1,):
+        raise ValueError(f"kfh2 must be (9, {HEAD_CH}) and bfh2 (1,), got "
+                         f"{tuple(kfh2.shape)} and {tuple(bfh2.shape)}")
+    for name, t, dtype in (("fh1", fh1, cd), ("kfh2", kfh2, cd), ("bfh2", bfh2, torch.float32)):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != fh1.device:
+            raise ValueError(f"{name} is on {t.device}, stage 7 runs on {fh1.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_update stage 7 needs a contiguous {name}")
+    _aligned([("fh1", fh1), ("kfh2", kfh2), ("bfh2", bfh2)])
+
+
+def head_out(fh1: torch.Tensor, packed: Dict[str, torch.Tensor],
+             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's last launch alone: delta [B, H, W] fp32 from fh1 [B, H,
+    W, 256] (see ``reference_head_out``, which it computes on CPU tensors;
+    on CUDA tensors it launches stage 7 or raises). Takes fh1 and
+    ``packed["kfh2"]`` in the compute dtype and ``packed["bfh2"]`` in fp32
+    as they are: no cast, no copy."""
+    global HEAD_OUT_LAUNCHES
+    kfh2, bfh2 = packed["kfh2"], packed["bfh2"]
+    _refuse_grad("head_out", [("fh1", fh1), ("kfh2", kfh2), ("bfh2", bfh2)])
+    if fh1.device.type == "cpu":
+        return reference_head_out(fh1, packed, compute_dtype)
+    if fh1.device.type != "cuda":
+        raise ValueError(f"fused_update runs on CPU or CUDA tensors, not {fh1.device}")
+    _check_head_out(fh1, kfh2, bfh2, compute_dtype)
+    B, H, W, _ = fh1.shape
+    delta = torch.empty((B, H, W), dtype=torch.float32, device=fh1.device)
+    fn = _kernel().head_out
+    with torch.cuda.device(fh1.device):
+        stream = torch.cuda.current_stream(fh1.device).cuda_stream
+        err = fn(int(compute_dtype == torch.bfloat16), fh1.data_ptr(), kfh2.data_ptr(),
+                 bfh2.data_ptr(), delta.data_ptr(), B, H, W, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_update stage 7 launch failed: CUDA error {err}")
+    HEAD_OUT_LAUNCHES += 1
+    return delta
 
 
 def fused_refine_step(packed: Dict[str, torch.Tensor], fmap1: torch.Tensor,

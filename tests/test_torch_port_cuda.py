@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the alt-correlation kernel (K1), the
-fused refinement step (K2) and the packed stage's 3x3x64 conv (K3) against
-their plain versions, the wrappers' checks and launch counts, and the
+fused refinement step (K2, and its first and last launches alone) and the
+packed stage's 3x3x64 conv (K3) against their plain versions, the
+wrappers' checks and launch counts, and the
 forwards with the kernels against the forwards with the plain versions;
 then the captured forwards: replays against eager runs, the graph cache's
 eviction, and the engine on the card.
@@ -21,7 +22,8 @@ import pytest
 import torch
 
 from chip_smoke import (K3_PER_TRUNK, k2_errors, k3_abs_sums, k3_errors, k3_inputs,
-                        stage1_allowances, stage1_errors)
+                        stage1_allowances, stage1_errors, stage7_errors, stage7_fh1,
+                        stage7_sums)
 from raft_stereo_tpu_torch.config import PRESETS
 from raft_stereo_tpu_torch.evaluate import load_model, make_engine, make_forward
 from raft_stereo_tpu_torch.experiments import packed_conv
@@ -209,6 +211,62 @@ def test_motion_in_matches_plain(monkeypatch, B, H, W, D, levels, radius, with_i
     assert got.shape == (B, H, W, 128) and got.dtype == dtype
     res = stage1_errors(got, want, stage1_allowances(f1, pyr, flow, packed, radius, dtype))
     assert res["ok"], res
+
+
+# stage 7's cases (chip_smoke.K2_STAGE7_CASES) at small widths: one image of
+# two tiles a row, two ragged images (a halo row at the batch edge), a
+# batch of 4, a wider image, and three images each smaller than a tile
+HEAD_OUT_CASES = [(1, 16, 64), (2, 37, 23), (4, 12, 40), (1, 24, 100), (3, 5, 17)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W", HEAD_OUT_CASES)
+def test_head_out_matches_plain(monkeypatch, B, H, W, dtype):
+    """K2's last launch alone against its plain version, held to
+    chip_smoke.py's stage-7 check (K2_STAGE7_TOL), two calls bitwise equal."""
+    _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    packed = _fused_case(1, 4, 8, 32, 4, 4, True, dtype, seed=B * H * W)[0]
+    fh1 = stage7_fh1(B, H, W, dtype, seed=W)
+    before = (fused_update.HEAD_OUT_LAUNCHES, fused_update.LAUNCHES)
+    got = fused_update.head_out(fh1, packed, dtype)
+    again = fused_update.head_out(fh1, packed, dtype)
+    torch.cuda.synchronize()
+    assert (fused_update.HEAD_OUT_LAUNCHES, fused_update.LAUNCHES) == (before[0] + 2, before[1])
+    assert got.shape == (B, H, W) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = fused_update.reference_head_out(fh1, packed, dtype)
+    res = stage7_errors(got, want, stage7_sums(fh1, packed, dtype))
+    assert res["ok"], res
+
+
+def _misaligned(t):
+    """``t``'s values in contiguous storage that starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize(
+    "change,err",
+    [
+        (lambda fh1, p: (fh1[..., :128].contiguous(), p), ValueError),  # 128 channels
+        (lambda fh1, p: (fh1.float(), p), ValueError),  # fh1 not in the compute dtype
+        (lambda fh1, p: (fh1, {**p, "kfh2": p["kfh2"].float()}), ValueError),
+        (lambda fh1, p: (fh1.transpose(1, 2), p), ValueError),  # not contiguous
+        (lambda fh1, p: (_misaligned(fh1), p), ValueError),  # not 16-byte aligned
+        (lambda fh1, p: (fh1.float().requires_grad_(), p), RuntimeError),  # no backward
+    ],
+)
+def test_head_out_refuses_what_the_kernel_does_not_take(change, err):
+    _cuda()
+    packed = _fused_case(1, 4, 8, 32, 4, 4, True, torch.bfloat16, seed=2)[0]
+    fh1 = stage7_fh1(1, 8, 8, torch.bfloat16, seed=2)
+    fh1_bad, packed_bad = change(fh1, packed)
+    before = fused_update.HEAD_OUT_LAUNCHES
+    with pytest.raises(err):
+        fused_update.head_out(fh1_bad, packed_bad, torch.bfloat16)
+    assert fused_update.HEAD_OUT_LAUNCHES == before
 
 
 @pytest.mark.parametrize(

@@ -348,6 +348,88 @@ def test_motion_in_geometry_shared_memory_never_exceeds_a_block(levels):
             assert geo.dc <= D
 
 
+# ------------------------------------------------------------- stage 7
+
+
+def _fh1(case):
+    """Seeded stage-7 input at the case's shape: relu of unit normals,
+    [B, H, 16, 256] fp32."""
+    seed, B, H, _ = STEP_CASES[case]
+    rng = np.random.RandomState(100 + seed)
+    return np.maximum(rng.randn(B, H, 16, fused_update.HEAD_CH), 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["single_tile", "b2_h37_ragged"])
+def test_reference_head_out_matches_jax_composition_fp32(case):
+    """The JAX ``reference_refine_step``'s last line, conv(fh1, kfh2[...,
+    :1])[..., 0] + bfh2, on carried weights: fp32 sums of 2304 products in
+    another order only, within 1e-5 of delta's scale, max(1, |delta| max)
+    (delta reaches about 10 here, where two orders of the sum differ by up
+    to 1.7e-5: 18 fp32 ulps)."""
+    raw, inputs, n_layers = _step_case(case)
+    fh1 = _fh1(case)
+    pj = _jax_packed(raw)
+    want = jax.lax.conv_general_dilated(jnp.asarray(fh1), pj["kfh2"][..., :1], (1, 1),
+                                        [(1, 1), (1, 1)],
+                                        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    want = np.asarray(want[..., 0] + pj["bfh2"][0, 0])
+    packed = fused_update.pack_fused_params(_port_block(raw, n_layers))
+    got = fused_update.reference_head_out(torch.from_numpy(fh1), packed)
+    assert got.shape == want.shape == fh1.shape[:3]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * max(1.0, np.abs(want).max()),
+                               rtol=0)
+
+
+def test_head_out_on_the_cpu_is_the_plain_version():
+    raw, _, n_layers = _step_case("b2_h37_ragged")
+    packed = fused_update.pack_fused_params(_port_block(raw, n_layers), torch.bfloat16)
+    fh1 = torch.from_numpy(_fh1("b2_h37_ragged")).to(torch.bfloat16)
+    before = (fused_update.HEAD_OUT_LAUNCHES, fused_update.MOTION_IN_LAUNCHES,
+              fused_update.LAUNCHES)
+    got = fused_update.head_out(fh1, packed, torch.bfloat16)
+    assert (fused_update.HEAD_OUT_LAUNCHES, fused_update.MOTION_IN_LAUNCHES,
+            fused_update.LAUNCHES) == before
+    want = fused_update.reference_head_out(fh1, packed, torch.bfloat16)
+    assert got.shape == fh1.shape[:3] and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# (B, H, W) -> blocks: 8 x 32 tiles, tile columns fastest
+HEAD_OUT_GEOMETRY_CASES = {
+    "slice": ((1, 136, 240), 136),
+    "engine_b4_544x960": ((4, 136, 240), 544),
+    "engine_b4_480x640": ((4, 120, 160), 300),
+    "ragged_b2_h37_w123": ((2, 37, 123), 40),
+    "middlebury_F": ((1, 496, 720), 1426),
+    "tile_over_image": ((3, 5, 17), 3),
+}
+
+
+@pytest.mark.parametrize("case", list(HEAD_OUT_GEOMETRY_CASES))
+def test_head_out_geometry(case):
+    (B, H, W), blocks = HEAD_OUT_GEOMETRY_CASES[case]
+    geo = fused_update.head_out_geometry(B, H, W)
+    assert geo.blocks == blocks
+    assert (geo.tile, geo.threads, geo.halo) == ((8, 32), 256, 340)
+    assert geo.smem == 21456  # w[9][256] and t[9][340], fp32
+    rows, cols = geo.tile
+    assert geo.blocks * rows * cols >= B * H * W  # every pixel has a thread
+
+
+def test_head_out_geometry_mirrors_the_kernel_constants():
+    """``head_out_geometry`` and the kernel's ``ho`` constants agree, so the
+    CPU tests and the build line describe the launch the card makes."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fused_update.__file__).parent.parent / "csrc" / "fused_update.cu").read_text()
+    rows, cols = re.search(r"constexpr int kRows = (\d+), kCols = (\d+);", src).groups()
+    assert (int(rows), int(cols)) == fused_update.HEAD_TILE
+    # the static shared memory: w[9][256] and t[9][halo], fp32
+    assert "float w[9][kHeadCh];" in src and "float t[9][kHalo];" in src
+
+
 def test_batch_max_delta_matches_jax():
     d = np.random.RandomState(3).randn(3, 5, 7).astype(np.float32)
     d[1] *= 4.0

@@ -1,21 +1,22 @@
-"""Times K2's first launch (stage 1: the lookup with convc1 and convf1) of
-this checkout against another commit's, on one card, in one process.
+"""Times K2's launches, its first (stage 1: the lookup with convc1 and
+convf1) and its last (stage 7: the flow head's conv2) picked out, of this
+checkout against another commit's, on one card, in one process.
 
     git archive <commit> raft_stereo_tpu_torch/csrc | tar -x -C build/other
     python3 tools/k2_stage1_parent.py --other_csrc build/other/raft_stereo_tpu_torch/csrc
 
 Builds the other commit's ``csrc/fused_update.cu`` with nvcc. Its C entry
-point is ``fused_update_step`` as it was before stage 1 took a launch
-geometry (the same arguments less seg, threads, dc and smem). Then it runs
-one fused step at the slice shape (544x960 at 1/4, bf16, with inp16) under
-torch.profiler with each library in turn: other, this checkout, this
-checkout, other; once on chip_smoke.py's inputs, whose disparities are
-drawn per pixel (uniform in [0, 0.6 W]), and once with the same features
-and a smooth disparity field (a plane with a ripple, 0.3 W at its mean),
-as a scene gives. Each run prints one JSON line with the device ms of
-every launch, the stage-1 launch picked out, and the whole step timed with
-CUDA events; then the card's name and power limit as nvidia-smi gives
-them.
+point is ``fused_update_step`` with this checkout's arguments (stage 1's
+launch geometry among them, as since the commit that gave stage 1 one).
+Then it runs one fused step at the slice shape (544x960 at 1/4, bf16, with
+inp16) under torch.profiler with each library in turn: other, this
+checkout, this checkout, other; once on chip_smoke.py's inputs, whose
+disparities are drawn per pixel (uniform in [0, 0.6 W]), and once with the
+same features and a smooth disparity field (a plane with a ripple, 0.3 W at
+its mean), as a scene gives. Each run prints one JSON line with the device ms of every launch,
+stages 1 and 7 picked out, and the whole step timed with CUDA events; then
+the medians by library and the card's name and power limit as nvidia-smi
+gives them.
 Needs a CUDA card; prints no result without one.
 """
 
@@ -35,19 +36,17 @@ sys.path.insert(0, str(REPO))
 
 
 def _bind_other(so: Path):
-    """The other library's step, called with this wrapper's arguments."""
+    """The other library's step, bound with this wrapper's signature."""
     from raft_stereo_tpu_torch.ops import fused_update
 
     fn = ctypes.CDLL(str(so)).fused_update_step
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                   *[ctypes.c_int] * 8, ctypes.c_void_p]
+    fn.argtypes = fused_update._kernel().step.argtypes
     fn.restype = ctypes.c_int
+    return fused_update._Bound(fn, None, None)
 
-    def step(*args):  # the wrapper passes stage 1's geometry before the stream
-        return fn(*args[:12], args[-1])
 
-    return fused_update._Bound(step, None)
+def _pick(times, kernel):
+    return next((v for k, v in times.items() if kernel in k), None)
 
 
 ORDER = ("other", "this", "this", "other")
@@ -100,18 +99,20 @@ def main(argv=None) -> int:
                         return fused_update.fused_refine_step(*step_args, compute_dtype=dtype)
 
                     times = chip_smoke._device_ms_by_kernel(run, args.reps)
-                    stage1 = next((v for k, v in times.items() if "motion_in_kernel" in k), None)
                     res = {"tool": "k2_stage1_parent", "disparity": flow, "library": which,
-                           "stage1_ms": stage1, "step_ms": chip_smoke._time_ms(run, args.reps),
+                           "stage1_ms": _pick(times, "motion_in_kernel"),
+                           "stage7_ms": _pick(times, "head_out_kernel"),
+                           "step_ms": chip_smoke._time_ms(run, args.reps),
                            "device_ms_by_kernel": times}
                     print(json.dumps(res), flush=True)
                     runs.append(res)
         finally:
             fused_update._fn = None
-    summary = {f"{flow} {w}": statistics.median(
-        r["stage1_ms"] for r in runs if r["library"] == w and r["disparity"] == flow)
+    summary = {key: {f"{flow} {w}": statistics.median(
+        r[key] for r in runs if r["library"] == w and r["disparity"] == flow)
         for flow in inputs for w in ("other", "this")}
-    print(json.dumps({"tool": "k2_stage1_parent", "stage1_ms_median": summary}), flush=True)
+        for key in ("stage1_ms", "stage7_ms", "step_ms")}
+    print(json.dumps({"tool": "k2_stage1_parent", "median": summary}), flush=True)
     print(chip_smoke.smi_line(), flush=True)
     return 0
 
