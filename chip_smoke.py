@@ -102,6 +102,23 @@ Phases, each printing one JSON line:
      trace_host.json parsed, every event declared in ``EVENT_SCHEMA``, and
      ``tools/run_report.py`` run on it (``telemetry_runs``).
      The training phases run in a temp directory.
+ 12. serving, on the captured engine: the continuous-batching scheduler
+     over the raftstereo-middlebury batch-4 engine (``sched_path``: the
+     FIFO stream bitwise the plain engine, an interleaved stream with
+     deadlines and priorities, per item bitwise, its dispatch order, a
+     trickle of the rare bucket flushed by ``max_wait``, pairs/s of both
+     over 36-pair streams); shedding, the drain within and past its bound
+     and ``RAFT_FI_SCHED_STALL`` on the realtime-packed engine
+     (``sched_lifecycle``); ``demo.main --serve_video --adaptive_iters``
+     on 8 frames of one moving 540x960 scene, with the convergence exit
+     (K1's eager launches = the frames' iterations) and without it (one
+     three-input graph, replay bitwise eager), and ``RAFT_FI_WARM_POISON``
+     on frame 3 (``video_path``); ``update_variables`` replaying a fresh
+     engine's outputs bitwise with no new capture; ``evaluate.main --sched
+     --canary_every 4 --golden_dir`` twice and with goldens moved one pixel
+     (``quality_canary``: capture, pass, fail and latch); SIGUSR2 during a
+     scheduled video serve (``blackbox``: the dump's providers and thread
+     roles).
 Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -1744,20 +1761,20 @@ EVAL_TOL = {"eth3d-epe": 0.02, "eth3d-d1": 5e-4}
 ETH3D_SCENES = ((4, 480, 720), (2, 400, 640))
 
 
-def _eth3d_tree(tmp: Path) -> Path:
-    """A synthetic tree in ETH3D's layout under ``tmp/eth3d`` (written once,
-    with the port's ``frame_io``: ETH3D_SCENES, ground truth each scene's
-    constant disparity); returns its root."""
+def _eth3d_tree(tmp: Path, name: str = "eth3d", scenes=None) -> Path:
+    """A synthetic tree in ETH3D's layout under ``tmp/name`` (written once,
+    with the port's ``frame_io``: ``scenes``, ETH3D_SCENES by default, ground
+    truth each scene's constant disparity); returns its root."""
     import numpy as np
 
     from raft_stereo_tpu_torch.data import frame_io
 
-    root = tmp / "eth3d"
+    root = tmp / name
     base = root / "datasets" / "ETH3D"
     if base.exists():
         return root
     first = 0
-    for n, H, W in ETH3D_SCENES:
+    for n, H, W in scenes or ETH3D_SCENES:
         disps = _write_pairs(base / "two_view_training", n, H, W, seed=SEED + 20 + first,
                              first=first)
         for k, d in enumerate(disps, start=first):
@@ -3440,6 +3457,792 @@ def phase_train_resume(tmp: Path):
         raise AssertionError(f"train_resume: the resumed run {res}")
     return res
 
+# ------------------------------------- serving: scheduler, lifecycle, video
+
+# sched_path: the interleaved stream, the engine pairs (by payload) in
+# another order, with deadlines on some and priorities on others:
+# (payload, deadline_s, priority). The deadlines are seconds apart, so the
+# admission clock's jitter cannot reorder them.
+SCHED_INTERLEAVED = ((6, None, 0), (0, None, 0), (7, 5.0, 0), (1, None, 2), (2, None, 0),
+                     (8, None, 0), (3, 20.0, 0), (4, None, 5), (5, None, 0))
+# the trickle: pairs of the rare bucket, alone, each followed by a pause
+# longer than the scheduler's anti-starvation bound
+SCHED_TRICKLE_MAX_WAIT_S = 0.5
+SCHED_TRICKLE_PAUSE_S = 1.0
+# the rate streams: the 9 engine pairs this many times over (36 pairs)
+SCHED_RATE_REPEAT = 4
+
+# sched_lifecycle (realtime packed engine, batch 4): the shed run stalls the
+# first dispatch pass while all 9 pairs arrive, so the first
+# LIFECYCLE_MAX_PENDING are admitted and the rest shed; the expiring drain
+# stalls dispatch passes 2-6 past its bound.
+LIFECYCLE_MAX_PENDING = 4
+LIFECYCLE_SHED_STALL = "1:1500"
+LIFECYCLE_DRAIN_STALL = "2,3,4,5,6:400"
+LIFECYCLE_DRAIN_TIMEOUT_S = 0.25
+LIFECYCLE_DRAIN_SLACK_S = 2.0  # past the bound: the stalled pass and an in-flight batch
+
+# video_path: one moving scene, VIDEO_FRAMES frames at 540x960; the scene
+# moves VIDEO_STEP px a frame; RAFT_FI_WARM_POISON poisons the warm reuse
+# of frame VIDEO_POISON_FRAME (reuse ordinal = frame number: every frame
+# after the first warm-starts once).
+VIDEO_FRAMES = 8
+VIDEO_HW = (540, 960)
+VIDEO_STEP = 3
+VIDEO_POISON_FRAME = 3
+VIDEO_POISON_FILL = 40.0
+
+# quality_canary: a tree of 12 scenes at 480x720, so --canary_every 4
+# weaves 3 canaries (keys 1, 2, 3) into each run
+QUALITY_SCENES = ((12, 480, 720),)
+QUALITY_CANARY_EVERY = 4
+
+
+def _recorded_groups(sched) -> list:
+    """Record each group ``sched`` dispatches (its payloads, flush token
+    dropped), in order."""
+    groups = []
+    inner = sched._next_group
+
+    def record():
+        group = inner()
+        if group is not None:
+            groups.append([r.payload for r in group if hasattr(r, "payload")])
+        return group
+
+    sched._next_group = record
+    return groups
+
+
+def _events_of(run_dir) -> list:
+    path = Path(run_dir) / "events.jsonl"
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+
+
+def _bitwise(results, want, key=lambda k: k) -> dict:
+    """Completed results against ``want`` (by ``key(payload)``), bitwise,
+    with the largest difference of those that differ."""
+    import numpy as np
+
+    done = [k for k, r in results.items() if r.ok]
+    diffs = [float(np.abs(results[k].output.astype(np.float64)
+                          - want[key(k)].astype(np.float64)).max()) for k in done]
+    return {"compared": len(done), "bitwise_equal": sum(d == 0 for d in diffs),
+            "max_abs_diff": max(diffs, default=0.0)}
+
+
+def phase_sched_path(tmp: Path):
+    """The continuous-batching scheduler over the captured batch-4 engine of
+    raftstereo-middlebury (32 iterations), on the engine pairs (6 at
+    540x960, 3 at 480x640). The path: the FIFO stream through the scheduler
+    on a fresh engine (counts set to 0 before, read after; K1's launches are
+    the graphs' replayed launches). Then, on the same graphs: the plain
+    engine over the same stream (the scheduler's outputs must equal it
+    bitwise); the interleaved stream with deadlines and priorities
+    (dispatch order recorded, each output bitwise the plain engine's); a
+    trickle of the rare bucket with pauses above the scheduler's max wait,
+    which must flush with reason max_wait; and pairs/s of the plain engine
+    and the scheduler over 36-pair streams, in turns, no bound."""
+    import torch
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model, make_engine
+    from raft_stereo_tpu_torch.ops.pad import bucket_shape
+    from raft_stereo_tpu_torch.runtime import infer, telemetry
+    from raft_stereo_tpu_torch.runtime.scheduler import ContinuousBatchingScheduler, SchedRequest
+
+    imgs = _engine_pairs(tmp)
+    n_pairs = len(imgs)
+    model = load_model(PRESETS["raftstereo-middlebury"], seed=SEED)
+    engine = make_engine(model, 32, infer.InferOptions(batch=ENGINE_BATCH))
+
+    def requests(order=range(n_pairs)):
+        return [infer.InferRequest(payload=k, inputs=imgs[k]) for k in order]
+
+    sched = ContinuousBatchingScheduler(engine, max_wait_s=30.0)
+    fifo_groups = _recorded_groups(sched)
+    replayed0 = dict(engine.graphs.replayed_launches)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    served = {r.payload: r for r in sched.serve(iter(requests()))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wrapper = _launches()
+    launches = {k: v - replayed0[k] for k, v in engine.graphs.replayed_launches.items()}
+    captures = engine.graphs.captures
+    with _launches_kept():
+        plain = {r.payload: r for r in engine.stream(iter(requests()))}
+        want = {k: r.output for k, r in plain.items()}
+        fifo = _bitwise(served, want)
+
+        inter = ContinuousBatchingScheduler(engine, max_wait_s=30.0)
+        inter_groups = _recorded_groups(inter)
+        stream = [SchedRequest(infer.InferRequest(payload=k, inputs=imgs[k]), priority=p,
+                               deadline_s=d) for k, d, p in SCHED_INTERLEAVED]
+        inter_out = {r.payload: r for r in inter.serve(iter(stream))}
+        interleaved = _bitwise(inter_out, want)
+
+        run_dir = tmp / "sched_trickle"
+        tel = telemetry.install(telemetry.Telemetry(str(run_dir)))
+        try:
+            trickle = ContinuousBatchingScheduler(engine, max_wait_s=SCHED_TRICKLE_MAX_WAIT_S)
+            rare_hw = tuple(ENGINE_PAIRS[-1][1:])
+            rare = [k for k in range(n_pairs) if imgs[k][0].shape[:2] == rare_hw][:2]
+
+            def paced():
+                for k in rare:
+                    yield infer.InferRequest(payload=k, inputs=imgs[k])
+                    time.sleep(SCHED_TRICKLE_PAUSE_S)
+
+            trickle_out = {r.payload: r for r in trickle.serve(paced())}
+        finally:
+            telemetry.uninstall(tel)
+        flushes = [e for e in _events_of(run_dir) if e["event"] == "sched_flush"]
+
+        rate_reqs = [infer.InferRequest(payload=i, inputs=imgs[i % n_pairs])
+                     for i in range(n_pairs * SCHED_RATE_REPEAT)]
+        rates = {"plain": [], "sched": []}
+        for kind in ("plain", "sched", "sched", "plain"):
+            stream_fn = (engine.stream if kind == "plain"
+                         else ContinuousBatchingScheduler(engine).serve)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            done = sum(r.ok for r in stream_fn(iter(rate_reqs)))
+            torch.cuda.synchronize()
+            rates[kind].append(done / (time.perf_counter() - t1))
+    res = {
+        "phase": "sched_path", "entry": "runtime.scheduler.ContinuousBatchingScheduler.serve",
+        "preset": "raftstereo-middlebury", "iters": 32, "batch": ENGINE_BATCH,
+        "inputs": [[n, H, W] for n, H, W in ENGINE_PAIRS], "completed": sum(
+            r.ok for r in served.values()), "wall_s_with_captures": wall, "captures": captures,
+        "launches": launches, "launches_counted_as": "launches at capture x replays",
+        "wrapper_launches_warmup_and_capture": wrapper, "fifo_groups": fifo_groups,
+        "fifo_vs_plain": fifo, "interleaved_stream": [list(x) for x in SCHED_INTERLEAVED],
+        "interleaved_groups": inter_groups, "interleaved_vs_plain": interleaved,
+        "trickle": {"max_wait_s": SCHED_TRICKLE_MAX_WAIT_S, "pause_s": SCHED_TRICKLE_PAUSE_S,
+                    "payloads": rare, "flushes": [
+                        {k: e[k] for k in ("bucket", "valid", "reason", "wait_ms")}
+                        for e in flushes], "vs_plain": _bitwise(trickle_out, want)},
+        "pairs_per_s": rates, "pairs_a_rate_stream": len(rate_reqs),
+        "engine_retries": engine.stats.retries, "card": smi_line(),
+    }
+    emit(res)
+    if res["completed"] != n_pairs or captures != 2 or res["engine_retries"]:
+        raise AssertionError(f"sched_path: {res['completed']} served, {captures} captures, "
+                             f"{res['engine_retries']} retries")
+    want_k1 = 3 * 32  # three batches of 32 lookups
+    if launches["alt_corr"] != want_k1 or wrapper["alt_corr"] != 2 * 2 * 32:
+        raise AssertionError(f"sched_path: K1 launches {launches}, wrapper {wrapper}")
+    for name, cmp in (("fifo", fifo), ("interleaved", interleaved),
+                      ("trickle", res["trickle"]["vs_plain"])):
+        n_want = len(rare) if name == "trickle" else n_pairs
+        if cmp["compared"] != n_want or cmp["bitwise_equal"] != n_want:
+            raise AssertionError(f"sched_path: {name} against the plain engine: {cmp}")
+    if sorted(sum(inter_groups, [])) != list(range(n_pairs)):
+        raise AssertionError(f"sched_path: interleaved groups {inter_groups}")
+    if not any(e["reason"] == "max_wait" and e["bucket"] == list(bucket_shape(*rare_hw))
+               for e in flushes):
+        raise AssertionError(f"sched_path: no max_wait flush of the rare bucket: {flushes}")
+    return res
+
+
+def phase_sched_lifecycle(tmp: Path):
+    """Shedding, the drain and the stall injector on the realtime-packed
+    engine (batch 4, 7 iterations), one captured engine for every run. A
+    clean plain run gives the reference outputs. Shed: --max_pending 4 with
+    RAFT_FI_SCHED_STALL stalling the first dispatch pass 1.5 s while the 9
+    pairs arrive: pairs 0-3 served (the first result after the stall), 4-8
+    typed ShedErrors (queue_full). Drain within the bound: a stream whose
+    source waits after 8 requests, stopped after 4 results: the request
+    pulled as the stop lands is the last admitted (9), and every admitted
+    request completes. Drain past the bound: 18 requests, dispatch passes
+    2-6 stalled 0.4 s, the bound 0.25 s, stopped after 2 results: every
+    admitted request resolves once, completed or DrainedError, the last
+    within the bound and its slack. Every completed output bitwise the
+    clean run's."""
+    import threading
+
+    import torch
+
+    from raft_stereo_tpu_torch.evaluate import make_engine
+    from raft_stereo_tpu_torch.models import extractor
+    from raft_stereo_tpu_torch.runtime import faultinject, infer
+    from raft_stereo_tpu_torch.runtime.preemption import GracefulShutdown, ServeDrain
+    from raft_stereo_tpu_torch.runtime.scheduler import (ContinuousBatchingScheduler,
+                                                         DrainedError, ShedError)
+
+    imgs = _engine_pairs(tmp)
+    n_pairs = len(imgs)
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    runs = {}
+    try:
+        model = _realtime_packed_model()
+        engine = make_engine(model, 7, infer.InferOptions(batch=ENGINE_BATCH))
+
+        def requests(n):
+            return [infer.InferRequest(payload=k, inputs=imgs[k % n_pairs]) for k in range(n)]
+
+        with _launches_kept(), _injector():
+            want = {r.payload: r.output for r in engine.stream(iter(requests(n_pairs)))}
+
+        def ref(k):
+            return k % n_pairs
+
+        # shed
+        replayed0 = dict(engine.graphs.replayed_launches)
+        with _injector("RAFT_FI_SCHED_STALL", LIFECYCLE_SHED_STALL):
+            _zero_launches()
+            sched = ContinuousBatchingScheduler(engine, max_wait_s=30.0,
+                                                max_pending=LIFECYCLE_MAX_PENDING)
+            t0 = time.perf_counter()
+            first, out = None, {}
+            for r in sched.serve(iter(requests(n_pairs))):
+                if r.ok and first is None:
+                    first = time.perf_counter() - t0
+                out[r.payload] = r
+            passes = faultinject.sched_dispatch_attempts()
+        launches = {k: v - replayed0[k] for k, v in engine.graphs.replayed_launches.items()}
+        shed = sorted(k for k, r in out.items() if isinstance(r.error, ShedError))
+        runs["shed"] = {
+            "max_pending": LIFECYCLE_MAX_PENDING, "injector": f"RAFT_FI_SCHED_STALL="
+            f"{LIFECYCLE_SHED_STALL}", "completed": sorted(k for k, r in out.items() if r.ok),
+            "shed": shed, "reasons": sorted({out[k].error.reason for k in shed}),
+            "stats_shed": dict(sched.stats.shed_reasons), "first_result_s": first,
+            "dispatch_passes": passes, **_bitwise(out, want, ref)}
+
+        # drain within the bound
+        shutdown = GracefulShutdown()  # not entered: the stop is requested in-process
+        drain = ServeDrain(shutdown, timeout_s=30.0, label="chip_smoke")
+        sched = ContinuousBatchingScheduler(engine, max_wait_s=2.0)
+        drain.attach(sched)
+        accepted, out = [], {}
+
+        def gated(n):
+            # 8 requests, then the source waits for the stop: the request
+            # pulled as the stop lands is the last one admitted
+            for i, r in enumerate(requests(n)):
+                if i == 8:
+                    deadline = time.monotonic() + 60.0
+                    while not drain.draining and time.monotonic() < deadline:
+                        time.sleep(0.01)
+                accepted.append(r.payload)
+                yield r
+
+        with _launches_kept(), _injector():
+            for r in sched.serve(drain.wrap_source(gated(4 * n_pairs))):
+                drain.note_result(r)
+                out[r.payload] = r
+                if len(out) == 4:
+                    shutdown.request_stop()
+        runs["drain"] = {"timeout_s": 30.0, "accepted": len(accepted), "resolved": len(out),
+                         "completed": sum(r.ok for r in out.values()),
+                         "finish": drain.finish(), **_bitwise(out, want, ref)}
+        runs["drain"]["all_accepted_resolved"] = sorted(out) == sorted(accepted)
+
+        # drain past the bound
+        shutdown = GracefulShutdown()
+        drain = ServeDrain(shutdown, timeout_s=LIFECYCLE_DRAIN_TIMEOUT_S, label="chip_smoke")
+        sched = ContinuousBatchingScheduler(engine, max_wait_s=30.0)
+        drain.attach(sched)
+        accepted, out, t_stop, t_last = [], {}, None, None
+
+        def counted(n):
+            for r in requests(n):
+                accepted.append(r.payload)
+                yield r
+
+        with _launches_kept(), _injector("RAFT_FI_SCHED_STALL", LIFECYCLE_DRAIN_STALL):
+            for r in sched.serve(drain.wrap_source(counted(2 * n_pairs))):
+                drain.note_result(r)
+                out[r.payload] = r
+                t_last = time.perf_counter()
+                if len(out) == 2 and t_stop is None:
+                    t_stop = t_last
+                    shutdown.request_stop()
+        drained = sorted(k for k, r in out.items() if isinstance(r.error, DrainedError))
+        runs["drain_expired"] = {
+            "timeout_s": LIFECYCLE_DRAIN_TIMEOUT_S, "injector": f"RAFT_FI_SCHED_STALL="
+            f"{LIFECYCLE_DRAIN_STALL}", "accepted": len(accepted), "resolved": len(out),
+            "completed": sorted(k for k, r in out.items() if r.ok), "drained": drained,
+            "stop_to_last_result_s": t_last - t_stop, "finish": drain.finish(),
+            "all_accepted_resolved": sorted(out) == sorted(accepted), **_bitwise(out, want, ref)}
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        extractor._ENABLE_PACKED = saved
+    res = {"phase": "sched_lifecycle", "preset": "raftstereo-realtime", "packed_stage": True,
+           "iters": 7, "batch": ENGINE_BATCH, "launches": launches,
+           "launches_counted_as": "launches at capture x replays (the shed run)",
+           "runs": runs, "card": smi_line()}
+    emit(res)
+    sh = runs["shed"]
+    if (sh["completed"] != list(range(LIFECYCLE_MAX_PENDING))
+            or sh["shed"] != list(range(LIFECYCLE_MAX_PENDING, n_pairs))
+            or sh["reasons"] != ["queue_full"] or sh["first_result_s"] < 1.5):
+        raise AssertionError(f"sched_lifecycle: the shed run {sh}")
+    dr, de = runs["drain"], runs["drain_expired"]
+    if not (dr["all_accepted_resolved"] and dr["completed"] == dr["resolved"]
+            and dr["accepted"] == 9 and dr["finish"]["drained"] == 0):
+        raise AssertionError(f"sched_lifecycle: the drain within its bound {dr}")
+    if not (de["all_accepted_resolved"] and de["drained"]
+            and len(de["completed"]) + len(de["drained"]) == de["resolved"]
+            and de["finish"]["drained"] == len(de["drained"])
+            and de["stop_to_last_result_s"] <= LIFECYCLE_DRAIN_TIMEOUT_S
+            + LIFECYCLE_DRAIN_SLACK_S):
+        raise AssertionError(f"sched_lifecycle: the drain past its bound {de}")
+    for name, r in runs.items():
+        if r["bitwise_equal"] != r["compared"] or not r["compared"]:
+            raise AssertionError(f"sched_lifecycle {name}: {r['bitwise_equal']} of "
+                                 f"{r['compared']} outputs equal the clean run's")
+    return res
+
+
+def _write_video(root: Path, n: int, H: int, W: int, d: int = 24,
+                 step: int = VIDEO_STEP, seed: int = SEED + 40):
+    """``n`` frames of one moving scene as PNGs in ``root/frameK/im{0,1}``:
+    one smoothed random texture, panned ``step`` px a frame, the right view
+    the left shifted by ``d``."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    pad = 64
+    tex = rng.rand(H, W + 2 * pad + n * step, 3)
+    for axis in (0, 1):
+        tex = sum(np.roll(tex, s, axis=axis) for s in range(-2, 3)) / 5.0
+    tex = (tex * 255).astype(np.uint8)
+    for k in range(n):
+        x = pad + k * step
+        frame = root / f"frame{k}"
+        frame.mkdir(parents=True)
+        Image.fromarray(np.ascontiguousarray(tex[:, x:x + W])).save(frame / "im0.png")
+        Image.fromarray(np.ascontiguousarray(tex[:, x + d:x + d + W])).save(frame / "im1.png")
+
+
+def _padded(arrays):
+    """Host [H, W, C] arrays → batch-1 tensors on the card, edge-padded to
+    /32 as the engine pads them, and their padder."""
+    import torch
+
+    from raft_stereo_tpu_torch.ops.pad import BatchPadder
+
+    padder = BatchPadder([arrays[0].shape[:2]], divis_by=32)
+    return padder, [torch.from_numpy(padder.pad([x])).cuda() for x in arrays]
+
+
+def phase_video_path(tmp: Path):
+    """``demo.main --serve_video --adaptive_iters --converge_eps E`` with
+    raftstereo-realtime and the packed stage, batch 1, over VIDEO_FRAMES
+    frames at 540x960 of one moving scene. E is picked from frame 0's
+    per-step deltas as ``phase_early_exit`` picks it (the deltas of a probe
+    forward, cold, as frame 0 is served). Checks: session_warm_start reads
+    [False, True x 7]; each output [540, 960, 1]; frame 0's iterations as
+    the probe predicts; K1's (eager) launches = the sum of iters_done, K3's
+    4 a frame. Warm against cold iterations is recorded, not bounded
+    (random weights do not contract). Then the same with converge_eps 0: one
+    three-input graph captured, each frame's output bitwise the eager
+    forward on the same images and warm slot; then RAFT_FI_WARM_POISON on
+    frame 3: frames 0-2 bitwise the clean run's, frame 3 the eager forward
+    on the constant warm slot, unlike the clean frame 3, and every frame
+    served."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch import demo
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.demo import load_image
+    from raft_stereo_tpu_torch.evaluate import load_model, make_adaptive_forward
+    from raft_stereo_tpu_torch.models import extractor
+    from raft_stereo_tpu_torch.ops import fused_update
+    from raft_stereo_tpu_torch.runtime.scheduler import default_warm_fn
+
+    frames = tmp / "video"
+    if not frames.exists():
+        _write_video(frames, VIDEO_FRAMES, *VIDEO_HW)
+    imgs = [(load_image(str(frames / f"frame{k}" / "im0.png"))[0],
+             load_image(str(frames / f"frame{k}" / "im1.png"))[0]) for k in range(VIDEO_FRAMES)]
+    H, W = imgs[0][0].shape[:2]
+    iters = 7
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    try:
+        with _launches_kept():
+            probe = load_model(dataclasses.replace(PRESETS["raftstereo-realtime"],
+                                                   converge_eps=1e-30), seed=SEED)
+            deltas = []
+            inner = fused_update.batch_max_delta
+
+            def record(delta):
+                v = inner(delta)
+                deltas.append(float(v))
+                return v
+
+            fused_update.batch_max_delta = record
+            try:
+                _, (a, b) = _padded(imgs[0])
+                probe(a, b, iters=iters)
+            finally:
+                fused_update.batch_max_delta = inner
+            del probe
+        k = next((i for i in range(1, len(deltas)) if deltas[i] < min(deltas[:i])), 1)
+        eps = 0.5 * (min(deltas[:k]) + deltas[k])
+        frame0_iters = next((i + 1 for i, dd in enumerate(deltas) if dd < eps), len(deltas)) + 1
+
+        def run_demo(name, converge_eps, env=None):
+            out = tmp / f"out_{name}"
+            tel = tmp / f"tel_{name}"
+            argv = ["--preset", "raftstereo-realtime", "--valid_iters", str(iters),
+                    "--infer_batch", "1", "--serve_video", "--adaptive_iters",
+                    "--converge_eps", repr(converge_eps), "--telemetry_dir", str(tel),
+                    "-l", str(frames / "*" / "im0.png"), "-r", str(frames / "*" / "im1.png"),
+                    "--output_directory", str(out), "--save_numpy"]
+            with _injector(*(env or ())):
+                _zero_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run = demo.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                wrapper = _launches()
+            events = _events_of(tel)
+            warm = {e["frame"]: e for e in events if e["event"] == "session_warm_start"}
+            exits = {e["trace_id"]: e for e in events if e["event"] == "refine_early_exit"}
+            done = [exits[warm[f]["trace_id"]]["iters_done"] if warm[f]["trace_id"] in exits
+                    else iters for f in sorted(warm)]
+            disps = [np.load(out / f"frame{f}.npy") for f in range(VIDEO_FRAMES)]
+            return run, {"wall_s": wall, "wrapper_launches": wrapper,
+                         "warm": [warm[f]["warm"] for f in sorted(warm)],
+                         "warm_reasons": [warm[f]["reason"] for f in sorted(warm)],
+                         "iters_done": done, "ms_per_frame": [1e3 * s for s in run.seconds],
+                         "shapes": [list(x) for x in run.shapes], "saved": run.saved}, disps
+
+        adaptive_run, adaptive, _ = run_demo("video_adaptive", eps)
+        model = adaptive_run.model
+        with _launches_kept():
+            cold_iters = []
+            fwd = make_adaptive_forward(model, iters, video=True)
+            for f in range(VIDEO_FRAMES):
+                _, (a, b, z) = _padded((*imgs[f], np.zeros((H, W, 2), np.float32)))
+                cold_iters.append(int(round(float(fwd(a, b, z)[0, 0, 0, 1]))))
+        del adaptive_run, model, fwd
+        captured_run, captured, disps = run_demo("video_captured", 0.0)
+        graphs = captured_run.graphs
+        launches = dict(graphs.replayed_launches)
+        model = captured_run.model
+        with _launches_kept():
+            fwd = make_adaptive_forward(model, iters, video=True)
+
+            def eager(f, slot):
+                padder, (a, b, s) = _padded((*imgs[f], slot))
+                return padder.unpad(fwd(a, b, s).cpu().numpy(), 0)[:, :, 0]
+
+            warm_fn_ms = []
+            for d in disps[:3]:  # the session's host-side warm fill, timed
+                t0 = time.perf_counter()
+                default_warm_fn(d)
+                warm_fn_ms.append(1e3 * (time.perf_counter() - t0))
+            slots = [np.zeros((H, W, 2), np.float32)] + [default_warm_fn(d) for d in disps[:-1]]
+            replay_equal = [bool(np.array_equal(eager(f, slots[f]), disps[f]))
+                            for f in range(VIDEO_FRAMES)]
+            poison_run, poison, pdisps = run_demo(
+                "video_poison", 0.0, ("RAFT_FI_WARM_POISON",
+                                      f"{VIDEO_POISON_FRAME}:{VIDEO_POISON_FILL}"))
+            const = np.full((H, W, 2), VIDEO_POISON_FILL, np.float32)
+            poisoned_is_eager_on_fill = bool(np.array_equal(
+                eager(VIDEO_POISON_FRAME, const), pdisps[VIDEO_POISON_FRAME]))
+        before_equal = [bool(np.array_equal(pdisps[f], disps[f]))
+                        for f in range(VIDEO_POISON_FRAME)]
+        poison_differs = not np.array_equal(pdisps[VIDEO_POISON_FRAME], disps[VIDEO_POISON_FRAME])
+        captured.update(captures=graphs.captures, replays=graphs.replays,
+                        retries=captured_run.engine.stats.retries,
+                        replay_equals_eager_bitwise=replay_equal)
+        del captured_run, poison_run, model, fwd, graphs
+        torch.cuda.empty_cache()
+    finally:
+        extractor._ENABLE_PACKED = saved
+    adaptive["launches"] = adaptive["wrapper_launches"]
+    res = {"phase": "video_path", "entry": "raft_stereo_tpu_torch.demo.main --serve_video",
+           "preset": "raftstereo-realtime", "packed_stage": True, "iters": iters,
+           "frames": VIDEO_FRAMES, "size": [H, W], "scene_step_px": VIDEO_STEP,
+           "probe_deltas_frame0": deltas, "converge_eps": eps,
+           "frame0_iters_predicted": frame0_iters, "adaptive": adaptive,
+           "cold_iters": cold_iters, "warm_fn_ms": warm_fn_ms, "launches": adaptive["launches"],
+           "launches_counted_as": "wrapper launches (eager forward)",
+           "captured": captured, "captured_launches": launches,
+           "poison": {"injector": f"RAFT_FI_WARM_POISON={VIDEO_POISON_FRAME}:"
+                      f"{VIDEO_POISON_FILL}", "warm": poison["warm"], "saved": poison["saved"],
+                      "frames_before_bitwise_clean": before_equal,
+                      "poisoned_frame_is_eager_on_the_fill": poisoned_is_eager_on_fill,
+                      "poisoned_frame_differs_from_clean": poison_differs},
+           "card": smi_line()}
+    emit(res)
+    want_warm = [False] + [True] * (VIDEO_FRAMES - 1)
+    for name, r in (("adaptive", adaptive), ("captured", captured), ("poison", poison)):
+        if r["warm"] != want_warm or r["saved"] != VIDEO_FRAMES:
+            raise AssertionError(f"video_path {name}: warm {r['warm']}, {r['saved']} saved")
+    if adaptive["shapes"] != [[H, W, 1]] * VIDEO_FRAMES:
+        raise AssertionError(f"video_path: output shapes {adaptive['shapes']}")
+    if adaptive["iters_done"][0] != frame0_iters:
+        raise AssertionError(f"video_path: frame 0 ran {adaptive['iters_done'][0]} "
+                             f"iterations, the probe predicts {frame0_iters}")
+    want = {"alt_corr": sum(adaptive["iters_done"]), "fused_update": 0,
+            "packed_conv": K3_PER_TRUNK * VIDEO_FRAMES}
+    if adaptive["launches"] != want:
+        raise AssertionError(f"video_path: launches {adaptive['launches']}, expected {want}")
+    if (captured["captures"] != 1 or captured["replays"] != VIDEO_FRAMES
+            or captured["retries"] or not all(replay_equal)):
+        raise AssertionError(f"video_path: captured {captured}")
+    if launches != {"alt_corr": iters * VIDEO_FRAMES, "fused_update": 0,
+                    "packed_conv": K3_PER_TRUNK * VIDEO_FRAMES}:
+        raise AssertionError(f"video_path: captured launches {launches}")
+    if not (all(before_equal) and poisoned_is_eager_on_fill and poison_differs):
+        raise AssertionError(f"video_path: the poisoned run {res['poison']}")
+    return res
+
+
+def phase_update_variables(tmp: Path):
+    """``InferenceEngine.update_variables`` on the captured realtime-packed
+    engine: after an update to other weights (seed + 1), the engine's
+    replays equal, bitwise, a fresh engine built on those weights, with no
+    new capture, and differ from the old weights' outputs."""
+    import torch
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model, make_engine
+    from raft_stereo_tpu_torch.models import extractor
+    from raft_stereo_tpu_torch.runtime import infer
+
+    imgs = _engine_pairs(tmp)
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    try:
+        engine = make_engine(_realtime_packed_model(), 7, infer.InferOptions(batch=ENGINE_BATCH))
+
+        def serve(eng):
+            return {r.payload: r for r in eng.stream(iter(
+                [infer.InferRequest(payload=k, inputs=p) for k, p in enumerate(imgs)]))}
+
+        with _launches_kept():
+            before = serve(engine)
+            captures = engine.graphs.captures
+            new = load_model(PRESETS["raftstereo-realtime"], seed=SEED + 1)
+            t0 = time.perf_counter()
+            engine.update_variables(new.state_dict())
+            torch.cuda.synchronize()
+            update_ms = 1e3 * (time.perf_counter() - t0)
+            replayed0 = dict(engine.graphs.replayed_launches)
+            _zero_launches()
+            after = serve(engine)
+            launches = {k: v - replayed0[k] for k, v in engine.graphs.replayed_launches.items()}
+            fresh = serve(make_engine(new, 7, infer.InferOptions(batch=ENGINE_BATCH)))
+        vs_fresh = _bitwise(after, {k: r.output for k, r in fresh.items()})
+        vs_old = _bitwise(after, {k: r.output for k, r in before.items()})
+        res = {"phase": "update_variables", "preset": "raftstereo-realtime",
+               "packed_stage": True, "batch": ENGINE_BATCH, "pairs": len(imgs),
+               "tensors": len(new.state_dict()), "update_ms": update_ms,
+               "captures_before": captures, "captures_after": engine.graphs.captures,
+               "launches": launches, "launches_counted_as": "launches at capture x replays",
+               "vs_fresh_engine": vs_fresh, "vs_old_weights": vs_old, "card": smi_line()}
+        del engine, fresh, new
+        torch.cuda.empty_cache()
+    finally:
+        extractor._ENABLE_PACKED = saved
+    emit(res)
+    if res["captures_after"] != res["captures_before"] or res["captures_before"] != 2:
+        raise AssertionError(f"update_variables: captures {captures} -> "
+                             f"{res['captures_after']}")
+    if vs_fresh["bitwise_equal"] != len(imgs) or vs_old["bitwise_equal"] != 0:
+        raise AssertionError(f"update_variables: against a fresh engine {vs_fresh}, against "
+                             f"the old weights {vs_old}")
+    return res
+
+
+def phase_quality_canary(tmp: Path):
+    """``evaluate.main --dataset eth3d --sched --canary_every 4 --golden_dir
+    G`` (raftstereo-realtime) on a synthetic ETH3D tree of 12 scenes, so 3
+    canaries (keys 1, 2, 3) ride each run: the first run captures their
+    goldens and saves them in G, the second loads them and every canary
+    passes; a copy of G with every golden moved by one pixel (along W) makes
+    each canary fail, and the third failure latches (--canary_latch 3: the
+    canary_latch event and a blackbox dump). The drift sketch counts the 12
+    user results, never a canary; the metrics are the same in the first two
+    runs."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch import evaluate
+    from raft_stereo_tpu_torch.runtime.quality import QualityConfig
+
+    root = _eth3d_tree(tmp, "eth3d_quality", QUALITY_SCENES)
+    golden, moved = tmp / "goldens", tmp / "goldens_moved"
+    n_users = sum(n for n, _, _ in QUALITY_SCENES)
+    runs = {}
+
+    def run(name, golden_dir):
+        tel = tmp / f"tel_{name}"
+        argv = ["--dataset", "eth3d", "--preset", "raftstereo-realtime", "--valid_iters", "7",
+                "--sched", "--canary_every", str(QUALITY_CANARY_EVERY),
+                "--golden_dir", str(golden_dir), "--telemetry_dir", str(tel)]
+        with _chdir(root), _launches_kept():
+            _zero_launches()
+            t0 = time.perf_counter()
+            metrics = evaluate.main(argv)
+            wall = time.perf_counter() - t0
+            wrapper = _launches()
+        q = evaluate.last_quality()
+        events = _events_of(tel)
+        results = [e for e in events if e["event"] == "canary_result"]
+        blackbox = tel / "blackbox.json"
+        runs[name] = {
+            "metrics": metrics, "wall_s": wall, "wrapper_launches": wrapper,
+            "canaries": q["canaries"], "injected": q["canaries_injected"],
+            "user_results": q["user_results"],
+            "sketch_results": q["tiers"]["serving"]["reference"]["counters"]["results"],
+            "outcomes": [(e["key"], e["outcome"], e["epe"], e["consecutive"]) for e in results],
+            "latch_events": [e["consecutive"] for e in events if e["event"] == "canary_latch"],
+            "blackbox_trigger": (json.loads(blackbox.read_text())["trigger"]
+                                 if blackbox.exists() else None)}
+
+    run("first", golden)
+    path = golden / f"canary_goldens_{QUALITY_SCENES[0][1]}x{QUALITY_SCENES[0][2]}.npz"
+    run("second", golden)
+    moved.mkdir()
+    shift = {}
+    with np.load(path) as z:
+        arrays = {name: np.roll(z[name], 1, axis=1) for name in z.files}
+        shift = {name: float(np.abs(arrays[name].astype(np.float64) - z[name]).mean())
+                 for name in z.files}
+    np.savez(moved / path.name, **arrays)
+    run("moved", moved)
+    res = {"phase": "quality_canary", "entry": "raft_stereo_tpu_torch.evaluate.main --sched",
+           "preset": "raftstereo-realtime", "scenes": [list(x) for x in QUALITY_SCENES],
+           "canary_every": QUALITY_CANARY_EVERY, "canary_tol_px": QualityConfig().canary_tol,
+           "check": "toleranced (bf16: goldens are bit-exact only on the fp32 path)",
+           "golden_file": path.name, "moved_mean_abs_px": shift, "runs": runs,
+           "card": smi_line()}
+    emit(res)
+    first, second, mv = runs["first"], runs["second"], runs["moved"]
+    n_can = n_users // QUALITY_CANARY_EVERY
+    if [o[1] for o in first["outcomes"]] != ["captured"] * n_can or not path.exists():
+        raise AssertionError(f"quality_canary: the first run {first['outcomes']}")
+    if [o[1] for o in second["outcomes"]] != ["pass"] * n_can:
+        raise AssertionError(f"quality_canary: the second run {second['outcomes']}")
+    if ([o[1] for o in mv["outcomes"]] != ["fail"] * n_can or mv["latch_events"] != [3]
+            or mv["canaries"]["latched"] != ["serving"] or mv["blackbox_trigger"]
+            != "canary_latch"):
+        raise AssertionError(f"quality_canary: the moved goldens {mv}")
+    for name, r in runs.items():
+        if (r["user_results"], r["sketch_results"], r["injected"]) != (n_users, n_users, n_can):
+            raise AssertionError(f"quality_canary {name}: {r['user_results']} user results, "
+                                 f"{r['sketch_results']} in the sketch, {r['injected']} canaries")
+    if first["metrics"] != second["metrics"] or not all(
+            math.isfinite(v) for v in first["metrics"].values()):
+        raise AssertionError(f"quality_canary: metrics {first['metrics']} vs "
+                             f"{second['metrics']}")
+    return res
+
+
+def phase_blackbox(tmp: Path):
+    """SIGUSR2 during a scheduled video serve (``make_serving`` with --sched
+    and --serve_video on the realtime-packed model, batch 4): the source
+    pauses after three session frames and one sessionless pair; once their
+    results are in, the signal. The dump must parse and hold the
+    ``engine:serving``, ``scheduler:serving`` and ``sessions`` providers and
+    every thread's stack with its role (main, admit, stager, introspect);
+    then the serve finishes, every request served."""
+    import os
+    import signal
+    import threading
+
+    from raft_stereo_tpu_torch.evaluate import make_serving
+    from raft_stereo_tpu_torch.models import extractor
+    from raft_stereo_tpu_torch.runtime import blackbox, infer, telemetry
+    from raft_stereo_tpu_torch.runtime.scheduler import SchedRequest
+
+    imgs = _engine_pairs(tmp)
+    run_dir = tmp / "blackbox_run"
+    saved = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    tel = telemetry.install(telemetry.Telemetry(str(run_dir)))
+    dumper = blackbox.install(blackbox.BlackboxDumper(str(run_dir)))
+    gate = threading.Event()
+    results = []
+    worker = None
+    try:
+        dumper.watch_signal()
+        engine, stream = make_serving(_realtime_packed_model(), 7, infer.InferOptions(
+            batch=ENGINE_BATCH, sched=True, sched_max_wait=0.2, adaptive_iters=True,
+            video=True))
+
+        def source():
+            for k in range(3):
+                yield SchedRequest(infer.InferRequest(payload=f"frame{k}", inputs=imgs[k]),
+                                   session="video")
+            yield infer.InferRequest(payload="plain", inputs=imgs[6])
+            gate.wait(timeout=120.0)
+            for k in range(3, 6):
+                yield SchedRequest(infer.InferRequest(payload=f"frame{k}", inputs=imgs[k]),
+                                   session="video")
+
+        def consume():
+            with _launches_kept():
+                for r in stream(source()):
+                    results.append(r)
+
+        # the consumer on a worker: the main thread, where the signal lands,
+        # signals a live serve
+        worker = threading.Thread(target=consume, name="chip-smoke-consumer")
+        worker.start()
+        deadline = time.monotonic() + 120.0
+        while len(results) < 4 and time.monotonic() < deadline and worker.is_alive():
+            time.sleep(0.05)
+        served_before = len(results)
+        os.kill(os.getpid(), signal.SIGUSR2)
+        dumped = dumper.wait_for_dump(1, timeout_s=30.0)
+        gate.set()
+        worker.join(timeout=120.0)
+    finally:
+        gate.set()
+        if worker is not None:
+            worker.join(timeout=30.0)
+        blackbox.uninstall(dumper)
+        telemetry.uninstall(tel)
+        extractor._ENABLE_PACKED = saved
+    doc = json.loads((run_dir / blackbox.BLACKBOX_NAME).read_text())
+    roles = {}
+    for th in doc["threads"]:
+        roles.setdefault(th["role"], []).append(th["name"])
+    res = {"phase": "blackbox", "served_before_signal": served_before, "dumped": dumped,
+           "trigger": doc["trigger"], "reason": doc["reason"], "dump_ms": doc["dump_ms"],
+           "providers": sorted(doc["snapshots"]), "roles": roles,
+           "ring_events": len(doc["ring"]["events"]),
+           "sessions_snapshot": doc["snapshots"].get("sessions"),
+           "scheduler_snapshot_stats": (doc["snapshots"].get("scheduler:serving") or {}).get(
+               "stats"),
+           "served": sorted(str(r.payload) for r in results if r.ok),
+           "consumer_alive": worker.is_alive(), "captures": engine.graphs.captures,
+           "engine_retries": engine.stats.retries, "card": smi_line()}
+    emit(res)
+    if not (dumped and served_before == 4 and doc["trigger"] == "signal"
+            and doc["reason"] == "SIGUSR2"):
+        raise AssertionError(f"blackbox: dump {dumped}, {served_before} served before the "
+                             f"signal, trigger {doc['trigger']}")
+    if not {"engine:serving", "scheduler:serving", "sessions"} <= set(doc["snapshots"]):
+        raise AssertionError(f"blackbox: providers {sorted(doc['snapshots'])}")
+    names = {th["name"]: th["role"] for th in doc["threads"]}
+    want = {"MainThread": "main", "sched-admit": "admit", "session-router": "admit",
+            "infer-stager": "stager", "blackbox-dump": "introspect"}
+    if any(names.get(k) != v for k, v in want.items()) or not all(
+            th["stack"] for th in doc["threads"] if th["name"] in want):
+        raise AssertionError(f"blackbox: thread roles {names}")
+    if res["consumer_alive"] or len(res["served"]) != 7 or res["engine_retries"]:
+        raise AssertionError(f"blackbox: the serve ended with {res['served']}")
+    return res
+
+
 # The kernels each main path must launch.
 PATH_KERNELS = {
     "main_path": ("alt_corr",),
@@ -3453,6 +4256,11 @@ PATH_KERNELS = {
     "train_path_alt": ("alt_corr",),
     "engine_faults_degraded": ("alt_corr", "packed_conv"),
     "train_grad_check_k2": ("fused_update",),
+    "sched_path": ("alt_corr",),
+    "sched_lifecycle": ("alt_corr", "packed_conv"),
+    "video_path": ("alt_corr", "packed_conv"),
+    "video_path_captured": ("alt_corr", "packed_conv"),
+    "update_variables": ("alt_corr", "packed_conv"),
 }
 
 
@@ -3500,13 +4308,22 @@ def main() -> int:
                   phase_train_path(Path(tmp), corr="alt", steps=4)]
         phase_train_resume(Path(tmp))
         phase_telemetry_runs(Path(tmp))
+        t_serving = time.perf_counter()
+        paths.append(phase_sched_path(Path(tmp)))
+        paths.append(phase_sched_lifecycle(Path(tmp)))
+        video = phase_video_path(Path(tmp))
+        paths += [video, {"phase": "video_path_captured", "launches": video["captured_launches"]}]
+        paths.append(phase_update_variables(Path(tmp)))
+        phase_quality_canary(Path(tmp))
+        phase_blackbox(Path(tmp))
+        emit({"phase": "serving_total", "seconds": time.perf_counter() - t_serving})
     by_path = {r["phase"]: r["launches"] for r in paths}
     for path, counts in by_path.items():
         if any(counts[k] < 1 for k in PATH_KERNELS[path]):
             raise AssertionError(f"{path}: a kernel of the path never launched: {counts}")
     main_res, fused_res = paths[0], paths[1]
     k1_bwd = grad_check["k1"]
-    alt_prof = paths[-1]["profiled_step"]
+    alt_prof = next(r for r in paths if r["phase"] == "train_path_alt")["profiled_step"]
     # the main paths' shapes (K2, K3: bf16, the presets' dtype)
     k1, k2, k3 = checks[0], fused_checks[0], k3_checks[0]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "card": dev["smi"]})

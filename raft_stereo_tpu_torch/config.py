@@ -133,6 +133,10 @@ def config_from_args(args) -> RAFTStereoConfig:
         n_gru_layers=args.n_gru_layers,
         mixed_precision=args.mixed_precision,
         fused_update=args.fused_update,
+        # the convergence exit is part of the model (the refinement loop's
+        # shape); it is inert without --adaptive_iters
+        converge_eps=(float(getattr(args, "converge_eps", 0.0))
+                      if getattr(args, "adaptive_iters", False) else 0.0),
     )
 
 

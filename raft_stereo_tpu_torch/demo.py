@@ -11,7 +11,13 @@ fails to load fails alone and is logged and skipped. ``--per_image`` keeps
 the synchronous one-pair loop (its forward captured once per shape on the
 card). Each pair is padded to /32 and unpadded; outputs are named after the
 left image's directory. ``--telemetry_dir`` writes the engine's events,
-spans, heartbeat and latency metrics there (``runtime/telemetry.py``).
+spans, heartbeat and latency metrics there (``runtime/telemetry.py``) and
+arms the blackbox (SIGUSR2 dumps ``blackbox.json`` there).
+
+``--serve_video`` (with ``--adaptive_iters``) serves the sorted pairs as the
+frames of one stereo video: one session of the ``SessionServer``, each
+frame warm-started from the previous frame's disparity; with
+``--converge_eps`` warm frames can leave the refinement loop early.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from raft_stereo_tpu_torch.runtime.infer import (
     options_from_args,
 )
 from raft_stereo_tpu_torch.runtime import telemetry
+from raft_stereo_tpu_torch.runtime.scheduler import SchedRequest
 
 logger = logging.getLogger(__name__)
 
@@ -74,12 +81,15 @@ def save_disparity_png(path: str, disp: np.ndarray) -> None:
 class DemoRun:
     """What a demo run did: the model it ran, the pairs it saved; on the
     per-image path each pair's forward seconds (host clock, until the
-    disparity reached the host); the engine, on the engine path; and the
-    captured forwards (None where the forward ran eagerly)."""
+    disparity reached the host), on the engine path each result's seconds
+    since the previous one (the first: since the stream started) and each
+    saved output's shape; the engine, on the engine path; and the captured
+    forwards (None where the forward ran eagerly)."""
 
     model: RAFTStereo
     saved: int = 0
     seconds: List[float] = field(default_factory=list)
+    shapes: List[tuple] = field(default_factory=list)
     engine: Optional[InferenceEngine] = None
     graphs: Optional[GraphCache] = None
 
@@ -121,14 +131,21 @@ def demo(args, device=None) -> DemoRun:
     def requests():
         for imfile1, imfile2 in zip(left_images, right_images):
             # decoded on the stager thread; a pair that fails to load fails alone
-            yield InferRequest(payload=imfile1, inputs=lambda f1=imfile1, f2=imfile2: (
+            req = InferRequest(payload=imfile1, inputs=lambda f1=imfile1, f2=imfile2: (
                 load_image(f1)[0], load_image(f2)[0]))
+            # --serve_video: the sorted pairs are one video, one session
+            yield SchedRequest(req, session="video") if infer.video else req
 
+    t_last = time.perf_counter()
     for res in stream(requests()):
+        now = time.perf_counter()
+        run.seconds.append(now - t_last)
+        t_last = now
         if not res.ok:
             logger.error("FAILED %s: %s: %s", res.payload, type(res.error).__name__, res.error)
             continue
         _save_result(out_dir, res.payload, res.output[:, :, 0], args.save_numpy)
+        run.shapes.append(tuple(res.output.shape))
         run.saved += 1
     stats = engine.stats
     infer_mod.publish_summary(stats, label="demo")
@@ -143,6 +160,12 @@ def main(argv=None, device=None) -> DemoRun:
     add_model_args(parser)
     add_infer_args(parser)
     parser.add_argument("--save_numpy", action="store_true")
+    parser.add_argument(
+        "--serve_video", action="store_true",
+        help="adaptive video serving (needs --adaptive_iters): the sorted left/right pairs "
+        "are one stereo video; its frames serve in order through a session, each "
+        "warm-started from the previous frame's disparity (forward_interpolate into "
+        "flow_init); with --converge_eps warm frames can leave the refinement loop early")
     parser.add_argument("-l", "--left_imgs",
                         default="datasets/Middlebury/MiddEval3/testH/*/im0.png")
     parser.add_argument("-r", "--right_imgs",
@@ -150,12 +173,17 @@ def main(argv=None, device=None) -> DemoRun:
     parser.add_argument("--output_directory", default="demo_output")
     apply_preset_defaults(parser, argv)
     args = parser.parse_args(argv)
+    if args.serve_video and (not args.adaptive_iters or args.per_image):
+        raise SystemExit("--serve_video needs the batched adaptive path: pass "
+                         "--adaptive_iters (and drop --per_image)")
     logging.basicConfig(level=logging.INFO)
     infer_mod.reset_summary()
     tel = install_cli_telemetry(args)
+    end_introspection = infer_mod.install_cli_introspection(args)
     try:
         run = demo(args, device=device)
     finally:
+        end_introspection()
         telemetry.uninstall(tel)
     infer_mod.enforce_failure_budget(args.max_failed_frac)
     return run

@@ -19,7 +19,18 @@ captured once per input shape on the card. Per-image metrics fold in
 dataset index order on both paths. KITTI's per-pair FPS is defined on the
 per-image path; the engine reports its throughput with capture time
 excluded instead. ``--telemetry_dir`` writes the engine's events, spans,
-heartbeat and latency metrics there (``runtime/telemetry.py``).
+heartbeat and latency metrics there (``runtime/telemetry.py``) and arms the
+blackbox (SIGUSR2 dumps ``blackbox.json`` there).
+
+Serving options (``runtime/infer.py::add_infer_args``): ``--sched`` puts
+the continuous-batching scheduler in front of the engine
+(``runtime/scheduler.py``; ``--max_pending`` sheds); the first SIGTERM or
+SIGINT drains the run within ``--drain_timeout`` and it exits 0 with the
+metrics of the completed pairs; ``--adaptive_iters --converge_eps`` serves
+with the convergence exit; the quality observatory watches every user
+result (``--no_quality`` turns it off) and ``--canary_every`` weaves golden
+canaries into the stream, checked against ``--golden_dir``'s goldens (a
+run that captured goldens saves them there).
 
 Everything here runs on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that request it raises. On
@@ -47,8 +58,9 @@ from raft_stereo_tpu_torch.data import datasets
 from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
 from raft_stereo_tpu_torch.ops.pad import InputPadder
+from raft_stereo_tpu_torch.ops.sampling import interp_bilinear
 from raft_stereo_tpu_torch.runtime import infer as infer_mod
-from raft_stereo_tpu_torch.runtime import telemetry
+from raft_stereo_tpu_torch.runtime import quality, telemetry
 from raft_stereo_tpu_torch.runtime.infer import (
     GraphCache,
     InferenceEngine,
@@ -57,6 +69,8 @@ from raft_stereo_tpu_torch.runtime.infer import (
     add_infer_args,
     options_from_args,
 )
+from raft_stereo_tpu_torch.runtime.preemption import GracefulShutdown, ServeDrain
+from raft_stereo_tpu_torch.runtime.scheduler import SessionServer, make_scheduler, make_stream
 from raft_stereo_tpu_torch.utils.weights import load_reference_pth
 
 logger = logging.getLogger(__name__)
@@ -82,6 +96,11 @@ def load_model(args_or_config, device=None, seed: int = 0,
     if isinstance(args_or_config, RAFTStereoConfig):
         cfg = args_or_config
     else:
+        if getattr(args_or_config, "adaptive_iters", False) and args_or_config.per_image:
+            # the per-image path is the reference's protocol: no engine, no
+            # sessions, and a forward that returns two outputs
+            raise SystemExit("--adaptive_iters needs the batched serving path: drop "
+                             "--per_image")
         cfg = config_from_args(args_or_config)
         restore_ckpt = restore_ckpt or getattr(args_or_config, "restore_ckpt", None)
     model = RAFTStereo(cfg)
@@ -139,13 +158,117 @@ def make_engine(model: RAFTStereo, iters: int, infer: InferOptions) -> Inference
         capture=model.config.converge_eps == 0,
         # what a graph bakes in besides its shapes: the model (its weights'
         # addresses) and the iteration count
-        graph_key=(id(model), repr(model.config), int(iters)))
+        graph_key=(id(model), repr(model.config), int(iters)), module=model)
 
 
-def make_serving(model: RAFTStereo, iters: int, infer: InferOptions):
-    """``(engine, stream_fn)``: the plain engine and its ``stream``."""
+def make_adaptive_forward(model: RAFTStereo, iters: int, video: bool = False) -> Callable:
+    """The adaptive-compute serving forward (``--adaptive_iters``), on
+    channel-last tensors:
+
+      * with ``model.config.converge_eps > 0`` the refinement loop exits on
+        convergence and the output grows ``ADAPTIVE_AUX_CHANNELS`` channels
+        after the disparity, ``[iters_done, iters_total]``
+        (``wrap_adaptive_stream`` strips them into telemetry);
+      * with ``video`` it takes a third input, the previous frame's
+        full-resolution warm-start field [B, H, W, 2] (the
+        ``SessionServer``'s slot: the forward-interpolated previous
+        disparity, zeros when cold), resized to the model's 1/f grid into
+        ``flow_init`` (the full-resolution flow divided by f, the convex
+        upsampling's scale inverted)."""
+    factor = model.config.downsample_factor
+    eps_on = model.config.converge_eps > 0
+
+    def fwd(*inputs) -> torch.Tensor:
+        a, b = inputs[0], inputs[1]
+        flow_init = None
+        if video:
+            full = inputs[2].float().permute(0, 3, 1, 2)
+            size = (a.shape[1] // factor, a.shape[2] // factor)
+            flow_init = (interp_bilinear(full, size) / float(factor)).permute(0, 2, 3, 1)
+        out = model(a, b, iters=iters, flow_init=flow_init)
+        if not eps_on:
+            return out[1]
+        _, disp, ran = out
+        aux = torch.tensor([float(ran), float(iters)], dtype=disp.dtype, device=disp.device)
+        return torch.cat([disp, aux.expand(*disp.shape[:3], 2)], dim=-1)
+
+    return fwd
+
+
+def _adaptive_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=None):
+    """The ``--adaptive_iters`` assembly for one iteration count: the engine
+    over ``make_adaptive_forward`` (captured unless the convergence exit
+    reads a scalar each step), the scheduler the options ask for, the
+    early-exit telemetry wrapper when ``converge_eps > 0``, and the
+    ``SessionServer`` warm-start layer in video mode."""
+    if float(model.config.converge_eps) != float(infer.converge_eps):
+        raise ValueError(
+            f"adaptive serving: the model was built with converge_eps="
+            f"{model.config.converge_eps} but the serving options carry {infer.converge_eps}; "
+            f"build the model through load_model so the two agree")
+    counts = tuple(sorted(set(infer.iter_tiers or ()) | {int(iters)}))
+    if len(counts) > 1:
+        raise SystemExit(
+            f"--iter_tiers: serving {len(counts)} iteration counts {counts} needs the "
+            f"iteration-tier dispatcher (runtime/tiers.py: TierSet, TieredServer, "
+            f"IterTierPolicy), which the port does not have yet (ROADMAP queue A, item 6); "
+            f"pass one count, or none")
+    video = bool(infer.video)
+    engine = InferenceEngine(
+        make_adaptive_forward(model, counts[0], video), device=next(model.parameters()).device,
+        batch=infer.batch, prefetch_depth=infer.prefetch, max_executables=infer.max_executables,
+        deadline_s=infer.deadline_s, retries=infer.retries,
+        capture=model.config.converge_eps == 0,
+        graph_key=(id(model), repr(model.config), counts[0], video),
+        # frame t+1 cannot exist before result t: the held dispatch must
+        # finalise on an empty stager queue, or the session deadlocks
+        eager_finalize=video, module=model)
+    sched = make_scheduler(engine, infer)
+    stream = make_stream(engine, infer, scheduler=sched)
+    if drain is not None:
+        drain.attach(sched)
+    if infer.converge_eps > 0:
+        stream = infer_mod.wrap_adaptive_stream(stream)
+    if video:
+        # a scheduler keeps the SchedRequest context and flushes by its own
+        # anti-starvation bound; the plain engine gets bare requests and a
+        # flush after each gated frame
+        stream = SessionServer(stream, forward_sched=infer.sched,
+                               flush_buckets=not infer.sched).serve
+    return engine, stream
+
+
+def make_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=None):
+    """``(engine, stream_fn)`` for the configured serving mode: the plain
+    engine, or its scheduler's ``serve`` with ``--sched``, or the adaptive
+    assembly with ``--adaptive_iters``. ``drain`` (a ``ServeDrain``) is
+    attached to the scheduler, where there is one."""
+    if infer.adaptive_iters:
+        return _adaptive_serving(model, iters, infer, drain=drain)
     engine = make_engine(model, iters, infer)
-    return engine, engine.stream
+    sched = make_scheduler(engine, infer)
+    if drain is not None:
+        drain.attach(sched)
+    return engine, make_stream(engine, infer, scheduler=sched)
+
+
+# The last engine run's quality-observatory snapshot (None: the observatory
+# was off or nothing ran): the validators own the monitor, the caller reads
+# this after ``main``. ``main`` resets it on entry.
+_last_quality: Optional[dict] = None
+
+
+def last_quality() -> Optional[dict]:
+    return _last_quality
+
+
+def _quality_monitor(model: RAFTStereo, ds, infer: InferOptions):
+    """The quality monitor the options ask for (None with ``--no_quality``):
+    the canaries take the first sample's shape, and their goldens are
+    bit-exact only on the fp32 path without the convergence exit."""
+    hw = tuple(ds[0][0].shape[:2]) if infer.canary_every > 0 and len(ds) else (0, 0)
+    return quality.monitor_from_options(
+        infer, *hw, exact=not model.config.mixed_precision and model.config.converge_eps == 0)
 
 
 def _epe_image(forward, img1, img2) -> np.ndarray:
@@ -156,14 +279,20 @@ def _epe_image(forward, img1, img2) -> np.ndarray:
     return disp[0, :, :, 0].cpu().numpy()
 
 
-def _engine_predictions(model, iters: int, ds, infer: InferOptions
+def _engine_predictions(model, iters: int, ds, infer: InferOptions, drain=None
                         ) -> Tuple[InferenceEngine, Iterator[Tuple[int, np.ndarray, tuple]]]:
     """The batched path: ``(engine, iterator of (index, pred, (flow_gt,
     valid_gt)))``; the engine is returned so callers can read its stats.
-    The dataset read is each request's lazy decode on the stager thread: a
-    sample that fails to read becomes an error result, is logged and left
-    out of the metrics, and the published summary counts it."""
-    engine, stream = make_serving(model, iters, infer)
+    The dataset read is each request's lazy decode on the stager (or the
+    scheduler's admission) thread: a sample that fails to read becomes an
+    error result, is logged and left out of the metrics, and the published
+    summary counts it. The quality monitor is installed for the run, with
+    its canaries woven into the source and their results kept out of the
+    metrics. ``drain`` (a ``ServeDrain``) makes the run signal-drainable:
+    the source stops, pending buckets flush, whatever the bound cuts off
+    resolves as a drained error (left out of the metrics like a failure)."""
+    monitor = _quality_monitor(model, ds, infer)
+    engine, stream = make_serving(model, iters, infer, drain=drain)
     gts: Dict[int, tuple] = {}
 
     def requests():
@@ -175,9 +304,22 @@ def _engine_predictions(model, iters: int, ds, infer: InferOptions
 
             yield InferRequest(payload=i, inputs=decode)
 
+    def source():
+        src = quality.weave_canaries(requests(), monitor)
+        if not infer.sched:  # the plain engine takes bare requests
+            src = (getattr(r, "request", r) for r in src)
+        return src if drain is None else drain.wrap_source(src)
+
     def results():
+        global _last_quality
+        if monitor is not None:
+            quality.install(monitor)
         try:
-            for res in stream(requests()):
+            for res in stream(source()):
+                if drain is not None:
+                    drain.note_result(res)
+                if quality.is_canary(res.payload):
+                    continue
                 if not res.ok:
                     logger.warning("request %s failed (%s: %s): excluded from metrics",
                                    res.payload, type(res.error).__name__, res.error)
@@ -185,31 +327,46 @@ def _engine_predictions(model, iters: int, ds, infer: InferOptions
                     continue
                 yield res.payload, res.output[:, :, 0], gts.pop(res.payload)
         finally:
+            if drain is not None:
+                drain.finish()
             infer_mod.publish_summary(engine.stats, label="evaluate")
+            if monitor is not None:
+                quality.uninstall()
+                if monitor.cfg.golden_dir and monitor.canaries.captured:
+                    # a run that captured goldens leaves them for the next
+                    path = monitor.canaries.save(monitor.cfg.golden_dir)
+                    logger.info("quality: saved %d canary golden(s) to %s",
+                                len(monitor.canaries.goldens), path)
+                _last_quality = monitor.snapshot()
 
     return engine, results()
 
 
-def _iter_predictions(model, iters: int, ds, infer: Optional[InferOptions]
+def _iter_predictions(model, iters: int, ds, infer: Optional[InferOptions], drain=None
                       ) -> Iterator[Tuple[int, np.ndarray, tuple]]:
     """``(index, pred [H, W], (flow_gt, valid_gt))`` for every sample:
-    ``infer=None`` runs the per-image path in index order, otherwise the
-    engine streams in completion order (callers key on the index)."""
+    ``infer=None`` runs the per-image path in index order (a drain stops it
+    at the next pair), otherwise the engine streams in completion order
+    (callers key on the index)."""
     if infer is None:
         forward = make_forward(model, iters)
         for i in range(len(ds)):
+            if drain is not None and drain.draining:
+                break
             img1, img2, flow_gt, valid_gt = ds[i]
             yield i, _epe_image(forward, img1, img2), (flow_gt, valid_gt)
+        if drain is not None:
+            drain.finish()
         return
-    yield from _engine_predictions(model, iters, ds, infer)[1]
+    yield from _engine_predictions(model, iters, ds, infer, drain=drain)[1]
 
 
-def validate_eth3d(model, iters: int = 32, infer: Optional[InferOptions] = None
-                   ) -> Dict[str, float]:
+def validate_eth3d(model, iters: int = 32, infer: Optional[InferOptions] = None,
+                   drain=None) -> Dict[str, float]:
     """ETH3D training split: EPE and bad-1.0."""
     ds = datasets.ETH3D(aug_params=None)
     by_index = {}
-    for i, pred, (flow_gt, valid_gt) in _iter_predictions(model, iters, ds, infer):
+    for i, pred, (flow_gt, valid_gt) in _iter_predictions(model, iters, ds, infer, drain):
         epe = np.abs(pred - flow_gt[..., 0])
         val = valid_gt >= 0.5
         by_index[i] = (epe[val].mean(), (epe > 1.0)[val].mean())
@@ -223,8 +380,8 @@ def validate_eth3d(model, iters: int = 32, infer: Optional[InferOptions] = None
     return res
 
 
-def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None
-                   ) -> Dict[str, float]:
+def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None,
+                   drain=None) -> Dict[str, float]:
     """KITTI-2015 training split: EPE, D1 (bad-3.0) and FPS. The per-image
     path's FPS is the reference's per-pair wall clock after a 50-image
     warm-up; the engine's is its throughput, capture time excluded."""
@@ -232,7 +389,7 @@ def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None
     if infer is not None:
         by_index = {}
         t0 = time.perf_counter()
-        engine, preds = _engine_predictions(model, iters, ds, infer)
+        engine, preds = _engine_predictions(model, iters, ds, infer, drain=drain)
         for i, pred, (flow_gt, valid_gt) in preds:
             epe = np.abs(pred - flow_gt[..., 0])
             val = valid_gt >= 0.5
@@ -255,6 +412,8 @@ def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None
     forward = make_forward(model, iters)
     epe_list, out_list, elapsed = [], [], []
     for i in range(len(ds)):
+        if drain is not None and drain.draining:
+            break
         img1, img2, flow_gt, valid_gt = ds[i]
         padder = InputPadder(img1[None].shape, divis_by=32)
         p1, p2 = padder.pad(img1[None], img2[None])
@@ -270,6 +429,8 @@ def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None
         val = valid_gt >= 0.5
         epe_list.append(epe[val].mean())
         out_list.append((epe > 3.0)[val])
+    if drain is not None:
+        drain.finish()
     if not epe_list:
         return {"kitti-epe": float("nan"), "kitti-d1": float("nan")}
     res = {
@@ -284,12 +445,12 @@ def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None
     return res
 
 
-def validate_things(model, iters: int = 32, infer: Optional[InferOptions] = None
-                    ) -> Dict[str, float]:
+def validate_things(model, iters: int = 32, infer: Optional[InferOptions] = None,
+                    drain=None) -> Dict[str, float]:
     """FlyingThings3D TEST split: EPE and bad-1.0 under the |disp| < 192 mask."""
     ds = datasets.SceneFlowDatasets(dstype="frames_finalpass", things_test=True)
     by_index = {}
-    for i, pred, (flow_gt, valid_gt) in _iter_predictions(model, iters, ds, infer):
+    for i, pred, (flow_gt, valid_gt) in _iter_predictions(model, iters, ds, infer, drain):
         epe = np.abs(pred - flow_gt[..., 0])
         val = (valid_gt >= 0.5) & (np.abs(flow_gt[..., 0]) < 192)
         by_index[i] = (epe[val].mean(), (epe > 1.0)[val])
@@ -305,11 +466,11 @@ def validate_things(model, iters: int = 32, infer: Optional[InferOptions] = None
 
 
 def validate_middlebury(model, iters: int = 32, split: str = "F",
-                        infer: Optional[InferOptions] = None) -> Dict[str, float]:
+                        infer: Optional[InferOptions] = None, drain=None) -> Dict[str, float]:
     """Middlebury-V3: EPE and bad-2.0."""
     ds = datasets.Middlebury(aug_params=None, split=split)
     by_index = {}
-    for i, pred, (flow_gt, valid_gt) in _iter_predictions(model, iters, ds, infer):
+    for i, pred, (flow_gt, valid_gt) in _iter_predictions(model, iters, ds, infer, drain):
         epe = np.abs(pred - flow_gt[..., 0])
         val = (valid_gt.reshape(-1) >= -0.5) & (flow_gt[..., 0].reshape(-1) > -1000)
         epe_f = epe.reshape(-1)
@@ -331,9 +492,12 @@ VALIDATORS = {
     "eth3d": validate_eth3d,
     "kitti": validate_kitti,
     "things": validate_things,
-    "middlebury_F": lambda m, iters=32, infer=None: validate_middlebury(m, iters, "F", infer),
-    "middlebury_H": lambda m, iters=32, infer=None: validate_middlebury(m, iters, "H", infer),
-    "middlebury_Q": lambda m, iters=32, infer=None: validate_middlebury(m, iters, "Q", infer),
+    "middlebury_F": lambda m, iters=32, infer=None, drain=None:
+        validate_middlebury(m, iters, "F", infer, drain),
+    "middlebury_H": lambda m, iters=32, infer=None, drain=None:
+        validate_middlebury(m, iters, "H", infer, drain),
+    "middlebury_Q": lambda m, iters=32, infer=None, drain=None:
+        validate_middlebury(m, iters, "Q", infer, drain),
 }
 
 
@@ -365,6 +529,7 @@ def add_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def main(argv=None, device=None) -> Dict[str, float]:
+    global _last_quality
     parser = argparse.ArgumentParser()
     add_model_args(parser)
     add_infer_args(parser)
@@ -379,12 +544,22 @@ def main(argv=None, device=None) -> Dict[str, float]:
         level=logging.INFO,
         format="%(asctime)s %(levelname)-8s [%(filename)s:%(lineno)d] %(message)s")
     infer_mod.reset_summary()
+    _last_quality = None
     tel = infer_mod.install_cli_telemetry(args)
+    # the blackbox before the engines, so their snapshot hooks register
+    end_introspection = infer_mod.install_cli_introspection(args)
     try:
         model = load_model(args, device=device)
-        res = VALIDATORS[args.dataset](model, iters=args.valid_iters,
-                                       infer=options_from_args(args))
+        # the first SIGTERM/SIGINT drains the run: admission stops, pending
+        # buckets flush, and the metrics cover the completed pairs; a second
+        # signal is immediate
+        with GracefulShutdown() as shutdown:
+            drain = ServeDrain(shutdown, timeout_s=args.drain_timeout, label="evaluate")
+            res = VALIDATORS[args.dataset](model, iters=args.valid_iters,
+                                           infer=options_from_args(args), drain=drain)
     finally:
+        # the blackbox first: a pending dump lands while the sink lives
+        end_introspection()
         telemetry.uninstall(tel)
     # metrics cover completed pairs only; exit non-zero past the budget
     infer_mod.enforce_failure_budget(args.max_failed_frac)

@@ -1,5 +1,6 @@
-"""Deterministic fault injection for the training runtime (the port's own
-copy of the training points of ``raft_stereo_tpu/runtime/faultinject.py``).
+"""Deterministic fault injection for the runtime (the port's own copy of
+the training, IO, serving and serving-lifecycle points of
+``raft_stereo_tpu/runtime/faultinject.py``).
 
 Each injection point is a no-op unless armed, through an environment
 variable (so a fault can be planted across the process boundary of a CLI
@@ -41,6 +42,24 @@ recovery paths):
                                  ordinals that block until ``reset()``: the
                                  watchdog trips
 
+Serving-lifecycle points (``runtime/scheduler.py``):
+
+  ``RAFT_FI_SCHED_STALL``        ``ORDINALS[:MS]``: comma list of 1-indexed
+                                 scheduler dispatch-loop passes (one a
+                                 ``_next_group`` call) that sleep MS
+                                 milliseconds (default 200) first, so the
+                                 admission queue builds up without timing
+                                 races (shedding, drain expiry)
+  ``RAFT_FI_SCHED_STALL_SCOPE``  the label (tier) of the one scheduler that
+                                 stalls; its ordinals then count that
+                                 scheduler's own passes
+  ``RAFT_FI_WARM_POISON``        ``ORDINALS[:FILL]``: comma list of 1-indexed
+                                 warm-start reuses (one a session frame that
+                                 warm-starts) whose warm slot is replaced by
+                                 the constant FILL (default 40.0 px): a stale
+                                 prior, which the refinement really starts
+                                 from
+
 Every point is deterministic: the same arming fails the same ordinal.
 """
 
@@ -50,7 +69,8 @@ import logging
 import os
 import signal
 import threading
-from typing import Optional, Set
+import time
+from typing import Dict, Optional, Set
 
 logger = logging.getLogger(__name__)
 
@@ -67,6 +87,11 @@ _armed_infer_decode_fail: Optional[Set[int]] = None
 _armed_infer_compile_fail: Optional[Set[int]] = None
 _armed_infer_oom_batch: Optional[int] = None
 _armed_infer_hang: Optional[Set[int]] = None
+_armed_sched_stall: Optional[Set[int]] = None
+_armed_sched_stall_ms: Optional[float] = None
+_armed_sched_stall_scope: Optional[str] = None
+_armed_warm_poison: Optional[Set[int]] = None
+_armed_warm_poison_fill: Optional[float] = None
 _sigterm_fired = False
 
 # Attempt counters span retries and call sites; the lock keeps ordinals
@@ -76,6 +101,12 @@ _io_read_attempts = 0
 _infer_decode_attempts = 0
 _infer_compile_attempts = 0
 _infer_wait_attempts = 0
+_sched_dispatch_attempts = 0
+# Per-scheduler dispatch passes, by the label each scheduler passes to
+# ``sched_stall_point`` (its tier): a scoped stall counts its victim's own
+# passes, which several interleaving dispatch loops would otherwise split.
+_sched_dispatch_by_label: Dict[str, int] = {}
+_warm_reuse_attempts = 0
 # An injected hang parks the engine's device-wait thread on this event, so a
 # test never sleeps past its deadline; ``reset()`` releases parked threads.
 _hang_release = threading.Event()
@@ -88,14 +119,20 @@ def reset() -> None:
     global _armed_nan_step, _armed_sigterm_step, _armed_crash, _sigterm_fired
     global _armed_io_fail_reads, _armed_infer_decode_fail, _armed_infer_compile_fail
     global _armed_infer_oom_batch, _armed_infer_hang, _hang_release
+    global _armed_sched_stall, _armed_sched_stall_ms, _armed_sched_stall_scope
+    global _armed_warm_poison, _armed_warm_poison_fill
     global _io_read_attempts, _infer_decode_attempts, _infer_compile_attempts
-    global _infer_wait_attempts
+    global _infer_wait_attempts, _sched_dispatch_attempts, _sched_dispatch_by_label
+    global _warm_reuse_attempts
     _armed_nan_step = _armed_sigterm_step = _armed_crash = None
     _armed_io_fail_reads = _armed_infer_decode_fail = _armed_infer_compile_fail = None
     _armed_infer_oom_batch = _armed_infer_hang = None
+    _armed_sched_stall = _armed_sched_stall_ms = _armed_sched_stall_scope = None
+    _armed_warm_poison = _armed_warm_poison_fill = None
     _sigterm_fired = False
     _io_read_attempts = _infer_decode_attempts = _infer_compile_attempts = 0
-    _infer_wait_attempts = 0
+    _infer_wait_attempts = _sched_dispatch_attempts = _warm_reuse_attempts = 0
+    _sched_dispatch_by_label = {}
     _hang_release.set()
     _hang_release = threading.Event()
 
@@ -105,11 +142,17 @@ def arm(nan_step: Optional[int] = None, sigterm_step: Optional[int] = None,
         infer_decode_fail: Optional[Set[int]] = None,
         infer_compile_fail: Optional[Set[int]] = None,
         infer_oom_batch: Optional[int] = None,
-        infer_hang: Optional[Set[int]] = None) -> None:
+        infer_hang: Optional[Set[int]] = None,
+        sched_stall: Optional[Set[int]] = None,
+        sched_stall_ms: Optional[float] = None,
+        sched_stall_scope: Optional[str] = None,
+        warm_poison: Optional[Set[int]] = None,
+        warm_poison_fill: Optional[float] = None) -> None:
     """Programmatic arming for in-process tests (overrides env vars)."""
     global _armed_nan_step, _armed_sigterm_step, _armed_crash, _armed_io_fail_reads
     global _armed_infer_decode_fail, _armed_infer_compile_fail, _armed_infer_oom_batch
-    global _armed_infer_hang
+    global _armed_infer_hang, _armed_sched_stall, _armed_sched_stall_ms
+    global _armed_sched_stall_scope, _armed_warm_poison, _armed_warm_poison_fill
     if nan_step is not None:
         _armed_nan_step = nan_step
     if sigterm_step is not None:
@@ -126,6 +169,16 @@ def arm(nan_step: Optional[int] = None, sigterm_step: Optional[int] = None,
         _armed_infer_oom_batch = int(infer_oom_batch)
     if infer_hang is not None:
         _armed_infer_hang = set(infer_hang)
+    if sched_stall is not None:
+        _armed_sched_stall = set(sched_stall)
+    if sched_stall_ms is not None:
+        _armed_sched_stall_ms = float(sched_stall_ms)
+    if sched_stall_scope is not None:
+        _armed_sched_stall_scope = str(sched_stall_scope)
+    if warm_poison is not None:
+        _armed_warm_poison = set(warm_poison)
+    if warm_poison_fill is not None:
+        _armed_warm_poison_fill = float(warm_poison_fill)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -258,3 +311,81 @@ def infer_wait_point(batch_size: int) -> None:
 
         raise torch.cuda.OutOfMemoryError(
             f"[faultinject] injected device OOM at micro-batch {batch_size} (threshold {oom})")
+
+
+# ------------------------------------------------------ serving lifecycle
+
+
+def sched_dispatch_attempts() -> int:
+    """Scheduler dispatch-loop passes observed (for test assertions)."""
+    return _sched_dispatch_attempts
+
+
+def _parse_sched_stall(raw: str):
+    """``ORDINALS[:MS]`` -> (ordinal set, stall ms)."""
+    spec, _, ms = raw.partition(":")
+    ordinals = {int(x) for x in spec.split(",") if x.strip()}
+    return ordinals, float(ms) if ms.strip() else 200.0
+
+
+def sched_stall_point(label: Optional[str] = None) -> None:
+    """Count one scheduler dispatch-loop pass (one a ``_next_group`` call,
+    so ordinals are deterministic for a given stream); sleep first if its
+    ordinal is armed, while admission keeps running. ``label`` names the
+    calling scheduler (its tier): with a scope armed, only that scheduler
+    stalls and its ordinals count its own passes."""
+    global _sched_dispatch_attempts
+    with _lock:
+        _sched_dispatch_attempts += 1
+        ordinal = _sched_dispatch_attempts
+        scoped = None
+        if label is not None:
+            scoped = _sched_dispatch_by_label[label] = _sched_dispatch_by_label.get(label, 0) + 1
+    armed, ms, scope = _armed_sched_stall, _armed_sched_stall_ms, _armed_sched_stall_scope
+    if armed is None:
+        raw = os.environ.get("RAFT_FI_SCHED_STALL", "").strip()
+        if not raw:
+            return
+        armed, env_ms = _parse_sched_stall(raw)
+        if ms is None:
+            ms = env_ms
+    if scope is None:
+        scope = os.environ.get("RAFT_FI_SCHED_STALL_SCOPE", "").strip() or None
+    if ms is None:
+        ms = 200.0
+    if scope is not None:
+        if label != scope:
+            return
+        ordinal = scoped
+    if armed and ordinal in armed:
+        logger.warning("[faultinject] stalling scheduler dispatch pass %d for %.0f ms%s",
+                       ordinal, ms, f" (scope={scope})" if scope else "")
+        time.sleep(ms / 1e3)
+
+
+def warm_reuse_attempts() -> int:
+    """Warm-start reuses observed (for test assertions)."""
+    return _warm_reuse_attempts
+
+
+def warm_poison_point(slot):
+    """Count one warm-start reuse (the session layer calls it once a frame
+    that warm-starts from its predecessor); return the slot, or, if its
+    ordinal is armed, a constant FILL field of the slot's shape and dtype."""
+    ordinal = _next("_warm_reuse_attempts")
+    armed, fill = _armed_warm_poison, _armed_warm_poison_fill
+    if armed is None:
+        raw = os.environ.get("RAFT_FI_WARM_POISON", "").strip()
+        if not raw:
+            return slot
+        spec, _, fill_s = raw.partition(":")
+        armed = {int(x) for x in spec.split(",") if x.strip()}
+        if fill is None and fill_s.strip():
+            fill = float(fill_s)
+    if fill is None:
+        fill = 40.0
+    if armed and ordinal in armed:
+        logger.warning("[faultinject] poisoning warm-start reuse %d with constant fill %.1f",
+                       ordinal, fill)
+        return slot * 0 + fill
+    return slot

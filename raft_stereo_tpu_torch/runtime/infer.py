@@ -53,6 +53,16 @@ its plain engine, its fault tolerance and its telemetry).
   * **Fault injection.** ``RAFT_FI_INFER_DECODE_FAIL``, ``_COMPILE_FAIL``,
     ``_OOM`` and ``_HANG`` (``runtime.faultinject``) drive each path.
 
+**Serving hooks.** ``eager_finalize`` finalises the held dispatch as soon
+as the stager queue is empty (a video session's next frame depends on this
+result); ``idle_watchdog=False`` keeps the deadline on device waits but lets
+a long-lived feed stay idle; ``update_variables`` swaps the served weights
+in place, so every captured graph serves the new values; the engine
+registers its ``snapshot`` with the installed blackbox dumper as
+``engine:<tier>``, requests a dump on a watchdog trip and on a stream's
+death, and passes every completed result to the quality observatory
+(``runtime/quality.py``; canaries are kept out of the SLO accounting).
+
 **Observability.** Every request carries a ``trace_id`` (the caller's or a
 fresh one), which rides its spans and every event on its path
 (``bucket_compile``, ``infer_batch_commit``, ``infer_retry``,
@@ -89,11 +99,12 @@ import torch
 from raft_stereo_tpu_torch.experiments import packed_conv
 from raft_stereo_tpu_torch.ops import alt_corr, fused_update
 from raft_stereo_tpu_torch.ops.pad import BatchPadder, bucket_shape
-from raft_stereo_tpu_torch.runtime import faultinject, telemetry
+from raft_stereo_tpu_torch.runtime import blackbox, faultinject, quality, telemetry
 
 logger = logging.getLogger(__name__)
 
 _END = object()  # stager sentinel: the request stream is exhausted
+_NOT_STAGED = object()  # eager-finalize peek: nothing waiting in the queue
 
 # A batch that waited on the stager longer than this is an underrun: the
 # host failed to hide decode, padding and stacking behind device compute.
@@ -644,12 +655,24 @@ class InferenceEngine:
     error results included (check ``result.ok``). ``deadline_s`` bounds
     every wait the consumer can block on; ``retries`` is the compile and
     dispatch retry budget, ``retry_backoff_s`` its first backoff.
+
+    ``eager_finalize`` finalises the held dispatch when the stager queue is
+    empty instead of waiting for the next staged batch: a stream whose next
+    request depends on this result (a video session) would otherwise
+    deadlock against the one-deep pipeline. ``idle_watchdog=False`` lets a
+    long-lived feed stay idle past ``deadline_s`` while its source lives
+    (device waits keep the deadline). ``tier`` labels the engine in SLO
+    accounting, quality sketches and the blackbox (``engine:<tier>``);
+    ``module`` is the ``nn.Module`` whose weights ``forward_fn`` reads,
+    which ``update_variables`` swaps.
     """
 
     def __init__(self, forward_fn: Callable[..., torch.Tensor], *, device,
                  batch: int = 4, prefetch_depth: int = 2, max_executables: int = 16,
                  deadline_s: Optional[float] = None, capture: bool = True,
-                 graph_key: Tuple = (), retries: int = 2, retry_backoff_s: float = 0.05):
+                 graph_key: Tuple = (), retries: int = 2, retry_backoff_s: float = 0.05,
+                 eager_finalize: bool = False, idle_watchdog: bool = True,
+                 tier: str = "serving", module: Optional[torch.nn.Module] = None):
         if batch < 1:
             raise ValueError("InferenceEngine batch must be >= 1")
         if prefetch_depth < 1:
@@ -675,12 +698,20 @@ class InferenceEngine:
         self._bucket_cap: Dict[Tuple[int, int], int] = {}
         self._compiled: set = set()  # eager keys past their first use
         self._wait_worker: Optional[_WaitWorker] = None
+        self.eager_finalize = bool(eager_finalize)
+        self.idle_watchdog = bool(idle_watchdog)
+        self.tier_label = str(tier)
+        self.module = module
+        blackbox.register_provider(f"engine:{self.tier_label}", self.snapshot)
 
     def snapshot(self) -> Dict[str, Any]:
-        """An introspection view: the degradation memory and the counts."""
+        """An introspection view (the blackbox provider): the degradation
+        memory and the counts, read best-effort from the dump thread."""
         s = self.stats
         return {
-            "batch": self.batch, "deadline_s": self.deadline_s, "retries": self.retries,
+            "tier": self.tier_label, "batch": self.batch, "deadline_s": self.deadline_s,
+            "retries": self.retries, "idle_watchdog": self.idle_watchdog,
+            "eager_finalize": self.eager_finalize,
             "capture": self.capture, "executables": len(self.graphs),
             "cache_hits": self.graphs.hits, "cache_misses": self.graphs.misses,
             "broken_buckets": {f"{b[0]}x{b[1]}": r for b, r in dict(self._broken).items()},
@@ -692,6 +723,31 @@ class InferenceEngine:
                       "underruns": s.underruns},
             "buckets": {f"{b[0]}x{b[1]}": n for b, n in dict(s.buckets).items()},
         }
+
+    def update_variables(self, state_dict: Dict[str, Any]) -> None:
+        """Swap the served weights in place: each tensor of ``state_dict``
+        (the module's own keys, shapes and order of dims; tensors or arrays)
+        is copied into the module's existing parameter or buffer. A captured
+        graph reads the weights through their device addresses, so every
+        graph serves the new values with no new capture; reassigning a
+        parameter or loading another module would leave the graphs on the
+        old ones. Call between streams or between a stream's yielded
+        results: the engine dispatches on the consumer's thread, so the copy
+        cannot race a dispatch."""
+        if self.module is None:
+            raise RuntimeError("update_variables: the engine was built without its module")
+        own = self.module.state_dict()
+        if set(own) != set(state_dict):
+            raise KeyError(f"update_variables: missing {sorted(set(own) - set(state_dict))}, "
+                           f"unexpected {sorted(set(state_dict) - set(own))}")
+        new = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+        for k, t in own.items():
+            if tuple(new[k].shape) != tuple(t.shape):
+                raise ValueError(f"update_variables: {k} is {tuple(new[k].shape)}, "
+                                 f"the module's is {tuple(t.shape)}")
+        with torch.no_grad():
+            for k, t in own.items():
+                t.copy_(new[k])
 
     # ---------------------------------------------------------- compile
 
@@ -1008,32 +1064,51 @@ class InferenceEngine:
         t_stream = time.perf_counter()
         try:
             while True:
-                t0 = time.perf_counter()
-                with telemetry.span("decode_wait"):
+                item = _NOT_STAGED
+                if self.eager_finalize and pending is not None:
+                    # nothing staged: the held dispatch overlaps nothing, and
+                    # the next request may depend on its result
                     try:
-                        item = (q.get() if self.deadline_s is None
-                                else q.get(timeout=self.deadline_s))
+                        item = q.get_nowait()
                     except queue.Empty:
-                        stalled = True
-                        self.stats.watchdog_trips += 1
-                        telemetry.emit("watchdog_trip", where="stager",
-                                       deadline_s=self.deadline_s,
-                                       stager_alive=thread.is_alive(),
-                                       batches_done=self.stats.batches)
-                        raise InferStallError(
-                            f"stager staged nothing for {self.deadline_s:g}s "
-                            f"(--infer_timeout); stager thread alive={thread.is_alive()}, "
-                            f"{self.stats.batches} batch(es) done") from None
+                        yield from self._finalize(pending)
+                        pending = None
+                        continue
+                t0 = time.perf_counter()
+                if item is _NOT_STAGED:
+                    with telemetry.span("decode_wait"):
+                        try:
+                            item = (q.get() if self.deadline_s is None
+                                    else q.get(timeout=self.deadline_s))
+                        except queue.Empty:
+                            if not self.idle_watchdog and thread.is_alive():
+                                continue  # a long-lived feed: idle, not wedged
+                            stalled = True
+                            self.stats.watchdog_trips += 1
+                            telemetry.emit("watchdog_trip", where="stager",
+                                           deadline_s=self.deadline_s,
+                                           stager_alive=thread.is_alive(),
+                                           batches_done=self.stats.batches)
+                            # the stacks of the stall, while they still show it
+                            blackbox.request_dump(
+                                "watchdog_trip", f"stager stalled > {self.deadline_s:g}s "
+                                f"(alive={thread.is_alive()})")
+                            raise InferStallError(
+                                f"stager staged nothing for {self.deadline_s:g}s "
+                                f"(--infer_timeout); stager thread alive={thread.is_alive()}, "
+                                f"{self.stats.batches} batch(es) done") from None
                 t_got = time.perf_counter()
                 wait_s = t_got - t0
                 if isinstance(item, BaseException):
+                    blackbox.request_dump("stream_death", _errstr(item))
                     raise item
                 if item is _END:
                     break
                 if isinstance(item, _FailedRequest):
                     self.stats.failed += 1
                     telemetry.inc_metric("infer_requests_total", status="failed")
-                    telemetry.observe_slo("serving", None, ok=False)
+                    if not quality.is_canary(item.payload):
+                        telemetry.observe_slo(self.tier_label, None, ok=False)
                     logger.warning("request %r failed before dispatch: %s", item.payload,
                                    _errstr(item.error))
                     yield InferResult(payload=item.payload, error=item.error,
@@ -1139,8 +1214,14 @@ class InferenceEngine:
                 max(staged.t_got - staged.t_starts[i] - staged.decode_s[i], 0.0))
             self.stats.observe_latency("e2e", staged.label, t1 - staged.t_starts[i])
             telemetry.inc_metric("infer_requests_total", status="completed")
-            telemetry.observe_slo("serving", t1 - staged.t_starts[i])
-            yield InferResult(payload=staged.payloads[i], output=np.array(window),
+            # canaries check their golden and stay out of the SLO; user
+            # results fold into the tier's drift sketch (no-ops with no
+            # monitor installed)
+            if not quality.is_canary(staged.payloads[i]):
+                telemetry.observe_slo(self.tier_label, t1 - staged.t_starts[i])
+            output = np.array(window)
+            quality.observe_result(self.tier_label, staged.payloads[i], output)
+            yield InferResult(payload=staged.payloads[i], output=output,
                               bucket=staged.bucket, trace_id=staged.trace_ids[i])
 
     def _fail_batch(self, staged: _StagedBatch, e: BaseException) -> Iterator[InferResult]:
@@ -1151,6 +1232,9 @@ class InferenceEngine:
             telemetry.emit("watchdog_trip", where="device", bucket=list(staged.bucket),
                            deadline_s=self.deadline_s, error=_errstr(e),
                            trace_ids=staged.trace_ids)
+            # the wedged wait worker's stack is still live for the dump
+            blackbox.request_dump("watchdog_trip",
+                                  f"device dispatch hung in bucket {staged.label}")
         logger.error("batch of %d request(s) in bucket %s failed: %s", staged.valid,
                      staged.bucket, _errstr(e))
         err = _released(e if isinstance(e, Exception) else RuntimeError(_errstr(e)))
@@ -1159,9 +1243,49 @@ class InferenceEngine:
             telemetry.emit("request_failed", stage="device", bucket=list(staged.bucket),
                            error=_errstr(e), trace_id=staged.trace_ids[i])
             telemetry.inc_metric("infer_requests_total", status="failed")
-            telemetry.observe_slo("serving", None, ok=False)
+            if not quality.is_canary(payload):
+                telemetry.observe_slo(self.tier_label, None, ok=False)
             yield InferResult(payload=payload, bucket=staged.bucket, error=err,
                               trace_id=staged.trace_ids[i])
+
+
+# ------------------------------------------------- adaptive-compute results
+
+# Aux channels an adaptive (converge_eps > 0) serving forward appends after
+# the disparity channel: [iters_done, iters_total], constant over the plane
+# (the exit is batch-level: every member ran the same count).
+ADAPTIVE_AUX_CHANNELS = 2
+
+
+def wrap_adaptive_stream(stream_fn: Callable) -> Callable:
+    """Strip an adaptive forward's aux channels off every completed result
+    and turn them into telemetry: the ``iters_saved`` per-bucket histogram,
+    ``refine_requests_total{outcome=}``, the quality observatory's
+    ``iters_done`` sensor, and a ``refine_early_exit`` event whenever the
+    exit fired. Past this wrapper results keep the [H, W, 1] contract."""
+
+    def serve(requests: Iterable) -> Iterator[InferResult]:
+        for res in stream_fn(requests):
+            out = res.output
+            if res.ok and out is not None and out.shape[-1] > ADAPTIVE_AUX_CHANNELS:
+                iters_done = int(round(float(out[0, 0, -2])))
+                iters_total = int(round(float(out[0, 0, -1])))
+                res.output = out[..., :-ADAPTIVE_AUX_CHANNELS]
+                saved = max(iters_total - iters_done, 0)
+                label = f"{res.bucket[0]}x{res.bucket[1]}" if res.bucket else "?"
+                telemetry.observe("iters_saved", float(saved), bucket=label)
+                telemetry.inc_metric("refine_requests_total",
+                                     outcome="early_exit" if saved else "full")
+                if not quality.is_canary(res.payload):
+                    quality.observe_iters("serving", iters_done)
+                if saved:
+                    telemetry.emit("refine_early_exit",
+                                   bucket=list(res.bucket) if res.bucket else None,
+                                   iters=iters_total, iters_done=iters_done, saved=saved,
+                                   trace_id=res.trace_id)
+            yield res
+
+    return serve
 
 
 # ----------------------------------------------------------------- CLI glue
@@ -1169,17 +1293,39 @@ class InferenceEngine:
 
 @dataclass(frozen=True)
 class InferOptions:
-    """The engine's options shared by evaluate and demo."""
+    """The serving options shared by evaluate and demo: the engine's, the
+    scheduler's and the lifecycle's, adaptive compute's and the quality
+    observatory's, with the JAX package's defaults."""
 
     batch: int = 4
     prefetch: int = 2
     max_executables: int = 16
     deadline_s: Optional[float] = 300.0
     retries: int = 2
+    sched: bool = False
+    sched_max_wait: float = 2.0
+    # None keeps the scheduler's blocking backpressure; an int sheds
+    max_pending: Optional[int] = None
+    drain_timeout: float = 30.0
+    # inert unless adaptive_iters: the allowed iteration counts, the
+    # convergence exit's threshold, and video (warm-start) serving, which
+    # the video modes set
+    adaptive_iters: bool = False
+    iter_tiers: Optional[Tuple[int, ...]] = None
+    converge_eps: float = 0.0
+    video: bool = False
+    # the drift sentinels are on by default; canaries only with canary_every
+    quality: bool = True
+    quality_window: int = 32
+    quality_reference: int = 64
+    canary_every: int = 0
+    canary_latch: int = 3
+    canary_tol: float = 0.5
+    golden_dir: Optional[str] = None
 
 
 def add_infer_args(parser, default_batch: int = 4) -> None:
-    """Register the engine's flags."""
+    """Register the serving flags."""
     parser.add_argument(
         "--infer_batch", type=int, default=default_batch,
         help="micro-batch size of the batched inference engine: inputs are grouped into "
@@ -1203,6 +1349,74 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
         "with exponential backoff; past it the shape bucket is circuit-broken and served "
         "one pair at a time by the degraded path")
     parser.add_argument(
+        "--sched", action="store_true",
+        help="route requests through the continuous-batching scheduler: an admission "
+        "thread decodes ahead into per-shape-bucket queues and dispatches whichever "
+        "bucket can form a full micro-batch first (deadline and priority break ties) "
+        "instead of arrival order")
+    parser.add_argument(
+        "--sched_max_wait", type=float, default=2.0, metavar="SECONDS",
+        help="the scheduler's anti-starvation bound: a bucket whose oldest pending "
+        "request has waited this long is dispatched as a partial (masked) batch ahead of "
+        "full buckets")
+    parser.add_argument(
+        "--max_pending", type=int, default=None, metavar="N",
+        help="load shedding (scheduler runs only): a request arriving while N requests "
+        "are queued is rejected at once (sched_shed reason=queue_full), and one whose "
+        "deadline the bucket's EWMA service time already misses is rejected at admission "
+        "(reason=deadline); rejections are typed error results (default: off, blocking "
+        "backpressure)")
+    parser.add_argument(
+        "--drain_timeout", type=float, default=30.0, metavar="SECONDS",
+        help="graceful-drain bound: on the first SIGTERM/SIGINT admission stops, pending "
+        "buckets flush, in-flight batches complete, and whatever is still queued after "
+        "this many seconds resolves as a typed drained error; a second signal is "
+        "immediate")
+    parser.add_argument(
+        "--adaptive_iters", action="store_true",
+        help="adaptive compute: the batch-level convergence exit (--converge_eps) and "
+        "video warm-start serving (demo --serve_video); without it both are inert")
+    parser.add_argument(
+        "--iter_tiers", default=None, metavar="N,N,...",
+        help="allowed per-request refinement-iteration counts under --adaptive_iters; "
+        "--valid_iters is always one of them. One count serves; several need the "
+        "iteration-tier dispatcher, which the port does not have yet (refused)")
+    parser.add_argument(
+        "--converge_eps", type=float, default=0.0, metavar="EPS",
+        help="batch-level convergence exit under --adaptive_iters: stop refining once "
+        "the batch's largest per-sample mean |delta| falls below EPS (the forward runs "
+        "eagerly, one host read a step); iterations saved are counted per bucket in the "
+        "iters_saved metric and refine_early_exit events; 0 disables it")
+    parser.add_argument(
+        "--no_quality", action="store_true",
+        help="disable the quality observatory: no drift sentinels, no canaries, no "
+        "quality events or gauges")
+    parser.add_argument(
+        "--quality_window", type=int, default=32, metavar="N",
+        help="drift-sentinel window: every N completed user results a tier closes one "
+        "window, scored (PSI/KS a sensor) against the frozen reference")
+    parser.add_argument(
+        "--quality_reference", type=int, default=64, metavar="N",
+        help="drift-sentinel reference: a tier's first N completed user results freeze "
+        "as its reference distribution; no alarm can fire before")
+    parser.add_argument(
+        "--canary_every", type=int, default=0, metavar="N",
+        help="golden canaries: one deterministic known-input request after every N user "
+        "requests, through the real serving path at the lowest priority, outside the "
+        "user SLO and queue-depth accounting (default 0: none)")
+    parser.add_argument(
+        "--canary_latch", type=int, default=3, metavar="N",
+        help="consecutive canary-golden failures on one tier that latch the quality "
+        "alarm (the blackbox dumps)")
+    parser.add_argument(
+        "--canary_tol", type=float, default=0.5, metavar="PX",
+        help="canary bound (mean |disparity difference| from the golden, px) where the "
+        "check is not bit-exact (bf16, the early exit); the fp32 path checks bit-exact")
+    parser.add_argument(
+        "--golden_dir", default=None, metavar="DIR",
+        help="canary goldens (one npz per canary shape): loaded at start when present; a "
+        "run that captured goldens saves them there, so the next run checks against them")
+    parser.add_argument(
         "--max_failed_frac", type=float, default=0.0, metavar="FRAC",
         help="tolerated fraction of failed requests before the run exits non-zero "
         "(default 0: any failure fails the run); failed requests are always excluded "
@@ -1213,17 +1427,56 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
         "infer_batch_commit, stager_underrun, request_failed, infer_retry, "
         "bucket_circuit_open, infer_degraded, watchdog_trip, each with the requests' "
         "trace ids), trace_host.json spans, a serving heartbeat.json and metrics.prom "
-        "with per-bucket latency percentiles")
+        "with per-bucket latency percentiles; also arms the blackbox (SIGUSR2 dumps "
+        "blackbox.json there)")
+
+
+def parse_iter_tiers(spec) -> Optional[Tuple[int, ...]]:
+    """``"7,16,32"`` → (7, 16, 32), sorted and deduplicated; None or empty →
+    None. Every count must be >= 1."""
+    if spec is None or spec == "":
+        return None
+    if isinstance(spec, (tuple, list)):
+        tiers = tuple(int(t) for t in spec)
+    else:
+        try:
+            tiers = tuple(int(t) for t in str(spec).split(",") if t.strip())
+        except ValueError:
+            raise ValueError(f"--iter_tiers expects comma-separated integers, got "
+                             f"{spec!r}") from None
+    if not tiers or any(t < 1 for t in tiers):
+        raise ValueError(f"--iter_tiers entries must be >= 1, got {spec!r}")
+    return tuple(sorted(set(tiers)))
 
 
 def options_from_args(args) -> Optional[InferOptions]:
-    """``None`` means the per-image path."""
+    """``None`` means the per-image path. ``--adaptive_iters`` gates its
+    sub-options: without it they are inert and the options equal the
+    defaults."""
     if args.per_image:
         return None
     timeout = args.infer_timeout
-    return InferOptions(batch=args.infer_batch, prefetch=args.infer_prefetch,
-                        deadline_s=None if timeout is None or timeout <= 0 else timeout,
-                        retries=args.infer_retries)
+    adaptive = bool(getattr(args, "adaptive_iters", False))
+    return InferOptions(
+        batch=args.infer_batch, prefetch=args.infer_prefetch,
+        deadline_s=None if timeout is None or timeout <= 0 else timeout,
+        retries=args.infer_retries,
+        sched=getattr(args, "sched", False),
+        sched_max_wait=getattr(args, "sched_max_wait", 2.0),
+        max_pending=getattr(args, "max_pending", None),
+        drain_timeout=getattr(args, "drain_timeout", 30.0),
+        adaptive_iters=adaptive,
+        iter_tiers=parse_iter_tiers(getattr(args, "iter_tiers", None)) if adaptive else None,
+        converge_eps=float(getattr(args, "converge_eps", 0.0)) if adaptive else 0.0,
+        video=bool(getattr(args, "serve_video", False)) and adaptive,
+        quality=not getattr(args, "no_quality", False),
+        quality_window=getattr(args, "quality_window", 32),
+        quality_reference=getattr(args, "quality_reference", 64),
+        canary_every=getattr(args, "canary_every", 0),
+        canary_latch=getattr(args, "canary_latch", 3),
+        canary_tol=getattr(args, "canary_tol", 0.5),
+        golden_dir=getattr(args, "golden_dir", None),
+    )
 
 
 def install_cli_telemetry(args) -> Optional[telemetry.Telemetry]:
@@ -1236,3 +1489,25 @@ def install_cli_telemetry(args) -> Optional[telemetry.Telemetry]:
             tel.configure_slo(slo_ms, getattr(args, "slo_budget", 0.01))
         return tel
     return None
+
+
+def install_cli_introspection(args) -> Callable[[], None]:
+    """The forensics layer of a serving CLI run: with ``--telemetry_dir``, a
+    blackbox dumper over that directory, watching SIGUSR2 (the operator's
+    dump signal). Call it before building engines, so their snapshot hooks
+    register with it; returns an idempotent teardown."""
+    closers: List[Callable[[], None]] = []
+    if getattr(args, "telemetry_dir", None):
+        dumper = blackbox.install(blackbox.BlackboxDumper(args.telemetry_dir))
+        dumper.watch_signal()
+        closers.append(lambda: blackbox.uninstall(dumper))
+
+    def teardown() -> None:
+        for close in reversed(closers):
+            try:
+                close()
+            except Exception:  # noqa: BLE001 — teardown must not mask errors
+                logger.exception("introspection teardown failed")
+        closers.clear()
+
+    return teardown

@@ -4,7 +4,9 @@ packed stage's 3x3x64 conv (K3) against their plain versions, the
 wrappers' checks and launch counts, and the
 forwards with the kernels against the forwards with the plain versions;
 then the captured forwards: replays against eager runs, the graph cache's
-eviction, and the engine on the card.
+eviction, and the engine on the card; and the serving layers over the
+captured engine: a weight update replayed without a new capture, the
+scheduler on a FIFO stream, the video forward's three-input graph.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -25,7 +27,8 @@ from chip_smoke import (K3_PER_TRUNK, k2_errors, k3_abs_sums, k3_errors, k3_inpu
                         stage1_allowances, stage1_errors, stage7_errors, stage7_fh1,
                         stage7_sums)
 from raft_stereo_tpu_torch.config import PRESETS
-from raft_stereo_tpu_torch.evaluate import load_model, make_engine, make_forward
+from raft_stereo_tpu_torch.evaluate import (load_model, make_adaptive_forward, make_engine,
+                                            make_forward)
 from raft_stereo_tpu_torch.experiments import packed_conv
 from raft_stereo_tpu_torch.models import extractor
 from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
@@ -38,6 +41,7 @@ from raft_stereo_tpu_torch.runtime.infer import (
     InferRequest,
     kernel_launches,
 )
+from raft_stereo_tpu_torch.runtime.scheduler import ContinuousBatchingScheduler
 
 pytestmark = pytest.mark.gpu
 
@@ -546,3 +550,60 @@ def test_a_failing_kernel_fails_the_batch_and_falls_back_to_nothing(monkeypatch)
     assert sorted(r.payload for r in out) == [0, 1, 2]
     assert all(not r.ok and "alt_corr kernel launch failed" in str(r.error) for r in out)
     assert engine.stats.failed == 3 and engine.stats.images == 0 and len(engine.graphs) == 0
+
+
+def test_update_variables_replays_the_new_weights_without_a_capture():
+    """``update_variables`` copies into the weights the graphs read: after
+    it, the engine's replays equal, bitwise, a fresh engine built on the new
+    weights, and no graph was captured again."""
+    _cuda()
+    shapes = [(60, 100), (60, 100), (80, 128)]
+    engine = make_engine(load_model(PRESETS["raftstereo-realtime"], seed=7), 3,
+                         InferOptions(batch=2))
+    before = {r.payload: r.output for r in engine.stream(iter(_engine_requests(shapes, 9)))}
+    captures = engine.graphs.captures
+    new = load_model(PRESETS["raftstereo-realtime"], seed=8)
+    engine.update_variables(new.state_dict())
+    after = {r.payload: r.output for r in engine.stream(iter(_engine_requests(shapes, 9)))}
+    fresh = make_engine(new, 3, InferOptions(batch=2))
+    want = {r.payload: r.output for r in fresh.stream(iter(_engine_requests(shapes, 9)))}
+    assert engine.graphs.captures == captures == 2
+    for k in want:
+        np.testing.assert_array_equal(after[k], want[k])
+        assert not np.array_equal(after[k], before[k])
+
+
+def test_scheduler_fifo_stream_is_the_plain_captured_engine():
+    """A bucket-contiguous stream with no deadlines or priorities: the
+    scheduler packs the plain engine's batches, so every output is the
+    plain engine's, bitwise, on the same graphs' keys."""
+    _cuda()
+    model = load_model(PRESETS["raftstereo-realtime"], seed=7)
+    shapes = [(60, 100)] * 3 + [(80, 128)] * 3
+    plain = make_engine(model, 3, InferOptions(batch=2))
+    want = {r.payload: r.output for r in plain.stream(iter(_engine_requests(shapes, 10)))}
+    engine = make_engine(model, 3, InferOptions(batch=2))
+    sched = ContinuousBatchingScheduler(engine, max_wait_s=30.0)
+    got = {r.payload: r.output for r in sched.serve(iter(_engine_requests(shapes, 10)))}
+    assert sorted(got) == sorted(want) == list(range(6))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert engine.graphs.captures == plain.graphs.captures == 2
+
+
+def test_video_forward_replay_equals_eager_bitwise():
+    """The warm-started forward (a third input, resized into flow_init) with
+    no convergence exit is captured; its replay equals the eager forward
+    bitwise, for two warm slots through one graph."""
+    _cuda()
+    model = load_model(PRESETS["raftstereo-realtime"], seed=7)
+    fwd = make_adaptive_forward(model, 3, video=True)
+    g = torch.Generator().manual_seed(3)
+    a, b = (torch.rand((1, 64, 128, 3), generator=g) * 255 for _ in range(2))
+    cache = GraphCache()
+    for scale in (0.0, 6.0):
+        slot = torch.rand((1, 64, 128, 2), generator=g) * scale
+        replay = cache.run(("video",), fwd, (a, b, slot)).clone()
+        eager = fwd(a.cuda(), b.cuda(), slot.cuda())
+        assert torch.equal(replay, eager)
+    assert cache.captures == 1 and cache.replays == 2
