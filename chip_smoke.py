@@ -119,6 +119,21 @@ Phases, each printing one JSON line:
      (``quality_canary``: capture, pass, fail and latch); SIGUSR2 during a
      scheduled video serve (``blackbox``: the dump's providers and thread
      roles).
+ 13. the MADNet2 family (no kernel of its own; each phase checks that K1-K3
+     launch 0 times): ``evaluate_mad.main`` on a synthetic FlyingThings3D
+     TEST tree (8 pairs at 540x960) through the captured engine at batch 4
+     and ``--per_image``, for MADNet2 fp32, ``--mixed_precision`` and
+     ``--fusion`` (``mad_eval``: metrics, pairs/s, device ms a pair,
+     captures, replays, peak memory, batched against per-image disparities,
+     one batch's replay bitwise its eager forward); MADNet2 and
+     MADNet2Fusion on the card against the CPU at 384x1280, fp32
+     (``mad_parity``); ``serve_adaptive.main`` at KITTI's 375x1242 on a
+     shifted synthetic stream, adapting and ``--no_adapt`` over 64 requests,
+     ``RAFT_FI_ADAPT_NAN`` (rollback), ``RAFT_FI_ADAPT_REGRESS`` (frozen)
+     and ``--sched`` (``mad_adapt_serve``: proxy trends, ms a step, pairs/s,
+     one capture however many ``update_variables``); ``train_mad.main`` at
+     the JAX defaults for 6 steps and ``--adapt mad`` over 8 frames
+     (``mad_train``).
 Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -3208,10 +3223,11 @@ def phase_train_step_check():
 
 
 def _write_things_tree(root: Path, n: int = TRAIN_PAIRS, H: int = 540, W: int = 960,
-                       seed: int = SEED) -> None:
-    """A synthetic FlyingThings3D TRAIN tree (the reference layout): ``n``
-    textured pairs, the right image the left shifted by a per-pair
-    disparity, as PNGs, with that disparity as PFM."""
+                       seed: int = SEED, split: str = "TRAIN", pair1_shape=None) -> None:
+    """A synthetic FlyingThings3D ``split`` tree (the reference layout):
+    ``n`` textured pairs, the right image the left shifted by a per-pair
+    disparity, as PNGs, with that disparity as PFM; pair 1 at
+    ``pair1_shape`` (H, W) when given."""
     import numpy as np
     from PIL import Image
 
@@ -3222,18 +3238,19 @@ def _write_things_tree(root: Path, n: int = TRAIN_PAIRS, H: int = 540, W: int = 
     base = root / "datasets" / "FlyingThings3D"
     for k in range(n):
         scene = f"{k // 8:04d}"
-        tex = rng.rand(H, W + 2 * pad, 3)
+        h, w = pair1_shape if k == 1 and pair1_shape else (H, W)
+        tex = rng.rand(h, w + 2 * pad, 3)
         for axis in (0, 1):
             tex = sum(np.roll(tex, s, axis=axis) for s in range(-2, 3)) / 5.0
         tex = (tex * 255).astype(np.uint8)
         d = 6 + 5 * (k % 8)
         for side, off in (("left", 0), ("right", d)):
-            path = base / "frames_finalpass" / "TRAIN" / "A" / scene / side / f"{k:04d}.png"
+            path = base / "frames_finalpass" / split / "A" / scene / side / f"{k:04d}.png"
             path.parent.mkdir(parents=True, exist_ok=True)
-            Image.fromarray(np.ascontiguousarray(tex[:, pad + off:pad + off + W])).save(path)
-        dp = base / "disparity" / "TRAIN" / "A" / scene / "left" / f"{k:04d}.pfm"
+            Image.fromarray(np.ascontiguousarray(tex[:, pad + off:pad + off + w])).save(path)
+        dp = base / "disparity" / split / "A" / scene / "left" / f"{k:04d}.pfm"
         dp.parent.mkdir(parents=True, exist_ok=True)
-        write_pfm(str(dp), np.full((H, W), float(d), np.float32))
+        write_pfm(str(dp), np.full((h, w), float(d), np.float32))
 
 
 @contextlib.contextmanager
@@ -4243,6 +4260,393 @@ def phase_blackbox(tmp: Path):
     return res
 
 
+# ------------------------------------------------------- the MADNet2 family
+
+# FlyingThings3D TEST pairs for mad_eval: 540x960, pair 1 at 600x900, all
+# served in the 640x1024 bucket (the first batch mixes two pad offsets).
+MAD_EVAL_PAIRS = 8
+MAD_EVAL_PAIR1_SHAPE = (600, 900)
+MAD_EVAL_BATCH = 4
+MAD_EVAL_VARIANTS = (("madnet2", []), ("madnet2_bf16", ["--mixed_precision"]),
+                     ("fusion", ["--fusion"]))
+# pairs/s of the held batch-4 engine over this many in-memory requests (the
+# decoded pairs repeated), after a warm-up stream of as many
+MAD_STREAM_REQUESTS = 256
+# batched against per-image disparities, max px: cuDNN may pick another
+# algorithm for another batch, and TF32 is on in the CLI runs (its 10-bit
+# products), bf16 rounds every conv's output. Measured on an H100 (540x960
+# only): 0.017 (fp32), 0.145 (bf16), 0.017 (Fusion); the limits are about 6x
+# and 3.5x those, and two planted routing faults (a rolled batch, an unpad
+# window two rows off) must exceed them.
+MAD_PER_IMAGE_TOL = {"madnet2": 0.1, "madnet2_bf16": 0.5, "fusion": 0.1}
+# the card against the CPU, fp32 with TF32 off: summation order only, per
+# level max |diff| <= MAD_PARITY_RTOL * max |CPU| + MAD_PARITY_ATOL
+MAD_PARITY_RTOL, MAD_PARITY_ATOL = 1e-4, 1e-6
+MAD_PARITY_SHAPE = (2, 384, 1280)
+# serve_adaptive on KITTI 2015's frame size with the shifted domain
+MAD_SERVE_ARGV = ["--source", "synthetic", "--synthetic_size", "375", "1242",
+                  "--adapt_mode", "mad", "--adapt_every", "4", "--infer_batch", "2",
+                  "--domain_shift", "1.8:0.65:8"]
+MAD_SERVE_REQUESTS = 64
+MAD_TRAIN_PAIRS = 12  # synthetic FlyingThings3D TRAIN pairs at 540x960
+MAD_TRAIN_STEPS = 6
+MAD_ADAPT_FRAMES = 8
+
+
+def _no_kernel_launched(phase: str, launches: dict) -> None:
+    """The MADNet2 family runs none of K1-K3."""
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: a RAFT-Stereo kernel launched: {launches}")
+
+
+def _things_test_pairs(root: Path):
+    """The decoded TEST pairs (with their GT) of the tree under ``root``."""
+    from raft_stereo_tpu_torch.data import datasets
+
+    with _chdir(root):
+        ds = datasets.SceneFlowDatasets(dstype="frames_finalpass", things_test=True)
+        return [ds[i] for i in range(len(ds))]
+
+
+def phase_mad_eval(tmp: Path):
+    """``evaluate_mad.main`` on a synthetic FlyingThings3D TEST tree (8 pairs
+    at 540x960, pair 1 at 600x900, the 640x1024 bucket) through the captured
+    engine at batch 4 and with ``--per_image``, for MADNet2 fp32,
+    ``--mixed_precision`` and ``--fusion`` (seeded weights): metrics, device
+    ms a pair, captures and replays, peak memory; then, on the same model and
+    pairs, batched against per-image disparities (within MAD_PER_IMAGE_TOL,
+    which two planted routing faults must exceed), one batch replayed
+    against its eager forward, bitwise, and the held batch-4 engine's pairs/s
+    over MAD_STREAM_REQUESTS in-memory requests."""
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch import evaluate_mad
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.ops.pad import BatchPadder
+    from raft_stereo_tpu_torch.runtime import infer
+
+    root = tmp / "mad_things"
+    _write_things_tree(root, n=MAD_EVAL_PAIRS, split="TEST", pair1_shape=MAD_EVAL_PAIR1_SHAPE)
+    pairs = _things_test_pairs(root)
+    out = []
+    _zero_launches()
+    for name, flags in MAD_EVAL_VARIANTS:
+        fusion = "--fusion" in flags
+        runs = {}
+        for mode, extra in (("engine", ["--infer_batch", str(MAD_EVAL_BATCH)]),
+                            ("per_image", ["--per_image"])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with _chdir(root):
+                t0 = time.perf_counter()
+                metrics = evaluate_mad.main(flags + extra)
+                wall = time.perf_counter() - t0
+            eng = evaluate_mad.last_engine()
+            s = eng.stats
+            runs[mode] = {
+                "metrics": metrics, "wall_s": wall, "captures": eng.graphs.captures,
+                "capture_s": eng.graphs.capture_s, "replays": eng.graphs.replays,
+                "device_ms_per_pair": (sum(s.batch_ms) / sum(s.batch_valid)
+                                       if s.batch_valid else None),
+                "completed": s.images, "failed": s.failed,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            del eng
+        # the same model and pairs, through engines held here
+        model = make_madnet2(mixed_precision="--mixed_precision" in flags, fusion=fusion,
+                             seed=0, device="cuda")
+        reqs = [infer.InferRequest(payload=i, inputs=p[:2] + ((p[2],) if fusion else ()))
+                for i, p in enumerate(pairs)]
+        outs = {}
+        for batch in (1, MAD_EVAL_BATCH):
+            eng = evaluate_mad.make_mad_engine(model, fusion, infer.InferOptions(batch=batch))
+            outs[batch] = {r.payload: r.output for r in eng.stream(iter(reqs))}
+        one, many = outs[1], outs[MAD_EVAL_BATCH]
+        diff = max(float(np.abs(many[i] - one[i]).max()) for i in one)
+        # planted routing faults: each 540x960 pair's per-image output against
+        # the next 540x960 pair's batched one, and against its own batched
+        # output read two rows down
+        same = [i for i in one if one[i].shape == one[0].shape]
+        faults = {
+            "rolled_batch_max_px": min(float(np.abs(one[i] - many[same[(k + 1) % len(same)]])
+                                             .max()) for k, i in enumerate(same)),
+            "unpad_off_by_2_rows_max_px": min(float(np.abs(one[i][:-2] - many[i][2:]).max())
+                                              for i in one)}
+        # the held batch-4 engine's rate over a long in-memory stream
+        n0 = len(eng.stats.batch_ms)
+        stream = [infer.InferRequest(payload=k, inputs=reqs[k % len(reqs)].inputs)
+                  for k in range(MAD_STREAM_REQUESTS)]
+        rates = _engine_pairs_per_s(eng, stream, reps=2)
+        stream_ms = sum(eng.stats.batch_ms[n0:]) / sum(eng.stats.batch_valid[n0:])
+        slots = [r.inputs for r in reqs[:MAD_EVAL_BATCH]]
+        eng = evaluate_mad.make_mad_engine(model, fusion, infer.InferOptions(
+            batch=MAD_EVAL_BATCH))
+        padder = BatchPadder([x[0].shape[:2] for x in slots], divis_by=eng.divis_by)
+        arrays = tuple(padder.pad([x[k] for x in slots]) for k in range(len(slots[0])))
+        key = eng._key(padder.bucket, arrays)
+        replay = eng.graphs.run(key, eng.forward_fn,
+                                tuple(torch.from_numpy(a) for a in arrays)).clone()
+        eager = eng.forward_fn(*(torch.from_numpy(a).cuda() for a in arrays))
+        torch.cuda.synchronize()
+        res = {"phase": "mad_eval", "variant": name, "argv": flags,
+               "entry": "raft_stereo_tpu_torch.evaluate_mad.main",
+               "pairs": len(pairs), "shapes": [[540, 960], list(MAD_EVAL_PAIR1_SHAPE)],
+               "bucket": list(padder.bucket), "engine_batch": MAD_EVAL_BATCH, **runs,
+               "stream": {"requests": MAD_STREAM_REQUESTS, "pairs_per_s": rates,
+                          "device_ms_per_pair": stream_ms,
+                          "note": "held engine, decoded pairs in memory, after a warm-up "
+                                  "stream"},
+               "batched_vs_per_image_max_abs_px": diff, "tol_px": MAD_PER_IMAGE_TOL[name],
+               "planted_faults": faults,
+               "replay_equals_eager_bitwise": bool(torch.equal(replay, eager)),
+               "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "card": smi_line()}
+        emit(res)
+        out.append(res)
+        del model, eng, replay, eager
+        torch.cuda.empty_cache()
+        for mode, r in runs.items():
+            m = r["metrics"]
+            if (r["completed"] != len(pairs) or r["failed"] or m["things-nans"]
+                    or not all(math.isfinite(m[k]) for k in ("things-epe", "things-d1"))):
+                raise AssertionError(f"mad_eval {name} {mode}: {r}")
+            if r["captures"] < 1 or r["replays"] < 1:
+                raise AssertionError(f"mad_eval {name} {mode}: no captured replay: {r}")
+        if diff > MAD_PER_IMAGE_TOL[name] or not res["replay_equals_eager_bitwise"]:
+            raise AssertionError(f"mad_eval {name}: batched vs per-image {diff} px, replay "
+                                 f"bitwise {res['replay_equals_eager_bitwise']}")
+        if min(faults.values()) <= MAD_PER_IMAGE_TOL[name]:
+            raise AssertionError(f"mad_eval {name}: MAD_PER_IMAGE_TOL passes a planted "
+                                 f"fault {faults}")
+    launches = _launches()
+    emit({"phase": "mad_eval_launches", "launches": launches})
+    _no_kernel_launched("mad_eval", launches)
+    return {"phase": "mad_eval", "launches": launches, "variants": out}
+
+
+def phase_mad_parity(tmp: Path):
+    """MADNet2 and MADNet2Fusion on the card (fp32, TF32 off) against the
+    same modules, same weights, on the CPU, at 384x1280 batch 2: every
+    level within MAD_PARITY_RTOL of the CPU's largest value (+ ATOL)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+
+    rng = np.random.RandomState(SEED)
+    B, H, W = MAD_PARITY_SHAPE
+    a, b = (torch.from_numpy((rng.rand(B, H, W, 3) * 255).astype(np.float32))
+            for _ in range(2))
+    g = torch.from_numpy((rng.rand(B, H, W, 1) * 40).astype(np.float32))
+    _zero_launches()
+    res = {"phase": "mad_parity", "shape": [B, H, W], "rtol": MAD_PARITY_RTOL,
+           "atol": MAD_PARITY_ATOL, "card": smi_line()}
+    with _fp32_checks(), torch.no_grad():
+        for name, fusion in (("madnet2", False), ("fusion", True)):
+            cpu = make_madnet2(fusion=fusion, seed=3)
+            card = copy.deepcopy(cpu).cuda()
+            inputs = (a, b, g) if fusion else (a, b)
+            want = cpu(*inputs)
+            got = card(*(x.cuda() for x in inputs))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                card(*(x.cuda() for x in inputs))
+            torch.cuda.synchronize()
+            errs = [float((x.cpu() - w).abs().max()) for x, w in zip(got, want)]
+            scales = [float(w.abs().max()) for w in want]
+            res[name] = {"max_abs_err_by_level": errs, "max_abs_cpu_by_level": scales,
+                         "eager_ms_per_forward_card": 1e3 * (time.perf_counter() - t0) / 5}
+            if any(e > MAD_PARITY_RTOL * s + MAD_PARITY_ATOL for e, s in zip(errs, scales)):
+                raise AssertionError(f"mad_parity {name}: {res[name]}")
+            del cpu, card
+    res["launches"] = _launches()
+    emit(res)
+    _no_kernel_launched("mad_parity", res["launches"])
+    return res
+
+
+def _serve_adaptive(root: Path, name: str, argv, env=None) -> dict:
+    """One ``serve_adaptive.main`` run in ``root`` (``env``: fault
+    injectors, set for the run only): its summary, events, engine counts,
+    wall time and adaptation step times."""
+    import os
+
+    import torch
+
+    from raft_stereo_tpu_torch import serve_adaptive
+    from raft_stereo_tpu_torch.runtime import faultinject
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    faultinject.reset()
+    try:
+        with _chdir(root):
+            t0 = time.perf_counter()
+            summary = serve_adaptive.main(["--name", name] + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            events = [json.loads(ln)["event"] for ln in
+                      (Path("runs") / name / "events.jsonl").read_text().splitlines()]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faultinject.reset()
+    srv = serve_adaptive.last_server()
+    graphs = srv.engine.graphs
+    hist = srv.proxy_history
+    res = {"summary": {k: v for k, v in summary.items() if k != "quality"},
+           "wall_s": wall, "pairs_per_s": summary["served"] / wall,
+           "captures": graphs.captures, "replays": graphs.replays,
+           "captures_by_key": sorted(graphs.captures_by_key.values()),
+           "adapt_step_ms": [1e3 * s for s in srv.step_seconds],
+           "proxy_by_opportunity": hist,
+           "events": {e: events.count(e) for e in sorted(set(events))
+                      if e.startswith(("adapt", "run_"))}}
+    del srv, graphs
+    return res
+
+
+def phase_mad_adapt_serve(tmp: Path):
+    """``serve_adaptive.main`` at KITTI 2015's frame size (375x1242, the
+    384x1280 bucket) on a photometrically shifted synthetic stream, batch 2,
+    a MAD step every 4 requests: adapting and ``--no_adapt`` over 64
+    requests (proxy trends, steps and ms a step, pairs/s, and no capture
+    after the first however many ``update_variables``); then
+    ``RAFT_FI_ADAPT_NAN=1`` with ``--max_adapt_skips 1`` (a rollback),
+    ``RAFT_FI_ADAPT_REGRESS=2`` with ``--regress_warmup 1 --max_rollbacks 1``
+    (frozen) and one adapting run with ``--sched``."""
+    import statistics
+
+    root = tmp / "mad_serve"
+    root.mkdir()
+    n = str(MAD_SERVE_REQUESTS)
+    _zero_launches()
+    runs = {
+        "adapting": _serve_adaptive(root, "adapt", MAD_SERVE_ARGV + ["--num_requests", n]),
+        "no_adapt": _serve_adaptive(root, "frozen", MAD_SERVE_ARGV + [
+            "--num_requests", n, "--no_adapt"]),
+        "nan": _serve_adaptive(root, "nan", MAD_SERVE_ARGV + [
+            "--num_requests", "8", "--max_adapt_skips", "1"], {"RAFT_FI_ADAPT_NAN": "1"}),
+        "regress": _serve_adaptive(root, "regress", MAD_SERVE_ARGV + [
+            "--num_requests", "12", "--regress_warmup", "1", "--max_rollbacks", "1"],
+            {"RAFT_FI_ADAPT_REGRESS": "2"}),
+        "sched": _serve_adaptive(root, "sched", MAD_SERVE_ARGV + [
+            "--num_requests", "16", "--sched"]),
+    }
+    launches = _launches()
+    steps_ms = runs["adapting"]["adapt_step_ms"]
+    res = {"phase": "mad_adapt_serve", "entry": "raft_stereo_tpu_torch.serve_adaptive.main",
+           "argv": MAD_SERVE_ARGV, "bucket": [384, 1280], "runs": runs,
+           "adapt_step_ms_median": statistics.median(steps_ms) if steps_ms else None,
+           "launches": launches, "card": smi_line()}
+    emit(res)
+    _no_kernel_launched("mad_adapt_serve", launches)
+    opportunities = MAD_SERVE_REQUESTS // 4
+    for name, r in runs.items():
+        s = r["summary"]
+        want = {"adapting": MAD_SERVE_REQUESTS, "no_adapt": MAD_SERVE_REQUESTS, "nan": 8,
+                "regress": 12, "sched": 16}[name]
+        if s["served"] != want or s["failed"]:
+            raise AssertionError(f"mad_adapt_serve {name}: served {s}")
+        # one key (the 384x1280 bucket at batch 2), captured once, however
+        # many pushes followed
+        if r["captures"] != 1 or r["captures_by_key"] != [1]:
+            raise AssertionError(f"mad_adapt_serve {name}: captures {r['captures_by_key']}")
+    ad, fr = runs["adapting"]["summary"], runs["no_adapt"]["summary"]
+    # every opportunity observes a proxy: a step's, a regressed step's, or
+    # (frozen after natural regressions) a frozen evaluation's
+    if (ad["adapt_steps"] < 1 or ad["adapt_skips"]
+            or len(runs["adapting"]["proxy_by_opportunity"]) != opportunities):
+        raise AssertionError(f"mad_adapt_serve adapting: {ad}")
+    if fr["adapt_steps"] or fr["snapshots"] or len(runs["no_adapt"]["proxy_by_opportunity"]) \
+            != opportunities:
+        raise AssertionError(f"mad_adapt_serve no_adapt: {fr}")
+    nan = runs["nan"]
+    if nan["summary"]["adapt_skips"] < 1 or nan["summary"]["rollbacks"] < 1 \
+            or not nan["events"].get("adapt_rollback"):
+        raise AssertionError(f"mad_adapt_serve nan: {nan['summary']} {nan['events']}")
+    reg = runs["regress"]
+    if not reg["summary"]["frozen"] or not reg["events"].get("adapt_frozen"):
+        raise AssertionError(f"mad_adapt_serve regress: {reg['summary']} {reg['events']}")
+    if runs["sched"]["summary"]["adapt_steps"] < 1 or \
+            len(runs["sched"]["proxy_by_opportunity"]) != 4:
+        raise AssertionError(f"mad_adapt_serve sched: {runs['sched']['summary']}")
+    return res
+
+
+def phase_mad_train(tmp: Path):
+    """``train_mad.main`` at the JAX defaults (MADNet2, batch 6, 384x768
+    crops, Adam 1e-4) for 6 steps on a synthetic FlyingThings3D TRAIN tree
+    (12 pairs at 540x960): s/step and peak memory; then ``--adapt mad``
+    from its final checkpoint over 8 full frames in order."""
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch import train_mad
+    from raft_stereo_tpu_torch.runtime.checkpoint import verify_checkpoint
+    from raft_stereo_tpu_torch.utils import metrics
+
+    root = tmp / "mad_train"
+    _write_things_tree(root, n=MAD_TRAIN_PAIRS)
+    argv = ["--name", "madnet2", "--num_steps", str(MAD_TRAIN_STEPS),
+            "--validation_frequency", "1000000"]
+    _zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    saved_freq = metrics.SUM_FREQ
+    metrics.SUM_FREQ = 1  # a metrics row every step: the loss per step
+    with _chdir(root), contextlib.ExitStack() as stack:
+        stack.callback(setattr, metrics, "SUM_FREQ", saved_freq)
+        t0 = time.perf_counter()
+        result = train_mad.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        final = str(Path(result.path).resolve())
+        verified = verify_checkpoint(final)
+        rows = [json.loads(ln) for ln in
+                (Path("runs") / "madnet2" / "metrics.jsonl").read_text().splitlines()]
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        adapted = train_mad.main(["--name", "madnet2", "--adapt", "mad", "--num_steps",
+                                  str(MAD_ADAPT_FRAMES), "--restore_ckpt", final])
+        torch.cuda.synchronize()
+        adapt_wall = time.perf_counter() - t1
+        adapt_peak = torch.cuda.max_memory_allocated()
+    run = train_mad.last_adapt()
+    launches = _launches()
+    step_s = result.timings.step_seconds
+    median = statistics.median(step_s[2:]) if len(step_s) > 2 else None
+    res = {"phase": "mad_train", "entry": "raft_stereo_tpu_torch.train_mad.main",
+           "argv": argv, "config": "MADNet2 fp32, batch 6, 384x768, Adam 1e-4, wd 1e-5",
+           "steps": result.total_steps, "step_seconds": step_s,
+           "s_per_step_median_steps_3_6": median,
+           "pairs_per_s": 6 / median if median else None,
+           "loop_means": result.timings.means(), "wall_s_with_setup": wall,
+           "max_memory_allocated_bytes": peak, "final_verified": verified,
+           "losses": [r.get("live_loss") for r in rows if "live_loss" in r],
+           "adapt": {"frames": MAD_ADAPT_FRAMES, "shape": [540, 960], "bucket": [640, 1024],
+                     "losses": run["losses"], "distribution": run["distribution"],
+                     "wall_s": adapt_wall, "ms_per_frame": 1e3 * adapt_wall / MAD_ADAPT_FRAMES,
+                     "max_memory_allocated_bytes": adapt_peak, "path": str(adapted)},
+           "launches": launches, "card": smi_line()}
+    emit(res)
+    del result
+    torch.cuda.empty_cache()
+    _no_kernel_launched("mad_train", launches)
+    if res["steps"] != MAD_TRAIN_STEPS or not verified or len(res["losses"]) != \
+            MAD_TRAIN_STEPS or not all(np.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"mad_train: {res}")
+    if len(run["losses"]) != MAD_ADAPT_FRAMES or not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"mad_train adapt: {run}")
+    return res
+
+
 # The kernels each main path must launch.
 PATH_KERNELS = {
     "main_path": ("alt_corr",),
@@ -4261,6 +4665,11 @@ PATH_KERNELS = {
     "video_path": ("alt_corr", "packed_conv"),
     "video_path_captured": ("alt_corr", "packed_conv"),
     "update_variables": ("alt_corr", "packed_conv"),
+    # the MADNet2 family runs none of K1-K3 (each phase checks 0 launches)
+    "mad_eval": (),
+    "mad_parity": (),
+    "mad_adapt_serve": (),
+    "mad_train": (),
 }
 
 
@@ -4317,6 +4726,10 @@ def main() -> int:
         phase_quality_canary(Path(tmp))
         phase_blackbox(Path(tmp))
         emit({"phase": "serving_total", "seconds": time.perf_counter() - t_serving})
+        t_mad = time.perf_counter()
+        paths += [phase_mad_eval(Path(tmp)), phase_mad_parity(Path(tmp)),
+                  phase_mad_adapt_serve(Path(tmp)), phase_mad_train(Path(tmp))]
+        emit({"phase": "mad_total", "seconds": time.perf_counter() - t_mad})
     by_path = {r["phase"]: r["launches"] for r in paths}
     for path, counts in by_path.items():
         if any(counts[k] < 1 for k in PATH_KERNELS[path]):

@@ -1,7 +1,7 @@
 """Architecture and training configuration of the RAFT-Stereo model family
 (PyTorch port).
 
-The port's own copy of ``raft_stereo_tpu/config.py:16-195``: the same flag
+The port's own copy of ``raft_stereo_tpu/config.py:16-204``: the same flag
 vocabulary, defaults, validation and named presets, so a command line of the
 JAX package builds the same architecture here, and the same augmentation
 and training hyper-parameters (one card: no data-parallel fields).
@@ -138,6 +138,19 @@ def config_from_args(args) -> RAFTStereoConfig:
         converge_eps=(float(getattr(args, "converge_eps", 0.0))
                       if getattr(args, "adaptive_iters", False) else 0.0),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class MADNet2Config:
+    """MADNet2 family config (``raft_stereo_tpu/config.py:196-204``; the
+    reference's core/madnet2/madnet2.py:9-34)."""
+
+    num_blocks: int = 6  # pyramid feature blocks
+    disp_scale: float = -20.0  # the reference's -20x disparity convention
+    corr_radius: int = 2
+    mixed_precision: bool = False
+    fusion: bool = False  # MADNet2Fusion guidance branch
+    attention_heads: int = 4
 
 
 @dataclasses.dataclass(frozen=True)

@@ -144,15 +144,12 @@ class _Concat(StereoDataset):
 class SceneFlowDatasets(StereoDataset):
     """FlyingThings3D's TEST split (``things_test``) or the TRAIN splits of
     FlyingThings3D, Monkaa and Driving (``subsets``), reference :124-190.
-    The TRAIN splits are training sets here: they take ``aug_params`` (the
-    JAX package's augmentation-free TRAIN split serves online adaptation,
-    which the port does not have yet)."""
+    A TRAIN split takes ``aug_params`` for training; without them it serves
+    full, unaugmented frames in order, as online adaptation reads them
+    (``train_mad --adapt``, ``serve_adaptive --source dataset``)."""
 
     def __init__(self, aug_params=None, root="datasets", dstype="frames_finalpass",
                  things_test=False, subsets=("things",)):
-        if not things_test and aug_params is None:
-            raise NotImplementedError("the SceneFlow TRAIN splits take aug_params (training); "
-                                      "pass things_test=True for the TEST split")
         super().__init__(aug_params)
         self.root = root
         self.dstype = dstype

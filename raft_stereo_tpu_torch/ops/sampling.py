@@ -2,8 +2,8 @@
 ``raft_stereo_tpu/ops/sampling.py``).
 
 Layouts: ``interp_bilinear`` and ``avg_pool2x`` work on the NCHW tensors
-inside the modules; ``coords_grid``, ``avg_pool_w2``,
-``bilinear_sampler`` and ``convex_upsample`` keep the JAX package's channel-last layout, the layout
+inside the modules; ``coords_grid``, ``avg_pool_w2``, ``bilinear_sampler``,
+``bilinear_upsample`` and ``convex_upsample`` keep the JAX package's channel-last layout, the layout
 the correlation state and the model's outputs use.
 """
 
@@ -50,6 +50,15 @@ def interp_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     if tuple(size) == tuple(x.shape[-2:]):
         return x
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+
+
+def bilinear_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Bilinear ×``factor`` of channel-last ``x`` [B, H, W, C] with torch's
+    default align_corners=False (the MAD evaluation's upsampling, the JAX
+    ``bilinear_upsample``, ``ops/sampling.py:115``)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor, mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)
 
 
 def avg_pool2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Deterministic fault injection for the runtime (the port's own copy of
-the training, IO, serving and serving-lifecycle points of
+the training, IO, serving, serving-lifecycle and adaptation points of
 ``raft_stereo_tpu/runtime/faultinject.py``).
 
 Each injection point is a no-op unless armed, through an environment
@@ -60,6 +60,19 @@ Serving-lifecycle points (``runtime/scheduler.py``):
                                  prior, which the refinement really starts
                                  from
 
+Adaptation-serving points (``runtime/adapt.py``; each proves one of the
+adaptive server's rails):
+
+  ``RAFT_FI_ADAPT_NAN``          comma list of 1-indexed adaptation-step
+                                 attempts whose batch is NaN-poisoned before
+                                 the step: the guard skips the update (a
+                                 streak rolls back) while every request is
+                                 still served
+  ``RAFT_FI_ADAPT_REGRESS``      comma list of 1-indexed applied (finite)
+                                 adaptation steps whose proxy loss is
+                                 inflated x10: the regression detector fires
+                                 and the server rolls back
+
 Every point is deterministic: the same arming fails the same ordinal.
 """
 
@@ -92,6 +105,8 @@ _armed_sched_stall_ms: Optional[float] = None
 _armed_sched_stall_scope: Optional[str] = None
 _armed_warm_poison: Optional[Set[int]] = None
 _armed_warm_poison_fill: Optional[float] = None
+_armed_adapt_nan: Optional[Set[int]] = None
+_armed_adapt_regress: Optional[Set[int]] = None
 _sigterm_fired = False
 
 # Attempt counters span retries and call sites; the lock keeps ordinals
@@ -107,6 +122,8 @@ _sched_dispatch_attempts = 0
 # passes, which several interleaving dispatch loops would otherwise split.
 _sched_dispatch_by_label: Dict[str, int] = {}
 _warm_reuse_attempts = 0
+_adapt_attempts = 0
+_adapt_regress_checks = 0
 # An injected hang parks the engine's device-wait thread on this event, so a
 # test never sleeps past its deadline; ``reset()`` releases parked threads.
 _hang_release = threading.Event()
@@ -123,15 +140,18 @@ def reset() -> None:
     global _armed_warm_poison, _armed_warm_poison_fill
     global _io_read_attempts, _infer_decode_attempts, _infer_compile_attempts
     global _infer_wait_attempts, _sched_dispatch_attempts, _sched_dispatch_by_label
-    global _warm_reuse_attempts
+    global _warm_reuse_attempts, _armed_adapt_nan, _armed_adapt_regress
+    global _adapt_attempts, _adapt_regress_checks
     _armed_nan_step = _armed_sigterm_step = _armed_crash = None
     _armed_io_fail_reads = _armed_infer_decode_fail = _armed_infer_compile_fail = None
     _armed_infer_oom_batch = _armed_infer_hang = None
     _armed_sched_stall = _armed_sched_stall_ms = _armed_sched_stall_scope = None
     _armed_warm_poison = _armed_warm_poison_fill = None
+    _armed_adapt_nan = _armed_adapt_regress = None
     _sigterm_fired = False
     _io_read_attempts = _infer_decode_attempts = _infer_compile_attempts = 0
     _infer_wait_attempts = _sched_dispatch_attempts = _warm_reuse_attempts = 0
+    _adapt_attempts = _adapt_regress_checks = 0
     _sched_dispatch_by_label = {}
     _hang_release.set()
     _hang_release = threading.Event()
@@ -147,12 +167,15 @@ def arm(nan_step: Optional[int] = None, sigterm_step: Optional[int] = None,
         sched_stall_ms: Optional[float] = None,
         sched_stall_scope: Optional[str] = None,
         warm_poison: Optional[Set[int]] = None,
-        warm_poison_fill: Optional[float] = None) -> None:
+        warm_poison_fill: Optional[float] = None,
+        adapt_nan: Optional[Set[int]] = None,
+        adapt_regress: Optional[Set[int]] = None) -> None:
     """Programmatic arming for in-process tests (overrides env vars)."""
     global _armed_nan_step, _armed_sigterm_step, _armed_crash, _armed_io_fail_reads
     global _armed_infer_decode_fail, _armed_infer_compile_fail, _armed_infer_oom_batch
     global _armed_infer_hang, _armed_sched_stall, _armed_sched_stall_ms
     global _armed_sched_stall_scope, _armed_warm_poison, _armed_warm_poison_fill
+    global _armed_adapt_nan, _armed_adapt_regress
     if nan_step is not None:
         _armed_nan_step = nan_step
     if sigterm_step is not None:
@@ -179,6 +202,10 @@ def arm(nan_step: Optional[int] = None, sigterm_step: Optional[int] = None,
         _armed_warm_poison = set(warm_poison)
     if warm_poison_fill is not None:
         _armed_warm_poison_fill = float(warm_poison_fill)
+    if adapt_nan is not None:
+        _armed_adapt_nan = set(adapt_nan)
+    if adapt_regress is not None:
+        _armed_adapt_regress = set(adapt_regress)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -389,3 +416,46 @@ def warm_poison_point(slot):
                        ordinal, fill)
         return slot * 0 + fill
     return slot
+
+
+# ------------------------------------------------------------ adaptation
+
+
+def adapt_attempts() -> int:
+    """Adaptation-step attempts observed (for test assertions)."""
+    return _adapt_attempts
+
+
+def adapt_nan_point() -> bool:
+    """Count one adaptation-step attempt (the adaptive server calls it once
+    an attempted step, before the step runs); True if its ordinal is armed:
+    the server then NaN-poisons the step's batch. Served requests are never
+    touched."""
+    ordinal = _next("_adapt_attempts")
+    armed = _armed_adapt_nan
+    if armed is None:
+        armed = _env_ordinals("RAFT_FI_ADAPT_NAN")
+    hit = bool(armed) and ordinal in armed
+    if hit:
+        logger.warning("[faultinject] NaN-poisoning adaptation step attempt %d", ordinal)
+    return hit
+
+
+def adapt_regress_checks() -> int:
+    """Applied-step proxy observations (for test assertions)."""
+    return _adapt_regress_checks
+
+
+def adapt_regress_point(proxy: float) -> float:
+    """Count one applied (finite) adaptation step's proxy observation;
+    return it, inflated x10 if its ordinal is armed (a step that silently
+    made serving worse, which the regression detector must catch)."""
+    ordinal = _next("_adapt_regress_checks")
+    armed = _armed_adapt_regress
+    if armed is None:
+        armed = _env_ordinals("RAFT_FI_ADAPT_REGRESS")
+    if armed and ordinal in armed:
+        logger.warning("[faultinject] inflating adaptation proxy loss x10 at applied step %d "
+                       "(%.4f -> %.4f)", ordinal, proxy, proxy * 10.0)
+        return float(proxy) * 10.0
+    return float(proxy)

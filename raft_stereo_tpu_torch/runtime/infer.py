@@ -2,10 +2,12 @@
 batch) as a CUDA graph (PyTorch port of ``raft_stereo_tpu/runtime/infer.py``:
 its plain engine, its fault tolerance and its telemetry).
 
-  * **Shape buckets.** Pairs are grouped by their /32-padded shape
-    (``ops.pad.bucket_shape``). Each member of a bucket is edge-padded with
-    its own offsets, the bytes the per-image ``InputPadder`` gives it, so
-    one captured forward serves the bucket and results unpad per item.
+  * **Shape buckets.** Pairs are grouped by their padded shape, H and W
+    rounded up to multiples of ``divis_by`` (``ops.pad.bucket_shape``; 32,
+    the RAFT-Stereo family's, by default; MADNet2 serves at 128). Each
+    member of a bucket is edge-padded with its own offsets, the bytes the
+    per-image ``InputPadder`` gives it at that divisor, so one captured
+    forward serves the bucket and results unpad per item.
   * **Fixed micro-batches.** A bucket packs into micro-batches of exactly
     ``batch`` items. A partial batch is filled up by replicating its last
     item and carries a validity count, so the filler never surfaces and the
@@ -580,11 +582,13 @@ class StreamSummary:
 _last_summary: Optional[StreamSummary] = None
 
 
-def publish_summary(stats: InferStats, label: str = "serving") -> StreamSummary:
+def publish_summary(stats: InferStats, label: str = "serving",
+                    heartbeat: bool = True) -> StreamSummary:
     """Derive, print, record and emit the run's summary: the
     completed/failed/degraded line, each bucket's end-to-end percentiles,
-    and, with a sink installed, ``stream_summary`` and a serving heartbeat
-    with ``metrics.prom``."""
+    and, with a sink installed, ``stream_summary`` and (unless
+    ``heartbeat`` is False: a caller that owns the run's heartbeat) a
+    serving heartbeat with ``metrics.prom``."""
     global _last_summary
     latency = stats.latency_summary() or None
     tel = telemetry.get()
@@ -609,7 +613,7 @@ def publish_summary(stats: InferStats, label: str = "serving") -> StreamSummary:
               f"{row['total']} request(s)")
     telemetry.emit("stream_summary", completed=s.completed, failed=s.failed,
                    degraded=s.degraded, watchdog_trips=s.watchdog_trips)
-    if tel is not None:
+    if tel is not None and heartbeat:
         tel.write_heartbeat(mode="serving", requests=s.completed, failed_requests=s.failed,
                             degraded=s.degraded, watchdog_trips=s.watchdog_trips)
     return s
@@ -645,7 +649,8 @@ class InferenceEngine:
 
     ``forward_fn(*inputs) -> [B, Hb, Wb, C']`` is the model forward on
     device tensors (inputs mirror ``InferRequest.inputs``, stacked and
-    padded). On ``device`` CUDA with ``capture`` (the default), each
+    padded to the bucket, H and W multiples of ``divis_by``). On
+    ``device`` CUDA with ``capture`` (the default), each
     (bucket, batch) runs as one CUDA graph from a ``GraphCache`` of
     ``max_executables`` entries; ``graph_key`` names what else the graph
     bakes in (the model and its iterations). Otherwise every batch runs
@@ -672,7 +677,8 @@ class InferenceEngine:
                  deadline_s: Optional[float] = None, capture: bool = True,
                  graph_key: Tuple = (), retries: int = 2, retry_backoff_s: float = 0.05,
                  eager_finalize: bool = False, idle_watchdog: bool = True,
-                 tier: str = "serving", module: Optional[torch.nn.Module] = None):
+                 tier: str = "serving", module: Optional[torch.nn.Module] = None,
+                 divis_by: int = 32):
         if batch < 1:
             raise ValueError("InferenceEngine batch must be >= 1")
         if prefetch_depth < 1:
@@ -681,6 +687,9 @@ class InferenceEngine:
             raise ValueError("InferenceEngine deadline_s must be > 0 or None")
         if retries < 0:
             raise ValueError("InferenceEngine retries must be >= 0")
+        if divis_by < 1:
+            raise ValueError("InferenceEngine divis_by must be >= 1")
+        self.divis_by = int(divis_by)
         self.forward_fn = forward_fn
         self.device = torch.device(device)
         self.batch = int(batch)
@@ -967,7 +976,8 @@ class InferenceEngine:
         trace_ids = [x.trace_id for x in items[:valid]]
         t0 = time.perf_counter()
         with telemetry.span("h2d_stage", trace_ids=_span_ids(trace_ids)):
-            padder = BatchPadder([x.arrays[0].shape[:2] for x in items])
+            padder = BatchPadder([x.arrays[0].shape[:2] for x in items],
+                                 divis_by=self.divis_by)
             arrays = tuple(padder.pad([x.arrays[k] for x in items])
                            for k in range(len(items[0].arrays)))
         return _StagedBatch(bucket=bucket, payloads=[x.payload for x in items[:valid]],
@@ -1022,7 +1032,7 @@ class InferenceEngine:
                     with telemetry.span("request_decode", trace_id=tid):
                         faultinject.infer_decode_point(getattr(req, "payload", None))
                         arrays = req.resolve()  # the lazy decode runs here
-                    bucket = bucket_shape(*arrays[0].shape[:2])
+                    bucket = bucket_shape(*arrays[0].shape[:2], divis_by=self.divis_by)
                 except Exception as e:  # noqa: BLE001 — isolated to the request
                     telemetry.emit("request_failed", stage="decode", error=_errstr(e),
                                    trace_id=tid)
@@ -1329,8 +1339,9 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
     parser.add_argument(
         "--infer_batch", type=int, default=default_batch,
         help="micro-batch size of the batched inference engine: inputs are grouped into "
-        "/32-padded shape buckets and packed into fixed batches of this size (a partial "
-        "batch is filled up and masked, so it runs the same captured graph)")
+        "shape buckets, H and W padded to multiples of the model's divisor (divis_by: 32 "
+        "for RAFT-Stereo, 128 for MADNet2), and packed into fixed batches of this size (a "
+        "partial batch is filled up and masked, so it runs the same captured graph)")
     parser.add_argument(
         "--per_image", action="store_true",
         help="bypass the engine: one pair per forward, synchronously (the reference "

@@ -364,7 +364,8 @@ class ContinuousBatchingScheduler:
                 # validation contract, run here on the admission thread
                 arrays = req.resolve()
             # the engine stager's own bucketing: the queues agree with it
-            bucket = bucket_shape(*arrays[0].shape[:2])
+            bucket = bucket_shape(*arrays[0].shape[:2],
+                                  divis_by=self.engine.divis_by)
             admitted = InferRequest(
                 payload=req.payload, inputs=arrays, trace_id=tid)
         except Exception as e:  # noqa: BLE001 — isolated to this request

@@ -7,7 +7,13 @@ to a ``state_dict`` with the reference's torch names, for
 ``RAFTStereo.load_state_dict(..., strict=True)``. It is the inverse of the
 JAX package's torch importer: HWIO → OIHW, ``scale`` → ``weight``,
 ``mean``/``var`` → ``running_mean``/``running_var``, and the Flax module
-paths → the torch module paths.
+paths → the torch module paths. The MADNet2 family's rules
+(``torch_import.py:55-72``) are inverted too: a block's convs are the
+reference's ``block{i}.0.0`` / ``.2.0``, a ``decoder{k}``'s ``conv{j}`` its
+Sequential's index ``decoder.{2(j-1)}.0``, ``conv_{k}`` is
+``conv_{k}.0``; the attention's packed ``in_proj_*`` pass verbatim, a Dense
+kernel [in, out] becomes a Linear weight [out, in], a LayerNorm ``scale``
+its ``weight``.
 """
 
 from __future__ import annotations
@@ -30,7 +36,13 @@ _SEGMENT_RULES = (
     (re.compile(r"^context_zqr_convs_(\d+)$"), r"context_zqr_convs.\1"),
     (re.compile(r"^conv2_res$"), "conv2.0"),
     (re.compile(r"^conv2_conv$"), "conv2.1"),
+    # the MADNet2 family
+    (re.compile(r"^block(\d)_conv1$"), r"block\1.0.0"),
+    (re.compile(r"^block(\d)_conv2$"), r"block\1.2.0"),
+    (re.compile(r"^conv_(\d)$"), r"conv_\1.0"),
 )
+_SEQ_CONV = re.compile(r"^conv(\d+)$")
+_DECODER = re.compile(r"^decoder\d$")
 
 
 def _torch_module_path(flax_path: Tuple[str, ...]) -> str:
@@ -38,11 +50,15 @@ def _torch_module_path(flax_path: Tuple[str, ...]) -> str:
     if parts[:2] == ["step", "update_block"]:
         parts = parts[1:]  # the JAX refinement loop's scope
     out = []
-    for seg in parts:
-        for pat, rep in _SEGMENT_RULES:
-            if pat.match(seg):
-                seg = pat.sub(rep, seg)
-                break
+    for i, seg in enumerate(parts):
+        m = _SEQ_CONV.match(seg)
+        if m and i and _DECODER.match(parts[i - 1]):
+            seg = f"decoder.{2 * (int(m.group(1)) - 1)}.0"
+        else:
+            for pat, rep in _SEGMENT_RULES:
+                if pat.match(seg):
+                    seg = pat.sub(rep, seg)
+                    break
         out.append(seg)
     return ".".join(out)
 
@@ -69,7 +85,8 @@ def load_reference_pth(model, path: str) -> None:
     sd = torch.load(path, map_location="cpu")
     sd = sd.get("state_dict", sd)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    if model.config.n_gru_layers < 3:
+    config = getattr(model, "config", None)  # RAFTStereo's; MADNet2 keeps every key
+    if config is not None and config.n_gru_layers < 3:
         sd = {k: v for k, v in sd.items() if not k.startswith(UNUSED_BELOW_3_LEVELS)}
     model.load_state_dict(sd, strict=True)
 
@@ -93,6 +110,10 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         module, leaf = _torch_module_path(path[:-1]), path[-1]
         if leaf == "kernel" and arr.ndim == 4:
             put(module, "weight", arr.transpose(3, 2, 0, 1))  # HWIO → OIHW
+        elif leaf == "kernel" and arr.ndim == 2:
+            put(module, "weight", arr.T)  # Dense [in, out] → Linear [out, in]
+        elif leaf in ("in_proj_weight", "in_proj_bias"):
+            put(module, leaf, arr)  # the attention's packed q|k|v, torch layout
         elif leaf == "scale":
             put(module, "weight", arr)
         elif leaf == "bias":

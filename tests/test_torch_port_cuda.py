@@ -607,3 +607,69 @@ def test_video_forward_replay_equals_eager_bitwise():
         eager = fwd(a.cuda(), b.cuda(), slot.cuda())
         assert torch.equal(replay, eager)
     assert cache.captures == 1 and cache.replays == 2
+
+
+def test_mad_engine_replays_equal_eager_and_launch_no_kernel():
+    """MADNet2 and its Fusion variant on the ÷128 engine: two buckets with a
+    partial batch; each result equals, bitwise, the eager forward of the
+    batch it rode in; K1-K3 never launch."""
+    _cuda()
+    from raft_stereo_tpu_torch.evaluate_mad import make_mad_engine
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+
+    shapes = [(100, 200), (120, 250), (100, 200), (130, 140)]
+    before = kernel_launches()
+    for fusion in (False, True):
+        model = make_madnet2(fusion=fusion, seed=5, device="cuda")
+        engine = make_mad_engine(model, fusion, InferOptions(batch=2))
+        reqs = _engine_requests(shapes, 12)
+        if fusion:
+            reqs = [InferRequest(payload=r.payload, inputs=r.inputs + (r.inputs[0][..., :1],))
+                    for r in reqs]
+        got = {r.payload: r for r in engine.stream(iter(reqs))}
+        assert engine.divis_by == 128 and engine.graphs.captures == 2
+        for bucket in {r.bucket for r in got.values()}:
+            members = [i for i in sorted(got) if got[i].bucket == bucket]
+            items = members + [members[-1]] * (2 - len(members))  # the filler
+            padder = BatchPadder([shapes[i] for i in items], divis_by=128)
+            arrays = [padder.pad([reqs[i].inputs[k] for i in items])
+                      for k in range(len(reqs[0].inputs))]
+            with torch.no_grad():
+                eager = engine.forward_fn(*(torch.from_numpy(a).cuda() for a in arrays))
+            for j, i in enumerate(members):
+                np.testing.assert_array_equal(got[i].output,
+                                              padder.unpad(eager.cpu().numpy(), j))
+    assert kernel_launches() == before
+
+
+def test_adaptive_server_pushes_steps_without_a_capture(tmp_path):
+    """Adaptive serving on the card: the adapting copy's steps reach the
+    captured graph through ``update_variables`` (the served outputs move)
+    with one capture for the whole stream, and the served module is never
+    the adapting one."""
+    _cuda()
+    import copy
+
+    from raft_stereo_tpu_torch.evaluate_mad import make_mad_engine
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.parallel.train_step import TrainState
+    from raft_stereo_tpu_torch.runtime.adapt import AdaptConfig, AdaptiveServer, AdaptPolicy
+    from raft_stereo_tpu_torch.train_mad import fetch_mad_optimizer
+
+    model = make_madnet2(seed=6, device="cuda").train()
+    served = copy.deepcopy(model).eval().requires_grad_(False)
+    engine = make_mad_engine(served, infer=InferOptions(batch=2))
+    args = type("Args", (), {"lr": 1e-4, "variant": "mad", "wdecay": 0.0})
+    opt, sched, _ = fetch_mad_optimizer(args, list(model.parameters()))
+    server = AdaptiveServer(engine, TrainState(model, opt, sched), str(tmp_path / "snap"),
+                            AdaptConfig(adapt_mode="mad", policy=AdaptPolicy(every=2)))
+    shapes = [(100, 200)] * 6
+    first = next(iter(engine.stream(iter(_engine_requests(shapes[:1], 13))))).output
+    out = list(server.serve(iter(_engine_requests(shapes, 13))))
+    assert all(r.ok for r in out) and server.adapt_steps == 3
+    assert engine.graphs.captures == 1 and list(engine.graphs.captures_by_key.values()) == [1]
+    assert all(torch.equal(p, q) for p, q in zip(served.state_dict().values(),
+                                                 model.state_dict().values()))
+    assert served is not model
+    again = next(iter(engine.stream(iter(_engine_requests(shapes[:1], 13))))).output
+    assert not np.array_equal(first, again)

@@ -171,13 +171,19 @@ def test_datasets_match_jax(trees, monkeypatch, name):
             np.testing.assert_array_equal(got, want)
 
 
-def test_datasets_refuse_what_waits_for_training():
+def test_datasets_refuse_what_waits_for_training(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError):
         datasets.ETH3D(aug_params={"crop_size": (32, 64)})
-    with pytest.raises(NotImplementedError):
-        datasets.SceneFlowDatasets()
     with pytest.raises(ValueError):
         datasets.Middlebury(split="X")
+    # the augmentation-free SceneFlow TRAIN split serves online adaptation
+    # (train_mad --adapt), as the JAX package's does
+    ft.build_sceneflow(str(tmp_path), n_train=2)
+    monkeypatch.chdir(tmp_path)
+    ds, jds = datasets.SceneFlowDatasets(), jax_datasets.SceneFlowDatasets()
+    assert ds.augmentor is None and ds.image_list == jds.image_list and len(ds) == 2
+    for got, want in zip(ds[1], jds.__getitem__(1)):
+        np.testing.assert_array_equal(got, want)
 
 
 # ----------------------------------------------------------------- validators

@@ -76,7 +76,9 @@ def test_importing_the_port_loads_no_jax():
     assert "raft_stereo_tpu_torch.runtime.infer" in loaded
     assert "raft_stereo_tpu_torch.data.datasets" in loaded
     for m in ("train", "losses", "runtime.loop", "runtime.checkpoint", "parallel.train_step",
-              "data.augmentor", "native", "runtime.telemetry", "runtime.faultinject"):
+              "data.augmentor", "native", "runtime.telemetry", "runtime.faultinject",
+              "models.madnet2", "models.attention", "models.madnet2_fusion", "evaluate_mad",
+              "train_mad", "serve_adaptive", "runtime.adapt"):
         assert f"raft_stereo_tpu_torch.{m}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -106,6 +108,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
         evaluate.main(["--dataset", "eth3d"])
     model = load_model(PRESETS["raftstereo-middlebury"], device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+    # the MADNet2 family's entry points
+    from raft_stereo_tpu_torch import evaluate_mad, serve_adaptive, train_mad
+
+    monkeypatch.chdir(tmp_path)
+    for main, argv in ((evaluate_mad.main, []), (train_mad.main, ["--num_steps", "1"]),
+                       (serve_adaptive.main, ["--source", "synthetic"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
 
 
 def test_demo_runs_end_to_end_on_the_cpu(tmp_path):
