@@ -134,6 +134,24 @@ Phases, each printing one JSON line:
      one capture however many ``update_variables``); ``train_mad.main`` at
      the JAX defaults for 6 steps and ``--adapt mad`` over 8 frames
      (``mad_train``).
+ 14. the serving composition (``runtime/tiers.py``, ``runtime/controller.py``,
+     ``runtime/debug_server.py``): ``evaluate --tier quality`` against the
+     untiered run on the synthetic ETH3D tree (raftstereo-middlebury, 32
+     iterations, batch 4: metrics and every disparity bitwise) and ``--tier
+     fast`` (MADNet2, no kernel) (``tier_path``); ``evaluate --cascade``
+     (raftstereo-realtime, 7 iterations) accepting all, escalating all and
+     at the default bar, against each tier alone, bitwise, then the cascade
+     and each tier alone held in this process over 256 in-memory requests
+     (pairs/s, device ms a pair per tier, the share escalated)
+     (``cascade_path``); ``evaluate --adaptive_iters --iter_tiers 7,32``
+     and a stream with every other request under a 0.5 s deadline, each
+     served by the tier ``IterTierPolicy`` names, bitwise that tier's plain
+     engine (``iter_tiers_path``); ``serve_adaptive --cascade --controller
+     --slo_p95_ms --debug_port 0`` at 375x1242 under a burst and a calm
+     tail: the ladder degrades in order and promotes back after the dwell,
+     every request resolves once, the debug endpoints answer while it
+     serves (``controller_path``). Every tier engine captures each key
+     once, whichever tier captured while another served.
 Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -4647,6 +4665,567 @@ def phase_mad_train(tmp: Path):
     return res
 
 
+# --------------------------------------------------- the serving composition
+
+# tier_path and iter_tiers_path serve the slice-1 preset (32 iterations),
+# cascade_path the realtime preset (7), on the synthetic ETH3D tree
+# (ETH3D_SCENES: two buckets) at batch 4.
+COMPOSITION_BATCH = 4
+ITER_TIERS = (7, 32)
+# iter_tiers_path's in-memory stream: the tree's pairs twice, every other
+# request with a deadline under IterTierPolicy's 1 s cutoff (-> iters7)
+ITER_TIERS_STREAM = 12
+# cascade_path's thresholds: accept all, escalate all (a photometric
+# confidence is at most 1, and only an exact reconstruction reaches it),
+# and the CLI's default
+CASCADE_THRESHOLDS = (("accept_all", 0.0), ("escalate_all", 1.0), ("default", 0.85))
+# pairs/s of the cascade and of each tier alone over this many in-memory
+# requests (the decoded pairs repeated), after a warm-up stream
+CASCADE_STREAM_REQUESTS = 256
+# controller_path: serve_adaptive --cascade at KITTI 2015's frame size,
+# batch 2, both tiers behind schedulers (the depth sensor), a fast tier
+# adapting every 32 requests, a bar of 0.99 that escalates nearly every pair
+# (the cascade_bar rung lowers it to 0.69). The burst is one chunk of
+# CTRL_BURST requests at once: the queues pass --controller_depth_high and
+# the requests queued behind the captures and the earlier batches finish
+# past the SLO's 250 ms over several ticks. Then no arrival until the
+# ladder is back at rung 0 (at most CTRL_SETTLE_S), and a calm tail of
+# CTRL_TAIL requests, one batch a tier, inside the SLO (on an H100 a pair of
+# the 8-iteration quality tier takes ~45 device ms, PERF §6).
+CTRL_ARGV = ["--source", "synthetic", "--synthetic_size", "375", "1242", "--infer_batch", "2",
+             "--adapt_every", "32", "--cascade", "--cascade_threshold", "0.99",
+             "--quality_iters", "8", "--sched",
+             "--max_pending", "64", "--controller", "--controller_interval", "0.1",
+             "--controller_dwell", "1.0", "--controller_depth_high", "4",
+             "--slo_p95_ms", "250", "--debug_port", "0"]
+CTRL_BURST = 32
+CTRL_TAIL = 2
+CTRL_SETTLE_S = 30.0
+CTRL_ENDPOINTS = ("/healthz", "/debug/queues", "/debug/snapshots", "/debug/stacks",
+                  "/debug/quality")
+
+
+@contextlib.contextmanager
+def _recorded_predictions():
+    """Record what ``evaluate``'s validators get from the engine path: each
+    pair's disparity by dataset index, and the serving object (the engine,
+    or the tiered stand-in with its ``tier_set``)."""
+    from raft_stereo_tpu_torch import evaluate
+
+    inner = evaluate._engine_predictions
+    rec = {"preds": {}, "serving": None}
+
+    def recorded(model, iters, ds, infer, drain=None):
+        serving, results = inner(model, iters, ds, infer, drain=drain)
+        rec["serving"] = serving
+
+        def gen():
+            for i, pred, gt in results:
+                rec["preds"][i] = pred.copy()
+                yield i, pred, gt
+
+        return serving, gen()
+
+    evaluate._engine_predictions = recorded
+    try:
+        yield rec
+    finally:
+        evaluate._engine_predictions = inner
+
+
+def _tier_engines(serving) -> dict:
+    """The engines of a plain engine, a ``TierSet`` or a tiered stand-in."""
+    from raft_stereo_tpu_torch.runtime.infer import InferenceEngine
+    from raft_stereo_tpu_torch.runtime.tiers import TierSet
+
+    if isinstance(serving, InferenceEngine):
+        return {"untiered": serving}
+    return dict((serving if isinstance(serving, TierSet) else serving.tier_set).engines)
+
+
+def _replayed(serving) -> dict:
+    """Launches at capture x replays, summed over the serving's engines."""
+    total = {}
+    for eng in _tier_engines(serving).values():
+        for k, n in eng.graphs.replayed_launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _tiers_report(serving, n0=None) -> dict:
+    """Per tier: device ms a served pair (CUDA events, from the batch's
+    input copy to its output copy, over the batches after ``n0[tier]``),
+    captures and each key's captures, replays."""
+    out = {}
+    for name, eng in _tier_engines(serving).items():
+        k0 = (n0 or {}).get(name, 0)
+        ms, valid = eng.stats.batch_ms[k0:], eng.stats.batch_valid[k0:]
+        out[name] = {"device_ms_per_pair": sum(ms) / sum(valid) if valid else None,
+                     "batches": len(ms), "captures": eng.graphs.captures,
+                     "captures_by_key": sorted(eng.graphs.captures_by_key.values()),
+                     "replays": eng.graphs.replays}
+    return out
+
+
+def _one_capture_a_key(phase: str, report: dict) -> None:
+    for name, r in report.items():
+        if any(n != 1 for n in r["captures_by_key"]):
+            raise AssertionError(f"{phase}: tier {name} captured a key twice: {report}")
+
+
+def _preds_equal(got: dict, want: dict) -> dict:
+    import numpy as np
+
+    same = [k for k in want if k in got and got[k].shape == want[k].shape
+            and np.array_equal(got[k], want[k])]
+    return {"compared": len(want), "bitwise_equal": len(same),
+            "keys_match": sorted(got) == sorted(want)}
+
+
+def _eth3d_pairs(root: Path) -> list:
+    from raft_stereo_tpu_torch.data import datasets
+
+    with _chdir(root):
+        ds = datasets.ETH3D(aug_params=None)
+        return [ds[i][:2] for i in range(len(ds))]
+
+
+def phase_tier_path(tmp: Path):
+    """``evaluate --dataset eth3d --preset raftstereo-middlebury`` (32
+    iterations, batch 4) untiered and with ``--tier quality``: the same
+    metrics and each pair's disparity bitwise (the path: counts set to 0
+    before the tiered run, K1's launches its graphs' replays); then ``--tier
+    fast`` (the MADNet2 tier, bf16 as the preset): K1-K3 launch 0 times."""
+    from raft_stereo_tpu_torch import evaluate
+
+    t_phase = time.perf_counter()
+    root = _eth3d_tree(tmp)
+    argv = ["--dataset", "eth3d", "--preset", "raftstereo-middlebury", "--valid_iters", "32",
+            "--infer_batch", str(COMPOSITION_BATCH)]
+    with _chdir(root):
+        with _launches_kept(), _recorded_predictions() as plain:
+            plain_metrics = evaluate.main(argv)
+        _zero_launches()
+        with _recorded_predictions() as tiered:
+            tier_metrics = evaluate.main(argv + ["--tier", "quality"])
+        wrapper = _launches()
+        launches = _replayed(tiered["serving"])
+        with _launches_kept():
+            before = _launches()
+            with _recorded_predictions() as fast:
+                fast_metrics = evaluate.main(argv + ["--tier", "fast"])
+            fast_wrapper = {k: n - before[k] for k, n in _launches().items()}
+    fast_replayed = _replayed(fast["serving"])
+    cmp = _preds_equal(tiered["preds"], plain["preds"])
+    reports = {"untiered": _tiers_report(plain["serving"]),
+               "tier_quality": _tiers_report(tiered["serving"]),
+               "tier_fast": _tiers_report(fast["serving"])}
+    res = {"phase": "tier_path", "entry": "raft_stereo_tpu_torch.evaluate.main --tier",
+           "argv": argv, "untiered": plain_metrics, "tier_quality": tier_metrics,
+           "tier_fast": fast_metrics, "metrics_equal": tier_metrics == plain_metrics,
+           "quality_vs_untiered": cmp, "tiers": reports, "launches": launches,
+           "launches_counted_as": "launches at capture x replays",
+           "wrapper_launches_warmup_and_capture": wrapper,
+           "fast_launches": {"wrapper": fast_wrapper, "replayed": fast_replayed},
+           "seconds": time.perf_counter() - t_phase, "card": smi_line()}
+    emit(res)
+    n = len(plain["preds"])
+    if not res["metrics_equal"] or cmp["bitwise_equal"] != n or not cmp["keys_match"]:
+        raise AssertionError(f"tier_path: --tier quality against untiered: {res}")
+    if not all(math.isfinite(v) for v in fast_metrics.values()) or len(fast["preds"]) != n:
+        raise AssertionError(f"tier_path: --tier fast {fast_metrics}")
+    _no_kernel_launched("tier_path --tier fast", fast_wrapper)
+    _no_kernel_launched("tier_path --tier fast", fast_replayed)
+    for name in ("tier_quality", "tier_fast"):
+        _one_capture_a_key(f"tier_path {name}", reports[name])
+    return res
+
+
+def phase_cascade_path(tmp: Path):
+    """``evaluate --preset raftstereo-realtime --cascade`` (7 iterations,
+    batch 4) at three thresholds, against ``--tier fast`` and ``--tier
+    quality`` run alone (same preset, same batch): accept-all outputs
+    bitwise the fast tier's, escalate-all bitwise the quality tier's, the
+    default's each bitwise one of the two with accepted + escalated = pairs
+    (the decisions from the cascade_accept / cascade_escalate events). The
+    path: the three runs, counts set to 0 before and read after. Then the
+    cascade, the fast tier and the quality tier held in this process over
+    CASCADE_STREAM_REQUESTS in-memory requests each, after a warm-up
+    stream, in turns: pairs/s, device ms a pair per tier, the share
+    escalated (seeded random weights: recorded, not bounded)."""
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch import evaluate
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.runtime.infer import InferOptions, InferRequest
+
+    t_phase = time.perf_counter()
+    root = _eth3d_tree(tmp)
+    argv = ["--dataset", "eth3d", "--preset", "raftstereo-realtime", "--valid_iters", "7",
+            "--infer_batch", str(COMPOSITION_BATCH)]
+    with _chdir(root):
+        with _launches_kept():
+            with _recorded_predictions() as fast_alone:
+                evaluate.main(argv + ["--tier", "fast"])
+            with _recorded_predictions() as quality_alone:
+                evaluate.main(argv + ["--tier", "quality"])
+        _zero_launches()
+        runs, launches = {}, {}
+        for name, threshold in CASCADE_THRESHOLDS:
+            tel_dir = tmp / "cascade_tel" / name
+            with _recorded_predictions() as rec:
+                metrics = evaluate.main(argv + ["--cascade", "--cascade_threshold",
+                                                str(threshold), "--telemetry_dir", str(tel_dir)])
+            events = [e["event"] for e in _events_of(tel_dir)]
+            for k, n in _replayed(rec["serving"]).items():
+                launches[k] = launches.get(k, 0) + n
+            preds = rec["preds"]
+            runs[name] = {
+                "threshold": threshold, "metrics": metrics,
+                "accepted": events.count("cascade_accept"),
+                "escalated": events.count("cascade_escalate"),
+                "vs_fast_alone": _preds_equal(preds, fast_alone["preds"]),
+                "vs_quality_alone": _preds_equal(preds, quality_alone["preds"]),
+                "each_one_of_the_two": all(
+                    np.array_equal(p, fast_alone["preds"][k])
+                    or np.array_equal(p, quality_alone["preds"][k]) for k, p in preds.items()),
+                "tiers": _tiers_report(rec["serving"])}
+        wrapper = _launches()
+    n_pairs = len(fast_alone["preds"])
+
+    # the long stream, in this process
+    pairs = _eth3d_pairs(root)
+    model = evaluate.load_model(PRESETS["raftstereo-realtime"], seed=0)
+    stream = [InferRequest(payload=k, inputs=pairs[k % len(pairs)])
+              for k in range(CASCADE_STREAM_REQUESTS)]
+    warm = [InferRequest(payload=k, inputs=pairs[k % len(pairs)]) for k in range(4 * len(pairs))]
+    with _launches_kept():
+        servings = {kind: evaluate.make_serving(model, 7, InferOptions(
+            batch=COMPOSITION_BATCH, **opts))
+            for kind, opts in (("cascade", {"cascade": True}), ("fast", {"tier": "fast"}),
+                               ("quality", {"tier": "quality"}))}
+        for _, fn in servings.values():
+            list(fn(iter(warm)))
+        cascade = servings["cascade"][1].__self__  # the CascadeServer
+        before = cascade.summary()
+        rates, device = {k: [] for k in servings}, {k: [] for k in servings}
+        for kind in ("cascade", "fast", "quality", "quality", "fast", "cascade"):
+            serving, fn = servings[kind]
+            n0 = {t: len(e.stats.batch_ms) for t, e in serving.tier_set.engines.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = sum(r.ok for r in fn(iter(stream)))
+            torch.cuda.synchronize()
+            rates[kind].append(done / (time.perf_counter() - t0))
+            device[kind].append({t: r["device_ms_per_pair"] for t, r in
+                                 _tiers_report(serving, n0).items() if r["batches"]})
+        after = cascade.summary()
+        stream_tiers = {kind: _tiers_report(s) for kind, (s, _) in servings.items()}
+    esc = after["escalated"] - before["escalated"]
+    acc = after["accepted"] - before["accepted"]
+    res = {"phase": "cascade_path", "entry": "raft_stereo_tpu_torch.evaluate.main --cascade",
+           "argv": argv, "pairs": n_pairs, "runs": runs, "launches": launches,
+           "launches_counted_as": "launches at capture x replays",
+           "wrapper_launches_warmup_and_capture": wrapper,
+           "stream": {"requests": CASCADE_STREAM_REQUESTS, "pairs_per_s": rates,
+                      "device_ms_per_pair": device, "escalated_share": esc / (esc + acc),
+                      "threshold": after["threshold"], "tiers": stream_tiers,
+                      "order": "cascade, fast, quality, quality, fast, cascade"},
+           "seconds": time.perf_counter() - t_phase, "card": smi_line()}
+    emit(res)
+    del servings, cascade, model
+    torch.cuda.empty_cache()
+    a, e, d = runs["accept_all"], runs["escalate_all"], runs["default"]
+    if (a["accepted"], a["escalated"]) != (n_pairs, 0) or \
+            a["vs_fast_alone"]["bitwise_equal"] != n_pairs:
+        raise AssertionError(f"cascade_path accept_all: {a}")
+    if (e["accepted"], e["escalated"]) != (0, n_pairs) or \
+            e["vs_quality_alone"]["bitwise_equal"] != n_pairs:
+        raise AssertionError(f"cascade_path escalate_all: {e}")
+    if d["accepted"] + d["escalated"] != n_pairs or not d["each_one_of_the_two"] or \
+            d["vs_quality_alone"]["bitwise_equal"] < d["escalated"]:
+        raise AssertionError(f"cascade_path default: {d}")
+    for r in runs.values():
+        _one_capture_a_key("cascade_path", r["tiers"])
+    for kind, rep in stream_tiers.items():
+        _one_capture_a_key(f"cascade_path stream {kind}", rep)
+    return res
+
+
+def phase_iter_tiers_path(tmp: Path, untiered_metrics=None):
+    """``evaluate --preset raftstereo-middlebury --adaptive_iters --iter_tiers
+    7,32`` on the ETH3D tree (every request by default to iters32: the same
+    metrics as the untiered run of tier_path), then the same assembly
+    (``evaluate.make_serving``) over an in-memory stream that gives every
+    other request a 0.5 s deadline: each request served by the tier
+    IterTierPolicy names (its tier_dispatch event), and its output bitwise
+    that tier's plain engine's (the captured adaptive forward at that count,
+    fed that tier's requests in order). The path: both runs, counts set to
+    0 before and read after."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch import evaluate
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.runtime import telemetry
+    from raft_stereo_tpu_torch.runtime.infer import InferOptions, InferRequest
+    from raft_stereo_tpu_torch.runtime.scheduler import SchedRequest
+    from raft_stereo_tpu_torch.runtime.tiers import IterTierPolicy, iter_tier_name
+
+    t_phase = time.perf_counter()
+    root = _eth3d_tree(tmp)
+    argv = ["--dataset", "eth3d", "--preset", "raftstereo-middlebury", "--valid_iters", "32",
+            "--infer_batch", str(COMPOSITION_BATCH), "--adaptive_iters", "--iter_tiers",
+            ",".join(map(str, ITER_TIERS))]
+    _zero_launches()
+    with _chdir(root), _recorded_predictions() as rec:
+        cli_metrics = evaluate.main(argv)
+    cli_tiers = _tiers_report(rec["serving"])
+    launches = _replayed(rec["serving"])
+
+    pairs = _eth3d_pairs(root)
+    model = evaluate.load_model(PRESETS["raftstereo-middlebury"], seed=0)
+    serving, stream_fn = evaluate.make_serving(model, ITER_TIERS[-1], InferOptions(
+        batch=COMPOSITION_BATCH, adaptive_iters=True, iter_tiers=ITER_TIERS))
+    items = [SchedRequest(InferRequest(payload=k, inputs=pairs[k % len(pairs)]),
+                          deadline_s=0.5 if k % 2 else None) for k in range(ITER_TIERS_STREAM)]
+    want_tier = {it.request.payload: IterTierPolicy(ITER_TIERS).select(it)[0] for it in items}
+    tel_dir = tmp / "iter_tiers_tel"
+    tel = telemetry.install(telemetry.Telemetry(str(tel_dir)))
+    try:
+        got = {r.payload: r for r in stream_fn(iter(items))}
+    finally:
+        telemetry.uninstall(tel)
+    for k, n in _replayed(serving).items():
+        launches[k] = launches.get(k, 0) + n
+    wrapper = _launches()
+    stream_tiers = _tiers_report(serving)
+    routed = {e["trace_id"]: e["tier"] for e in _events_of(tel_dir)
+              if e["event"] == "tier_dispatch"}
+    served_by = {k: routed.get(r.trace_id) for k, r in got.items()}
+    with _launches_kept():
+        plain = {}
+        for it in ITER_TIERS:
+            engine, fn = evaluate.make_serving(model, it, InferOptions(
+                batch=COMPOSITION_BATCH, adaptive_iters=True))
+            mine = [InferRequest(payload=k, inputs=pairs[k % len(pairs)])
+                    for k in sorted(got) if want_tier[k] == iter_tier_name(it)]
+            plain.update({r.payload: r.output for r in fn(iter(mine))})
+    cmp = _preds_equal({k: r.output for k, r in got.items()}, plain)
+    res = {"phase": "iter_tiers_path",
+           "entry": "raft_stereo_tpu_torch.evaluate.main --adaptive_iters --iter_tiers",
+           "argv": argv, "metrics": cli_metrics,
+           "metrics_equal_untiered": (None if untiered_metrics is None
+                                      else cli_metrics == untiered_metrics),
+           "cli_tiers": cli_tiers, "stream": {
+               "requests": ITER_TIERS_STREAM, "deadline_s_every_other": 0.5,
+               "served_by": {str(k): v for k, v in sorted(served_by.items())},
+               "policy": {str(k): v for k, v in sorted(want_tier.items())},
+               "vs_plain_engines": cmp, "tiers": stream_tiers},
+           "launches": launches, "launches_counted_as": "launches at capture x replays",
+           "wrapper_launches_warmup_and_capture": wrapper,
+           "seconds": time.perf_counter() - t_phase, "card": smi_line()}
+    emit(res)
+    del serving, stream_fn, model
+    if untiered_metrics is not None and not res["metrics_equal_untiered"]:
+        raise AssertionError(f"iter_tiers_path: CLI metrics {cli_metrics} vs untiered "
+                             f"{untiered_metrics}")
+    if served_by != want_tier or set(served_by.values()) != {iter_tier_name(t)
+                                                             for t in ITER_TIERS}:
+        raise AssertionError(f"iter_tiers_path: routing {served_by} vs policy {want_tier}")
+    if not all(r.ok for r in got.values()) or cmp["bitwise_equal"] != ITER_TIERS_STREAM:
+        raise AssertionError(f"iter_tiers_path: against the plain engines {cmp}")
+    _one_capture_a_key("iter_tiers_path", cli_tiers)
+    _one_capture_a_key("iter_tiers_path", stream_tiers)
+    if not np.isfinite(list(cli_metrics.values())).all():
+        raise AssertionError(f"iter_tiers_path: {cli_metrics}")
+    return res
+
+
+def phase_controller_path(tmp: Path):
+    """``serve_adaptive --cascade --controller --slo_p95_ms --telemetry_dir
+    --debug_port 0`` at KITTI 2015's 375x1242 (CTRL_ARGV): a burst of
+    CTRL_BURST requests, no arrival until the controller has promoted back
+    to rung 0, a calm tail of CTRL_TAIL. The ctrl_degrade events climb the
+    ladder in order, every ctrl_promote follows the dwell and walks it back
+    down, each value inside the bounds its event declares; every request
+    resolves once; a thread GETs the debug endpoints throughout and, in the
+    pause, each answers 200 and names the controller and the tiers. The
+    quality tier is the default raftstereo (the reg lookup, no kernel), so
+    K1-K3 launch 0 times."""
+    import io
+    import re
+    import statistics
+    import threading
+    import urllib.request
+
+    import torch
+
+    from raft_stereo_tpu_torch import serve_adaptive
+    from raft_stereo_tpu_torch.runtime import controller
+
+    t_phase = time.perf_counter()
+    root = tmp / "ctrl"
+    root.mkdir()
+    tel_dir = root / "tel"
+    out = io.StringIO()
+    state = {"port": None}
+    yielded, resolved, probes, tick_ms = [], [], [], []
+    stop = threading.Event()
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{state['port']}{path}",
+                                    timeout=10) as r:
+            return r.status, json.loads(r.read())
+
+    def prober():
+        while not stop.is_set():
+            for path in CTRL_ENDPOINTS:
+                try:
+                    status, doc = get(path)
+                except OSError as e:  # the serve ended under the probe, or an error status
+                    if stop.is_set():
+                        return
+                    probes.append((path, getattr(e, "code", repr(e)), None))
+                    continue
+                serving = None
+                if path == "/debug/queues":
+                    serving = any(v.get("serving") for k, v in doc.items()
+                                  if k.startswith("cascade"))
+                probes.append((path, status, serving))
+            stop.wait(0.2)
+
+    def ctrl_snapshot():
+        snaps = get("/debug/snapshots")[1]
+        return next(v for k, v in snaps.items() if k.split("#")[0] == "controller")
+
+    inner_stream = serve_adaptive.request_stream
+
+    def bursty(args):
+        for i, req in enumerate(inner_stream(args)):
+            if i == 0:
+                state["port"] = int(re.search(
+                    r"introspection server on http://127\.0\.0\.1:(\d+)",
+                    out.getvalue()).group(1))
+                threading.Thread(target=prober, name="ctrl-prober", daemon=True).start()
+            if i == CTRL_BURST:
+                t0 = time.monotonic()
+                while time.monotonic() - t0 < CTRL_SETTLE_S:
+                    snap = ctrl_snapshot()
+                    if snap["degrades"] >= 1 and snap["rung"] == 0:
+                        break
+                    time.sleep(0.1)
+                state["calm_s"] = time.monotonic() - t0
+                state["pause"] = {p: get(p) for p in CTRL_ENDPOINTS}
+            yielded.append(req.payload)
+            yield req
+
+    class Recording(serve_adaptive.AdaptiveServer):
+        def serve(self, requests):
+            for r in super().serve(requests):
+                resolved.append((r.payload, r.ok))
+                yield r
+            stop.set()  # the probes end before the debug server does
+
+    tick = controller.OverloadController._tick
+
+    def timed_tick(self):
+        t0 = time.perf_counter()
+        tick(self)
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+
+    serve_adaptive.request_stream = bursty
+    serve_adaptive.AdaptiveServer = Recording
+    controller.OverloadController._tick = timed_tick
+    argv = ["--name", "ctrl"] + CTRL_ARGV + [
+        "--num_requests", str(CTRL_BURST + CTRL_TAIL), "--telemetry_dir", str(tel_dir)]
+    _zero_launches()
+    try:
+        with _chdir(root), contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            summary = serve_adaptive.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        serve_adaptive.request_stream = inner_stream
+        serve_adaptive.AdaptiveServer = Recording.__mro__[1]
+        controller.OverloadController._tick = tick
+    launches = _launches()
+    srv = serve_adaptive.last_server()
+    cascade = srv._stream_fn.__self__  # the CascadeServer the adaptive server serves through
+    tiers = _tiers_report(cascade.tiers)
+    events = _events_of(tel_dir)
+    moves = [e for e in events if e["event"] in ("ctrl_degrade", "ctrl_promote")]
+    pause = state.get("pause") or {}
+    snap = next(v for k, v in pause["/debug/snapshots"][1].items()
+                if k.split("#")[0] == "controller") if pause else {}
+    ladder = snap.get("ladder", [])
+    walk, pos, last_t = [], 0, None
+    for e in moves:
+        up = e["event"] == "ctrl_degrade"
+        knob = ladder[pos]["knob"] if up else ladder[pos - 1]["knob"]
+        walk.append({"event": e["event"], "from": e["from_rung"], "to": e["rung"],
+                     "knob": e["knob"], "value": e["value"], "lo": e["lo"], "hi": e["hi"],
+                     "in_order": e["from_rung"] == pos and e["rung"] == pos + (1 if up else -1)
+                     and e["knob"] == knob, "in_bounds": e["lo"] <= e["value"] <= e["hi"],
+                     "after_dwell": up or e["t_mono"] - last_t >= e["dwell_s"]})
+        pos, last_t = e["rung"], e["t_mono"]
+    kinds = [w["event"] for w in walk]
+    names = {p: sorted(k.split("#")[0] for k in doc) for p, (_, doc) in pause.items()
+             if p in ("/healthz", "/debug/queues", "/debug/snapshots")}
+    if pause:
+        names["/healthz"] = pause["/healthz"][1]["providers"]
+        names["/debug/stacks"] = sorted({t["name"] for t in pause["/debug/stacks"][1]["threads"]})
+        names["/debug/quality"] = sorted(pause["/debug/quality"][1]["tiers"])
+    res = {"phase": "controller_path",
+           "entry": "raft_stereo_tpu_torch.serve_adaptive.main --cascade --controller",
+           "argv": argv, "burst": CTRL_BURST, "tail": CTRL_TAIL, "wall_s": wall,
+           "calm_s": state.get("calm_s"),
+           "summary": {k: v for k, v in summary.items() if k != "quality"},
+           "ladder": ladder, "moves": walk,
+           "ticks": len(tick_ms), "tick_ms": {
+               "median": statistics.median(tick_ms) if tick_ms else None,
+               "max": max(tick_ms, default=None)},
+           "probes": {"n": len(probes), "non_200": [p for p in probes if p[1] != 200],
+                      "while_cascade_serving": sum(1 for p in probes if p[2])},
+           "pause_statuses": {p: s for p, (s, _) in pause.items()}, "pause_names": names,
+           "requests": {"yielded": len(yielded), "resolved": len(resolved),
+                        "failed": sum(1 for _, ok in resolved if not ok)},
+           "tiers": tiers, "escalated_share": (
+               summary["cascade"]["escalated"] / max(1, summary["cascade"]["escalated"]
+                                                      + summary["cascade"]["accepted"])),
+           "launches": launches, "seconds": time.perf_counter() - t_phase,
+           "card": smi_line()}
+    emit(res)
+    del srv, cascade
+    torch.cuda.empty_cache()
+    _no_kernel_launched("controller_path", launches)
+    if sorted(p for p, _ in resolved) != sorted(yielded) or \
+            len({p for p, _ in resolved}) != len(resolved) or \
+            len(yielded) != CTRL_BURST + CTRL_TAIL or res["requests"]["failed"]:
+        raise AssertionError(f"controller_path: requests {res['requests']}")
+    n_up = kinds.count("ctrl_degrade")
+    if not n_up or kinds != ["ctrl_degrade"] * n_up + ["ctrl_promote"] * n_up or \
+            not all(w["in_order"] and w["in_bounds"] and w["after_dwell"] for w in walk):
+        raise AssertionError(f"controller_path: the ladder's walk {walk} over {ladder}")
+    if set(res["pause_statuses"].values()) != {200} or res["probes"]["non_200"] or \
+            not res["probes"]["n"]:
+        raise AssertionError(f"controller_path: debug endpoints {res['probes']}, "
+                             f"{res['pause_statuses']}")
+    want_names = {"/healthz": {"controller", "cascade", "engine:fast", "engine:quality"},
+                  "/debug/queues": {"cascade", "scheduler:fast", "scheduler:quality"},
+                  "/debug/snapshots": {"controller", "cascade", "engine:fast",
+                                       "engine:quality"},
+                  "/debug/stacks": {"overload-ctrl", "debug-server"},
+                  "/debug/quality": {"fast", "quality"}}
+    if any(not want <= {n.split("#")[0] for n in names.get(p, [])}
+           for p, want in want_names.items()):
+        raise AssertionError(f"controller_path: the endpoints name {names}")
+    _one_capture_a_key("controller_path", tiers)
+    return res
+
+
 # The kernels each main path must launch.
 PATH_KERNELS = {
     "main_path": ("alt_corr",),
@@ -4670,6 +5249,12 @@ PATH_KERNELS = {
     "mad_parity": (),
     "mad_adapt_serve": (),
     "mad_train": (),
+    # the serving composition: K1 in the RAFT-Stereo tiers; the controller
+    # path's tiers are MADNet2 and the reg-lookup raftstereo (0 launches)
+    "tier_path": ("alt_corr",),
+    "cascade_path": ("alt_corr",),
+    "iter_tiers_path": ("alt_corr",),
+    "controller_path": (),
 }
 
 
@@ -4730,6 +5315,12 @@ def main() -> int:
         paths += [phase_mad_eval(Path(tmp)), phase_mad_parity(Path(tmp)),
                   phase_mad_adapt_serve(Path(tmp)), phase_mad_train(Path(tmp))]
         emit({"phase": "mad_total", "seconds": time.perf_counter() - t_mad})
+        t_comp = time.perf_counter()
+        tier = phase_tier_path(Path(tmp))
+        paths += [tier, phase_cascade_path(Path(tmp)),
+                  phase_iter_tiers_path(Path(tmp), tier["untiered"]),
+                  phase_controller_path(Path(tmp))]
+        emit({"phase": "composition_total", "seconds": time.perf_counter() - t_comp})
     by_path = {r["phase"]: r["launches"] for r in paths}
     for path, counts in by_path.items():
         if any(counts[k] < 1 for k in PATH_KERNELS[path]):

@@ -14,6 +14,10 @@ left image's directory. ``--telemetry_dir`` writes the engine's events,
 spans, heartbeat and latency metrics there (``runtime/telemetry.py``) and
 arms the blackbox (SIGUSR2 dumps ``blackbox.json`` there).
 
+``--tier``, ``--cascade`` (with ``--fast_ckpt``) and ``--controller`` serve
+through the tiers of ``runtime/tiers.py`` and the overload controller, as
+``evaluate.make_serving`` assembles them.
+
 ``--serve_video`` (with ``--adaptive_iters``) serves the sorted pairs as the
 frames of one stereo video: one session of the ``SessionServer``, each
 frame warm-started from the previous frame's disparity; with
@@ -28,7 +32,7 @@ import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 
@@ -83,14 +87,16 @@ class DemoRun:
     per-image path each pair's forward seconds (host clock, until the
     disparity reached the host), on the engine path each result's seconds
     since the previous one (the first: since the stream started) and each
-    saved output's shape; the engine, on the engine path; and the captured
-    forwards (None where the forward ran eagerly)."""
+    saved output's shape; the engine, on the engine path (in tiered and
+    cascade runs the stand-in whose ``stats`` merge the tiers'); and the
+    plain engine's or the per-image path's captured forwards (None where the
+    forward ran eagerly, or several engines served)."""
 
     model: RAFTStereo
     saved: int = 0
     seconds: List[float] = field(default_factory=list)
     shapes: List[tuple] = field(default_factory=list)
-    engine: Optional[InferenceEngine] = None
+    engine: Optional[Any] = None
     graphs: Optional[GraphCache] = None
 
 
@@ -125,8 +131,12 @@ def demo(args, device=None) -> DemoRun:
             run.saved += 1
         return run
 
-    engine, stream = make_serving(model, args.valid_iters, infer)
-    run = DemoRun(model, engine=engine, graphs=engine.graphs if engine.capture else None)
+    # the plain engine, the --tier dispatcher, the --cascade server or the
+    # --adaptive_iters assembly; ``serving.stats`` is the merged view
+    serving, stream = make_serving(model, args.valid_iters, infer)
+    plain = isinstance(serving, InferenceEngine)
+    run = DemoRun(model, engine=serving, graphs=serving.graphs if plain and serving.capture
+                  else None)
 
     def requests():
         for imfile1, imfile2 in zip(left_images, right_images):
@@ -147,11 +157,11 @@ def demo(args, device=None) -> DemoRun:
         _save_result(out_dir, res.payload, res.output[:, :, 0], args.save_numpy)
         run.shapes.append(tuple(res.output.shape))
         run.saved += 1
-    stats = engine.stats
+    stats = serving.stats  # one snapshot (a tiered run merges on each access)
     infer_mod.publish_summary(stats, label="demo")
-    logger.info("engine: %d images in %d micro-batches over %d shape bucket(s), %d graph(s) "
-                "captured in %.2fs", stats.images, stats.batches, len(stats.buckets),
-                engine.graphs.captures, engine.graphs.capture_s)
+    logger.info("engine: %d images in %d micro-batches over %d shape bucket(s), %d "
+                "executable(s) compiled in %.2fs", stats.images, stats.batches,
+                len(stats.buckets), stats.compiles, stats.compile_s)
     return run
 
 
@@ -171,6 +181,9 @@ def main(argv=None, device=None) -> DemoRun:
     parser.add_argument("-r", "--right_imgs",
                         default="datasets/Middlebury/MiddEval3/testH/*/im1.png")
     parser.add_argument("--output_directory", default="demo_output")
+    parser.add_argument("--fast_ckpt", default=None, metavar="CKPT",
+                        help="the MADNet2 fast tier of --tier fast / --cascade: a reference "
+                        ".pth or a port checkpoint (default: seeded weights)")
     apply_preset_defaults(parser, argv)
     args = parser.parse_args(argv)
     if args.serve_video and (not args.adaptive_iters or args.per_image):

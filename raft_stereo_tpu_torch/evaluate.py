@@ -27,10 +27,15 @@ the continuous-batching scheduler in front of the engine
 (``runtime/scheduler.py``; ``--max_pending`` sheds); the first SIGTERM or
 SIGINT drains the run within ``--drain_timeout`` and it exits 0 with the
 metrics of the completed pairs; ``--adaptive_iters --converge_eps`` serves
-with the convergence exit; the quality observatory watches every user
-result (``--no_quality`` turns it off) and ``--canary_every`` weaves golden
-canaries into the stream, checked against ``--golden_dir``'s goldens (a
-run that captured goldens saves them there).
+with the convergence exit, and ``--iter_tiers 7,32`` with several
+iteration counts behind the tiered dispatcher; ``--tier`` serves through
+one named tier and ``--cascade`` through the MADNet2 -> RAFT-Stereo cascade
+(``runtime/tiers.py``; ``--fast_ckpt``); ``--controller`` arms the overload
+controller over them (``--slo_p95_ms``, ``--slo_budget``) and
+``--debug_port`` the introspection server; the quality observatory watches
+every user result (``--no_quality`` turns it off) and ``--canary_every``
+weaves golden canaries into the stream, checked against ``--golden_dir``'s
+goldens (a run that captured goldens saves them there).
 
 Everything here runs on the CUDA card unless the caller passes
 ``device="cpu"``; without a card and without that request it raises. On
@@ -195,61 +200,167 @@ def make_adaptive_forward(model: RAFTStereo, iters: int, video: bool = False) ->
     return fwd
 
 
+def _maybe_controlled(stream, infer: InferOptions, *, schedulers=(), cascade=None,
+                      tiered=None, adaptive=None):
+    """Arm the overload controller around one serve when ``--controller``
+    asks for it; without it the stream is returned untouched and no
+    controller code runs."""
+    if not infer.controller:
+        return stream
+    from raft_stereo_tpu_torch.runtime.controller import maybe_controller
+
+    ctrl = maybe_controller(infer, schedulers=schedulers, cascade=cascade, tiered=tiered,
+                            adaptive=adaptive)
+    return ctrl.wrap(stream)
+
+
 def _adaptive_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=None):
-    """The ``--adaptive_iters`` assembly for one iteration count: the engine
-    over ``make_adaptive_forward`` (captured unless the convergence exit
-    reads a scalar each step), the scheduler the options ask for, the
-    early-exit telemetry wrapper when ``converge_eps > 0``, and the
-    ``SessionServer`` warm-start layer in video mode."""
+    """The ``--adaptive_iters`` assembly: one engine over
+    ``make_adaptive_forward`` (captured unless the convergence exit reads a
+    scalar each step) with the scheduler the options ask for, or, for
+    several iteration counts, a ``TierSet`` of one tier a count behind a
+    ``TieredServer`` and ``IterTierPolicy``; the early-exit telemetry
+    wrapper when ``converge_eps > 0``; the ``SessionServer`` warm-start
+    layer in video mode; the overload controller outermost."""
+    from raft_stereo_tpu_torch.runtime import tiers as tiers_mod
+
     if float(model.config.converge_eps) != float(infer.converge_eps):
         raise ValueError(
             f"adaptive serving: the model was built with converge_eps="
             f"{model.config.converge_eps} but the serving options carry {infer.converge_eps}; "
             f"build the model through load_model so the two agree")
     counts = tuple(sorted(set(infer.iter_tiers or ()) | {int(iters)}))
-    if len(counts) > 1:
-        raise SystemExit(
-            f"--iter_tiers: serving {len(counts)} iteration counts {counts} needs the "
-            f"iteration-tier dispatcher (runtime/tiers.py: TierSet, TieredServer, "
-            f"IterTierPolicy), which the port does not have yet (ROADMAP queue A, item 6); "
-            f"pass one count, or none")
     video = bool(infer.video)
-    engine = InferenceEngine(
-        make_adaptive_forward(model, counts[0], video), device=next(model.parameters()).device,
-        batch=infer.batch, prefetch_depth=infer.prefetch, max_executables=infer.max_executables,
-        deadline_s=infer.deadline_s, retries=infer.retries,
-        capture=model.config.converge_eps == 0,
-        graph_key=(id(model), repr(model.config), counts[0], video),
-        # frame t+1 cannot exist before result t: the held dispatch must
-        # finalise on an empty stager queue, or the session deadlocks
-        eager_finalize=video, module=model)
-    sched = make_scheduler(engine, infer)
-    stream = make_stream(engine, infer, scheduler=sched)
-    if drain is not None:
-        drain.attach(sched)
+    capture = model.config.converge_eps == 0
+    if len(counts) == 1:
+        engine = InferenceEngine(
+            make_adaptive_forward(model, counts[0], video),
+            device=next(model.parameters()).device,
+            batch=infer.batch, prefetch_depth=infer.prefetch,
+            max_executables=infer.max_executables, deadline_s=infer.deadline_s,
+            retries=infer.retries, capture=capture,
+            graph_key=(id(model), repr(model.config), counts[0], video),
+            # frame t+1 cannot exist before result t: the held dispatch must
+            # finalise on an empty stager queue, or the session deadlocks
+            eager_finalize=video, module=model)
+        sched = make_scheduler(engine, infer)
+        stream = make_stream(engine, infer, scheduler=sched)
+        if drain is not None:
+            drain.attach(sched)
+        serving, ctrl_scheds, ctrl_tiered = engine, [sched], None
+    else:
+        ts = tiers_mod.TierSet(
+            [tiers_mod.ModelTier(
+                name=tiers_mod.iter_tier_name(it), model=model,
+                make_forward=lambda m, it=it: make_adaptive_forward(m, it, video),
+                capture=capture,
+                graph_key=(id(model), repr(model.config), int(it), video))
+             for it in counts], infer)
+        if drain is not None:
+            drain.attach(ts)
+        server = tiers_mod.TieredServer(ts, tiers_mod.IterTierPolicy(counts))
+        serving, stream = _TieredServing(ts), server.serve
+        ctrl_scheds, ctrl_tiered = list(ts.schedulers.values()), server
     if infer.converge_eps > 0:
         stream = infer_mod.wrap_adaptive_stream(stream)
     if video:
-        # a scheduler keeps the SchedRequest context and flushes by its own
-        # anti-starvation bound; the plain engine gets bare requests and a
-        # flush after each gated frame
-        stream = SessionServer(stream, forward_sched=infer.sched,
+        # the inner stream keeps the SchedRequest where something reads it
+        # (a scheduler's urgency, the iteration-tier router); bucket
+        # flushes chase every gated frame whenever the terminal engines are
+        # plain streams (the TieredServer passes the token to its plain
+        # tiers); with --sched the schedulers' anti-starvation bound flushes
+        stream = SessionServer(stream, forward_sched=bool(infer.sched or len(counts) > 1),
                                flush_buckets=not infer.sched).serve
-    return engine, stream
+    # outermost: the control thread spans the whole serve
+    stream = _maybe_controlled(stream, infer, schedulers=ctrl_scheds, tiered=ctrl_tiered)
+    return serving, stream
+
+
+class _TieredServing:
+    """The engine's stand-in in tiered and cascade runs: ``stats`` is the
+    merged view over every tier's engine. ``request_tier`` (cascade runs)
+    names the tier every request passes once, the fast tier: its completed
+    and failed counts are the request-level ledger the summary and
+    ``--max_failed_frac`` see (an escalation is re-work, not a second
+    request, and a failed escalation served as a fallback reached the
+    consumer as a success); batches, captures and latencies cover both."""
+
+    def __init__(self, tier_set, request_tier: Optional[str] = None):
+        self.tier_set = tier_set
+        self.request_tier = request_tier
+
+    @property
+    def stats(self):
+        merged = self.tier_set.combined_stats()
+        if self.request_tier is not None:
+            per_request = self.tier_set.engine(self.request_tier).stats
+            merged.images = per_request.images
+            merged.failed = per_request.failed
+        return merged
+
+
+def _load_fast_tier(infer: InferOptions, mixed_precision: bool = False, device=None):
+    """The MADNet2 fast tier of ``--tier fast`` / ``--cascade``: seeded, or
+    restored from ``--fast_ckpt`` (a reference ``.pth`` or a port
+    checkpoint), on ``device``."""
+    from raft_stereo_tpu_torch.evaluate_mad import load_mad_weights
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.runtime.tiers import madnet2_tier
+
+    model = make_madnet2(mixed_precision=mixed_precision, seed=0)
+    if infer.fast_ckpt:
+        load_mad_weights(model, infer.fast_ckpt)
+    return madnet2_tier(model.to(device))
 
 
 def make_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=None):
-    """``(engine, stream_fn)`` for the configured serving mode: the plain
-    engine, or its scheduler's ``serve`` with ``--sched``, or the adaptive
-    assembly with ``--adaptive_iters``. ``drain`` (a ``ServeDrain``) is
-    attached to the scheduler, where there is one."""
+    """``(serving, stream_fn)`` for the configured serving mode.
+
+    Untiered (the default): the plain engine, or its scheduler's ``serve``
+    with ``--sched``. ``--tier NAME``: the tiered dispatcher over a
+    ``TierSet`` routing every request to NAME (``quality`` is this model,
+    bitwise the untiered engine; ``fast`` adds a MADNet2 tier).
+    ``--cascade``: both tiers under the ``CascadeServer``.
+    ``--adaptive_iters``: the adaptive assembly. ``serving.stats`` is the
+    accounting either way; ``drain`` (a ``ServeDrain``) is attached to
+    whatever can drain."""
     if infer.adaptive_iters:
+        # iteration tiers of one model are another axis than the multi-model
+        # tiers: two routers in series would have no defined policy
+        if infer.tier or infer.cascade:
+            raise SystemExit("--adaptive_iters serves iteration tiers of one model; it is "
+                             "mutually exclusive with --tier/--cascade")
         return _adaptive_serving(model, iters, infer, drain=drain)
-    engine = make_engine(model, iters, infer)
-    sched = make_scheduler(engine, infer)
+    if not (infer.tier or infer.cascade):
+        engine = make_engine(model, iters, infer)
+        sched = make_scheduler(engine, infer)
+        if drain is not None:
+            drain.attach(sched)
+        stream = make_stream(engine, infer, scheduler=sched)
+        return engine, _maybe_controlled(stream, infer, schedulers=[sched])
+
+    from raft_stereo_tpu_torch.runtime import tiers as tiers_mod
+
+    tier_list = [tiers_mod.raft_stereo_tier(model, iters)]
+    if infer.cascade or infer.tier == "fast":
+        # the fast tier follows the quality model's precision
+        tier_list.insert(0, _load_fast_tier(infer, model.config.mixed_precision,
+                                            device=next(model.parameters()).device))
+    ts = tiers_mod.TierSet(tier_list, infer)
     if drain is not None:
-        drain.attach(sched)
-    return engine, make_stream(engine, infer, scheduler=sched)
+        drain.attach(ts)
+    if infer.cascade:
+        server = tiers_mod.CascadeServer(ts, threshold=infer.cascade_threshold)
+        stream = _maybe_controlled(server.serve, infer, schedulers=list(ts.schedulers.values()),
+                                   cascade=server)
+        return _TieredServing(ts, request_tier=server.fast), stream
+    tier = infer.tier
+    if tier not in ts.tiers:
+        raise SystemExit(f"--tier {tier!r}: unknown tier (this CLI builds {ts.names})")
+    server = tiers_mod.TieredServer(ts, tiers_mod.TierPolicy.single(tier))
+    stream = _maybe_controlled(server.serve, infer, schedulers=list(ts.schedulers.values()),
+                               tiered=server)
+    return _TieredServing(ts), stream
 
 
 # The last engine run's quality-observatory snapshot (None: the observatory
@@ -402,7 +513,7 @@ def validate_kitti(model, iters: int = 32, infer: Optional[InferOptions] = None,
             "kitti-d1": 100 * float(
                 np.concatenate([by_index[i][1] for i in sorted(by_index)]).mean()),
         }
-        serving = max(wall - engine.graphs.capture_s, 1e-9)
+        serving = max(wall - engine.stats.compile_s, 1e-9)
         res["kitti-fps"] = len(by_index) / serving
         print(f"Validation KITTI: EPE {res['kitti-epe']}, D1 {res['kitti-d1']}, "
               f"{res['kitti-fps']:.2f}-FPS engine throughput ({len(by_index)} images in "
@@ -535,6 +646,9 @@ def main(argv=None, device=None) -> Dict[str, float]:
     add_infer_args(parser)
     parser.add_argument("--dataset", required=True, choices=list(VALIDATORS),
                         help="validation set")
+    parser.add_argument("--fast_ckpt", default=None, metavar="CKPT",
+                        help="the MADNet2 fast tier of --tier fast / --cascade: a reference "
+                        ".pth or a port checkpoint (default: seeded weights)")
     apply_preset_defaults(parser, argv)
     args = parser.parse_args(argv)
     # The reference eval autocasts iff the corr implementation is spelled

@@ -182,6 +182,10 @@ def main(argv=None, device=None) -> Dict[str, float]:
     add_infer_args(parser)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if args.cascade or args.tier is not None:
+        raise SystemExit("evaluate_mad serves the MADNet2 model directly: it is the fast tier; "
+                         "tiered and cascade serving (--tier/--cascade) are wired in evaluate, "
+                         "demo and serve_adaptive")
     if args.adaptive_iters:
         raise SystemExit("evaluate_mad serves MADNet2, which has no refinement iterations to "
                          "adapt: --adaptive_iters is a RAFT-Stereo serving knob (evaluate, demo)")

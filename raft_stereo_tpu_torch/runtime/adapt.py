@@ -304,6 +304,17 @@ class AdaptiveServer:
             # the rollback floor: the entry weights served before any step
             self._commit_snapshot()
 
+    # ------------------------------------------------------------ actuator
+
+    def set_every(self, every: int) -> None:
+        """The overload controller's actuator: the adaptation cadence
+        (served requests per opportunity), >= 1. The serve loop reads it
+        once a chunk, so it takes effect at the next chunk."""
+        every = int(every)
+        if every < 1:
+            raise ValueError("adaptation cadence (every) must be >= 1")
+        self._every = every
+
     # ------------------------------------------------------------- serving
 
     def serve(self, requests: Iterable[InferRequest]) -> Iterator[InferResult]:

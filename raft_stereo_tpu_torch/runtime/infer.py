@@ -167,6 +167,10 @@ def kernel_launches() -> Dict[str, int]:
 
 # ------------------------------------------------------------ graph cache
 
+# Held by every capture in the process (``GraphCache``'s rule for several
+# engines in one process).
+CAPTURE_LOCK = threading.Lock()
+
 
 @dataclass
 class CapturedForward:
@@ -184,15 +188,29 @@ class GraphCache:
     """LRU of captured forwards, at most ``max_entries``, keyed by the caller
     (the engine: bucket shape, batch, input dtypes, iterations and model).
 
-    Every graph draws from one shared memory pool: each capture reuses the
-    memory earlier graphs free after their own captures, so sixteen graphs
-    of large activations do not each hold their own. (A capture that CUDA
-    invalidates spoils the pool for later captures: they start a new one,
-    ``_end_broken_capture``.) That is safe because
-    replays run one at a time on one stream, and the caller copies
-    each output out on that stream before the next replay, which may write
-    over it. Static inputs live outside the pool. Eviction drops the graph
-    and its buffers.
+    Every graph of a cache draws from the cache's one memory pool: each
+    capture reuses the memory earlier graphs free after their own captures,
+    so sixteen graphs of large activations do not each hold their own. (A
+    capture that CUDA invalidates spoils the pool for later captures: they
+    start a new one, ``_end_broken_capture``.) That is safe because a
+    cache's replays run one at a time on its engine's dispatch thread, and
+    the caller copies each output out on that stream before the next
+    replay, which may write over it. Static inputs live outside the pool.
+    Eviction drops the graph and its buffers.
+
+    **Several engines in one process** (the tiers of ``runtime/tiers.py``,
+    one consumer thread each) each have their own cache and pool, so one
+    engine's replays never write into another's graphs. Their captures
+    follow one rule: a capture (warm-up included) holds the process-wide
+    ``CAPTURE_LOCK``, so two captures never share the capture stream or
+    interleave in the allocator, and it records in CUDA's thread-local
+    capture mode on its own side stream. In the default global mode another
+    thread's replay, copy, event query or pinned allocation during the
+    capture would invalidate it; in thread-local mode only the capturing
+    thread's own calls are checked, and the other engines' work runs on the
+    legacy stream, which a PyTorch side stream (non-blocking) does not
+    synchronise with. So engines capture while others serve, each key once
+    (``captures_by_key``).
 
     ``get`` warms up and captures on the first call of a key (the engine's
     compile: ``faultinject.infer_compile_point`` fires there); a warm-up or
@@ -272,10 +290,15 @@ class GraphCache:
         return self.replay(self.get(key, fn, inputs), inputs)
 
     def _capture(self, fn, inputs) -> CapturedForward:
-        """Warm up eagerly on a side stream, then capture on the pool. The
-        warm-up builds the kernels' libraries, sets their shared-memory
-        attributes and settles cuDNN's choices, so the capture itself
-        builds, allocates outside the pool and reads back nothing."""
+        """Warm up eagerly on a side stream, then capture on the pool, under
+        ``CAPTURE_LOCK``. The warm-up builds the kernels' libraries, sets
+        their shared-memory attributes and settles cuDNN's choices, so the
+        capture itself builds, allocates outside the pool and reads back
+        nothing."""
+        with CAPTURE_LOCK:
+            return self._capture_locked(fn, inputs)
+
+    def _capture_locked(self, fn, inputs) -> CapturedForward:
         t0 = time.perf_counter()
         dev = torch.device("cuda", torch.cuda.current_device())
         stream = torch.cuda.current_stream(dev)
@@ -293,7 +316,7 @@ class GraphCache:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
             before = kernel_launches()
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 output = fn(*static)
         except BaseException:
             if graph is not None:
@@ -1317,6 +1340,17 @@ class InferOptions:
     # None keeps the scheduler's blocking backpressure; an int sheds
     max_pending: Optional[int] = None
     drain_timeout: float = 30.0
+    # tiered serving (runtime/tiers.py): one named tier, or the fast ->
+    # quality cascade with its escalation bar; the MADNet2 fast tier's
+    # checkpoint
+    tier: Optional[str] = None
+    cascade: bool = False
+    cascade_threshold: float = 0.85
+    fast_ckpt: Optional[str] = None
+    # the localhost debug server, and the per-tier latency SLO
+    debug_port: Optional[int] = None
+    slo_p95_ms: Optional[float] = None
+    slo_budget: float = 0.01
     # inert unless adaptive_iters: the allowed iteration counts, the
     # convergence exit's threshold, and video (warm-start) serving, which
     # the video modes set
@@ -1324,6 +1358,13 @@ class InferOptions:
     iter_tiers: Optional[Tuple[int, ...]] = None
     converge_eps: float = 0.0
     video: bool = False
+    # the overload controller (runtime/controller.py): off by default; its
+    # cadence, promotion dwell and high bands (the low bands derive)
+    controller: bool = False
+    controller_interval: float = 0.5
+    controller_dwell: float = 2.0
+    controller_burn_high: float = 1.0
+    controller_depth_high: int = 8
     # the drift sentinels are on by default; canaries only with canary_every
     quality: bool = True
     quality_window: int = 32
@@ -1384,14 +1425,69 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
         "this many seconds resolves as a typed drained error; a second signal is "
         "immediate")
     parser.add_argument(
+        "--tier", default=None, metavar="NAME",
+        help="serve through one named tier of the tiered registry (runtime/tiers.py): "
+        "'quality' routes every request to this CLI's RAFT-Stereo model through the tiered "
+        "dispatcher (outputs bitwise the untiered engine's), 'fast' to a MADNet2 tier where "
+        "the CLI builds one; default: untiered serving")
+    parser.add_argument(
+        "--cascade", action="store_true",
+        help="confidence-gated cascade: every pair runs the fast (MADNet2) tier first, a "
+        "left-right photometric confidence of its disparity is computed on the host, and "
+        "pairs below --cascade_threshold are escalated to the quality (RAFT-Stereo) tier; "
+        "an escalated result replaces the fast one, a failed escalation falls back to it, "
+        "and every request resolves exactly once")
+    parser.add_argument(
+        "--cascade_threshold", type=float, default=0.85, metavar="CONF",
+        help="confidence in [0, 1] below which a fast result escalates (1.0 escalates "
+        "everything, 0.0 accepts everything)")
+    parser.add_argument(
+        "--debug_port", type=int, default=None, metavar="PORT",
+        help="start the introspection server on 127.0.0.1:PORT (0: an ephemeral port, "
+        "printed at start): /healthz, /metrics, /debug/queues, /debug/snapshots, "
+        "/debug/stacks, /debug/quality, /debug/requests/<trace_id>; read-only, loopback "
+        "only, off by default")
+    parser.add_argument(
+        "--slo_p95_ms", type=float, default=None, metavar="MS",
+        help="arm per-tier SLO accounting against this end-to-end latency target: every "
+        "resolved request is a hit (completed within it) or a miss (late, failed, shed or "
+        "drained); hit rate and budget burn go to the heartbeat, the summary and "
+        "metrics.prom (default: off)")
+    parser.add_argument(
+        "--slo_budget", type=float, default=0.01, metavar="FRAC",
+        help="the miss fraction the --slo_p95_ms target tolerates (the error budget)")
+    parser.add_argument(
+        "--controller", action="store_true",
+        help="arm the overload controller (runtime/controller.py): a control thread reads "
+        "the SLO budget burn and the scheduler queue depths every --controller_interval "
+        "seconds and moves a degradation ladder one rung at a time (lower the cascade bar, "
+        "route default traffic one iteration tier down, adapt less often, halve the "
+        "admission cap), promoting back one rung per --controller_dwell of calm; every "
+        "decision is a ctrl_degrade / ctrl_promote / ctrl_hold event (default: off)")
+    parser.add_argument(
+        "--controller_interval", type=float, default=0.5, metavar="SECONDS",
+        help="the controller's cadence: sensors read and at most one rung moved each")
+    parser.add_argument(
+        "--controller_dwell", type=float, default=2.0, metavar="SECONDS",
+        help="the calm (every sensor below its low band, continuously) one promotion needs")
+    parser.add_argument(
+        "--controller_burn_high", type=float, default=1.0, metavar="BURN",
+        help="degrade above this windowed SLO budget burn; the promote band is half of it")
+    parser.add_argument(
+        "--controller_depth_high", type=int, default=8, metavar="N",
+        help="degrade above this many requests pending in the deepest scheduler queue; "
+        "the promote band is a quarter of it")
+    parser.add_argument(
         "--adaptive_iters", action="store_true",
         help="adaptive compute: the batch-level convergence exit (--converge_eps) and "
         "video warm-start serving (demo --serve_video); without it both are inert")
     parser.add_argument(
         "--iter_tiers", default=None, metavar="N,N,...",
-        help="allowed per-request refinement-iteration counts under --adaptive_iters; "
-        "--valid_iters is always one of them. One count serves; several need the "
-        "iteration-tier dispatcher, which the port does not have yet (refused)")
+        help="allowed per-request refinement-iteration counts under --adaptive_iters "
+        "(e.g. 7,16,32): each count gets its own engine behind one tiered dispatcher; a "
+        "SchedRequest.iters pin snaps up to the nearest allowed count, a deadline <= 1s "
+        "rides the smallest, everything else the largest; --valid_iters is always one of "
+        "them (default: --valid_iters only)")
     parser.add_argument(
         "--converge_eps", type=float, default=0.0, metavar="EPS",
         help="batch-level convergence exit under --adaptive_iters: stop refining once "
@@ -1476,10 +1572,22 @@ def options_from_args(args) -> Optional[InferOptions]:
         sched_max_wait=getattr(args, "sched_max_wait", 2.0),
         max_pending=getattr(args, "max_pending", None),
         drain_timeout=getattr(args, "drain_timeout", 30.0),
+        tier=getattr(args, "tier", None),
+        cascade=getattr(args, "cascade", False),
+        cascade_threshold=getattr(args, "cascade_threshold", 0.85),
+        fast_ckpt=getattr(args, "fast_ckpt", None),
+        debug_port=getattr(args, "debug_port", None),
+        slo_p95_ms=getattr(args, "slo_p95_ms", None),
+        slo_budget=getattr(args, "slo_budget", 0.01),
         adaptive_iters=adaptive,
         iter_tiers=parse_iter_tiers(getattr(args, "iter_tiers", None)) if adaptive else None,
         converge_eps=float(getattr(args, "converge_eps", 0.0)) if adaptive else 0.0,
         video=bool(getattr(args, "serve_video", False)) and adaptive,
+        controller=bool(getattr(args, "controller", False)),
+        controller_interval=getattr(args, "controller_interval", 0.5),
+        controller_dwell=getattr(args, "controller_dwell", 2.0),
+        controller_burn_high=getattr(args, "controller_burn_high", 1.0),
+        controller_depth_high=getattr(args, "controller_depth_high", 8),
         quality=not getattr(args, "no_quality", False),
         quality_window=getattr(args, "quality_window", 32),
         quality_reference=getattr(args, "quality_reference", 64),
@@ -1505,13 +1613,27 @@ def install_cli_telemetry(args) -> Optional[telemetry.Telemetry]:
 def install_cli_introspection(args) -> Callable[[], None]:
     """The forensics layer of a serving CLI run: with ``--telemetry_dir``, a
     blackbox dumper over that directory, watching SIGUSR2 (the operator's
-    dump signal). Call it before building engines, so their snapshot hooks
-    register with it; returns an idempotent teardown."""
+    dump signal); with ``--debug_port``, the introspection server. Call it
+    before building engines, so their snapshot hooks register with it;
+    returns an idempotent teardown."""
     closers: List[Callable[[], None]] = []
     if getattr(args, "telemetry_dir", None):
         dumper = blackbox.install(blackbox.BlackboxDumper(args.telemetry_dir))
         dumper.watch_signal()
         closers.append(lambda: blackbox.uninstall(dumper))
+    if getattr(args, "debug_port", None) is not None:
+        from raft_stereo_tpu_torch.runtime.debug_server import DebugServer
+
+        server = DebugServer(args.debug_port).start()
+        print(f"[debug] introspection server on http://{server.host}:{server.port}",
+              flush=True)
+        if not getattr(args, "telemetry_dir", None):
+            # providers register with the blackbox dumper, which needs a
+            # run directory: without one the queue views stay empty
+            logger.warning("--debug_port without --telemetry_dir: no blackbox dumper is "
+                           "installed, so /debug/queues and the /healthz provider census "
+                           "stay empty; pass --telemetry_dir for the full view")
+        closers.append(server.close)
 
     def teardown() -> None:
         for close in reversed(closers):

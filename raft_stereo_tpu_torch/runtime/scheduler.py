@@ -117,13 +117,23 @@ class SchedRequest:
     ``InferRequest``s may be mixed into the same stream (priority 0, no
     deadline).
 
-    ``session`` tags the request as one frame of a video stream: the
-    ``SessionServer`` serializes frames per session and warm-starts each
-    frame's disparity from its predecessor's; other servers ignore it."""
+    ``tier`` pins the request to a named model tier when the stream is
+    served by the latency-tiered dispatcher (``runtime.tiers.TieredServer``);
+    left None, the ``TierPolicy`` derives the tier from the same deadline
+    and priority fields that order dispatch within a tier. ``iters`` pins
+    the request to a refinement-iteration count when the stream is served
+    through iteration tiers (``--adaptive_iters --iter_tiers``): the
+    ``IterTierPolicy`` snaps it up to the nearest allowed tier. ``session``
+    tags the request as one frame of a video stream: the ``SessionServer``
+    serializes frames per session and warm-starts each frame's disparity
+    from its predecessor's. Servers that do not implement a field ignore
+    it."""
 
     request: InferRequest
     priority: int = 0
     deadline_s: Optional[float] = None
+    tier: Optional[str] = None
+    iters: Optional[int] = None
     session: Optional[str] = None
 
 
@@ -295,6 +305,21 @@ class ContinuousBatchingScheduler:
                     "shed_reasons": dict(self.stats.shed_reasons),
                 },
             }
+
+    # ---------------------------------------------------------- actuator
+
+    def set_max_pending(self, max_pending: Optional[int]) -> None:
+        """The overload controller's actuator: resize the admission cap.
+        ``None`` restores the blocking backpressure; an int must be >= 1.
+        Each admission decision reads the knob once, so a swap mid-serve
+        cannot tear a decision; blocked admissions wake to re-evaluate."""
+        if max_pending is not None:
+            max_pending = int(max_pending)
+            if max_pending < 1:
+                raise ValueError("scheduler max_pending must be >= 1 or None")
+        with self._cond:
+            self.max_pending = max_pending
+            self._cond.notify_all()
 
     # ---------------------------------------------------------- admission
 

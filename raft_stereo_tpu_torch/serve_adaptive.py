@@ -22,9 +22,15 @@ and the run exits 0 within ``--drain_timeout``; a second is immediate.
 
 The served module and the adapting one are separate: steps that pass the
 rails reach the captured graphs through ``update_variables`` between
-chunks. Flags of serving layers the port does not have yet are refused,
-each naming its ROADMAP item. Everything runs on the CUDA card unless the
-caller passes ``device="cpu"``.
+chunks. ``--cascade`` serves the adapted MADNet2 as the fast tier of a
+``CascadeServer`` whose quality tier is a frozen default RAFT-Stereo at
+``--quality_iters`` (``--quality_ckpt``); ``--controller`` arms the
+overload controller over the cascade bar, the adaptation cadence and the
+admission cap, with ``--slo_p95_ms``/``--slo_budget`` its burn sensor;
+``--debug_port`` serves the introspection endpoints. Flags of serving
+layers the port does not have yet are refused, each naming its ROADMAP
+item. Everything runs on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -172,19 +178,6 @@ def request_stream(args) -> Iterator[InferRequest]:
 # The JAX CLI's flags whose serving layers the port does not have yet, each
 # with the ROADMAP item that brings it.
 _LEFT_OUT = (
-    ("cascade", "two-tier cascade serving (runtime/tiers.py) is ROADMAP queue A, item 6"),
-    ("cascade_threshold", "the cascade (runtime/tiers.py) is ROADMAP queue A, item 6"),
-    ("quality_iters", "the cascade's RAFT-Stereo quality tier is ROADMAP queue A, item 6"),
-    ("quality_ckpt", "the cascade's RAFT-Stereo quality tier is ROADMAP queue A, item 6"),
-    ("controller", "the overload controller (runtime/controller.py) is ROADMAP queue A, "
-                   "item 6"),
-    ("controller_interval", "the overload controller is ROADMAP queue A, item 6"),
-    ("controller_dwell", "the overload controller is ROADMAP queue A, item 6"),
-    ("controller_burn_high", "the overload controller is ROADMAP queue A, item 6"),
-    ("controller_depth_high", "the overload controller is ROADMAP queue A, item 6"),
-    ("slo_p95_ms", "SLO-driven serving (the controller's sensor) is ROADMAP queue A, item 6"),
-    ("slo_budget", "SLO-driven serving (the controller's sensor) is ROADMAP queue A, item 6"),
-    ("debug_port", "the introspection HTTP server is ROADMAP queue A, item 6"),
     ("aot_dir", "persisting compiled forwards across processes is ROADMAP queue A, item 3b"),
     ("spatial_threshold", "spatial serving is ROADMAP queue A, item 7"),
     ("multihost", "multi-card serving and training (DDP) is ROADMAP queue A, item 4"),
@@ -192,24 +185,19 @@ _LEFT_OUT = (
 
 
 def add_left_out_args(parser: argparse.ArgumentParser) -> None:
-    """The JAX CLI's flags the port refuses (``refuse_left_out``); ``--tier``
-    accepts ``fast``, the only tier this CLI serves."""
+    """The JAX CLI's flags the port refuses (``refuse_left_out``)."""
     for name, why in _LEFT_OUT:
         parser.add_argument(f"--{name}", nargs="?", const=True, default=None,
                             help=f"refused: {why}")
-    parser.add_argument("--tier", default=None,
-                        help="the served tier: only 'fast' (the adapted MADNet2); other "
-                        "tiers are ROADMAP queue A, item 6")
 
 
 def refuse_left_out(args) -> None:
     for name, why in _LEFT_OUT:
         if getattr(args, name, None) is not None:
             raise SystemExit(f"serve_adaptive --{name}: {why}; the port does not have it yet")
-    if getattr(args, "tier", None) not in (None, "fast"):
-        raise SystemExit("serve_adaptive --tier: this CLI serves the adapted MADNet2 fast "
-                         "tier only; tiered serving (runtime/tiers.py) is ROADMAP queue A, "
-                         "item 6")
+    if args.tier not in (None, "fast"):
+        raise SystemExit("serve_adaptive serves the adapted MADNet2 fast tier; --tier accepts "
+                         "only 'fast' here: use --cascade for two-tier serving")
 
 
 # ------------------------------------------------------------------ entry
@@ -264,9 +252,35 @@ def build_parser() -> argparse.ArgumentParser:
                         help="fast-EMA / slow-EMA ratio that declares a quality regression "
                         "(then: rollback)")
     parser.add_argument("--regress_warmup", type=int, default=2)
+    # --cascade escalates low-confidence pairs from the adapted MADNet2 (the
+    # fast tier) to a frozen RAFT-Stereo quality tier on the same card
+    parser.add_argument("--quality_iters", type=int, default=8,
+                        help="refinement iterations of the RAFT-Stereo quality tier built by "
+                        "--cascade")
+    parser.add_argument("--quality_ckpt", default=None,
+                        help="the RAFT-Stereo quality tier of --cascade: a reference .pth or "
+                        "a port checkpoint (default: seeded weights)")
     add_infer_args(parser, default_batch=2)
     add_left_out_args(parser)
     return parser
+
+
+def _cascade_tiers(args, served, infer: InferOptions, dev):
+    """The cascade's ``TierSet``: the adapted MADNet2 (``served``, which
+    adaptation keeps pushing into) is the fast tier, a frozen default
+    RAFT-Stereo at ``--quality_iters`` the quality tier, seeded or read from
+    ``--quality_ckpt``."""
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.evaluate_mad import load_mad_weights
+    from raft_stereo_tpu_torch.runtime import tiers as tiers_mod
+
+    qmodel = load_model(RAFTStereoConfig(mixed_precision=args.mixed_precision), device=dev,
+                        seed=0)
+    if args.quality_ckpt:
+        load_mad_weights(qmodel, args.quality_ckpt)  # a .pth or a port checkpoint
+    return tiers_mod.TierSet([tiers_mod.madnet2_tier(served),
+                              tiers_mod.raft_stereo_tier(qmodel, args.quality_iters)], infer)
 
 
 def main(argv=None, device=None):
@@ -290,6 +304,7 @@ def main(argv=None, device=None):
         from raft_stereo_tpu_torch.evaluate_mad import make_mad_engine
         from raft_stereo_tpu_torch.runtime.preemption import GracefulShutdown, ServeDrain
         from raft_stereo_tpu_torch.runtime.scheduler import make_scheduler, make_stream
+        from raft_stereo_tpu_torch.runtime.tiers import CascadeServer
         from raft_stereo_tpu_torch.train_mad import _init_model_state
 
         dev = resolve_device(device)
@@ -300,9 +315,16 @@ def main(argv=None, device=None):
         # the served module: a copy the captured graphs read by address
         served = copy.deepcopy(state.model).eval().requires_grad_(False)
         tel = telemetry.install(telemetry.Telemetry(args.telemetry_dir))
+        if args.slo_p95_ms:
+            tel.configure_slo(args.slo_p95_ms, args.slo_budget)
         infer_mod.reset_summary()
         infer = options_from_args(args) or InferOptions(batch=args.infer_batch)
-        engine = make_mad_engine(served, fusion=False, infer=infer)
+        tier_set = None
+        if args.cascade:
+            tier_set = _cascade_tiers(args, served, infer, dev)
+            engine = tier_set.engine("fast")
+        else:
+            engine = make_mad_engine(served, fusion=False, infer=infer)
         config = AdaptConfig(
             adapt_mode=args.adapt_mode, adapt=not args.no_adapt,
             policy=AdaptPolicy(mode=args.policy, every=args.adapt_every,
@@ -314,10 +336,17 @@ def main(argv=None, device=None):
             seed=args.seed)
         with GracefulShutdown() as shutdown:
             drain = ServeDrain(shutdown, timeout_s=args.drain_timeout, label="serve_adaptive")
-            sched = make_scheduler(engine, infer)
-            drain.attach(sched)
+            cascade = None
+            if tier_set is not None:
+                drain.attach(tier_set)
+                cascade = CascadeServer(tier_set, threshold=args.cascade_threshold)
+                stream_fn, schedulers = cascade.serve, list(tier_set.schedulers.values())
+            else:
+                sched = make_scheduler(engine, infer)
+                drain.attach(sched)
+                stream_fn, schedulers = make_stream(engine, infer, scheduler=sched), [sched]
             server = AdaptiveServer(engine, state, args.snapshot_dir, config, name=args.name,
-                                    stream_fn=make_stream(engine, infer, scheduler=sched),
+                                    stream_fn=stream_fn,
                                     should_stop=lambda: shutdown.should_stop)
             _last_server = server
             # the quality observatory: bit-exact goldens only on the frozen
@@ -329,21 +358,39 @@ def main(argv=None, device=None):
                 quality.install(qmon)
                 # a latched canary freezes adaptation through the same rail
                 qmon.add_latch_action(server.freeze)
+            # the overload controller (--controller; off by default): the SLO
+            # burn and the scheduler depths move the cascade bar, the
+            # adaptation cadence and the admission cap
+            ctrl = None
+            if infer.controller:
+                from raft_stereo_tpu_torch.runtime.controller import maybe_controller
+
+                ctrl = maybe_controller(infer, schedulers=schedulers, cascade=cascade,
+                                        adaptive=server)
             telemetry.emit("run_start", name=args.name, mode="serve_adaptive",
                            adapt=config.adapt, adapt_mode=config.adapt_mode,
                            policy=config.policy.mode, num_requests=args.num_requests)
-            for res in server.serve(drain.wrap_source(
-                    quality.weave_canaries(request_stream(args), qmon))):
-                drain.note_result(res)
-                if not res.ok:
-                    logger.warning("request %s failed (%s): isolated, the stream goes on",
-                                   res.payload, res.error)
+            if ctrl is not None:
+                ctrl.start()
+            try:
+                for res in server.serve(drain.wrap_source(
+                        quality.weave_canaries(request_stream(args), qmon))):
+                    drain.note_result(res)
+                    if not res.ok:
+                        logger.warning("request %s failed (%s): isolated, the stream goes on",
+                                       res.payload, res.error)
+            finally:
+                if ctrl is not None:
+                    ctrl.close()
             drain.finish()
             # the server owns this run's heartbeat (its adaptation fields)
             infer_mod.publish_summary(engine.stats, label="serve_adaptive", heartbeat=False)
             summary = server.summary()
             telemetry.emit("run_end", outcome="completed", **{
                 k: v for k, v in summary.items() if k != "controller_distribution"})
+            if cascade is not None:
+                # the cascade's ledger rides the printed summary only
+                summary = dict(summary, cascade=cascade.summary())
             if qmon is not None:
                 if qmon.cfg.golden_dir and qmon.canaries.captured:
                     path = qmon.canaries.save(qmon.cfg.golden_dir)

@@ -1,15 +1,15 @@
 """Adaptive compute and video serving in the port, on the CPU: the cases of
-``tests/test_adaptive_compute.py`` that need no iteration tiers, under the
-same names, against the port (``runtime/infer.py``: ``parse_iter_tiers``,
-the options' gating, ``wrap_adaptive_stream``, ``eager_finalize``;
-``runtime/scheduler.py``: ``SessionServer``; ``evaluate.make_serving``; the
-model's ``converge_eps`` exit with and without ``flow_init``); and, held to
-the JAX package on the same inputs and carried weights, ``forward_interpolate``
-and ``default_warm_fn`` (bitwise) and the warm-started adaptive forward
-(``evaluate.make_adaptive_forward``, within the engine test's tolerance).
-Also: ``--iter_tiers`` with more than one count is refused (the tiers wait
-for the iteration-tier dispatcher), ``update_variables`` on the CPU, and
-``demo.main --serve_video`` end to end.
+``tests/test_adaptive_compute.py``, under the same names, against the port
+(``runtime/infer.py``: ``parse_iter_tiers``, the options' gating,
+``wrap_adaptive_stream``, ``eager_finalize``; ``runtime/scheduler.py``:
+``SessionServer``; ``runtime/tiers.py``: ``IterTierPolicy`` and the
+iteration tiers behind ``evaluate.make_serving``; the model's
+``converge_eps`` exit with and without ``flow_init``); and, held to the JAX
+package on the same inputs and carried weights, ``forward_interpolate`` and
+``default_warm_fn`` (bitwise), the warm-started adaptive forward
+(``evaluate.make_adaptive_forward``) and the iteration tiers' outputs and
+dispatch (within the engine test's tolerance). Also ``update_variables`` on
+the CPU, and ``demo.main --serve_video`` and ``--iter_tiers`` end to end.
 
 Every engine here has a deadline, so a hang fails its test.
 """
@@ -210,13 +210,15 @@ def test_adaptive_rejects_per_image():
         load_model(args, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--tier", "quality"], ["--cascade"], ["--aot_dir", "d"],
-                                  ["--debug_port", "0"]])
+@pytest.mark.parametrize("flag", [["--tier", "quality"], ["--cascade"], ["--aot_dir", "d"]])
 def test_adaptive_rejects_tier_cascade_combo(flag):
-    """The port has no multi-model tiers, no executable store and no debug
-    server yet: their flags are refused by the CLI, never ignored."""
+    """Iteration tiers of one model and the multi-model --tier/--cascade are
+    two routers with no defined policy in series: refused, as the JAX CLI
+    refuses them; the port's CLI has no executable store (--aot_dir)."""
     with pytest.raises(SystemExit):
         evaluate.main(["--dataset", "eth3d", "--adaptive_iters", *flag], device="cpu")
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        make_serving(_model(), 4, InferOptions(adaptive_iters=True, tier="quality"))
 
 
 def test_adaptive_serving_rejects_config_mismatch():
@@ -224,22 +226,154 @@ def test_adaptive_serving_rejects_config_mismatch():
         make_serving(_model(), 4, InferOptions(adaptive_iters=True, converge_eps=0.5))
 
 
-def test_iter_tiers_with_more_than_one_count_are_refused():
-    """More than one iteration count needs the iteration-tier dispatcher:
-    a SystemExit that names it, at make_serving and through the CLI; one
-    count (--valid_iters itself) serves."""
+# ------------------------------------------------------------- tier policy
+
+
+def test_iter_tier_policy_precedence():
+    from raft_stereo_tpu_torch.runtime.tiers import IterTierPolicy, iter_tier_name
+
+    pol = IterTierPolicy((7, 16, 32))
+    assert pol.fast == "iters7" and pol.default == "iters32"
+    req = InferRequest(payload=0, inputs=None)
+    # a pin snaps up to the nearest allowed tier
+    assert pol.select(SchedRequest(req, iters=7)) == ("iters7", "pinned")
+    assert pol.select(SchedRequest(req, iters=10)) == ("iters16", "pinned")
+    assert pol.select(SchedRequest(req, iters=99)) == ("iters32", "pinned")
+    # an explicit tier name wins over the deadline
+    assert pol.select(SchedRequest(req, tier="iters16", deadline_s=0.1)) == \
+        ("iters16", "explicit")
+    # deadline-tight rides the smallest tier; the default the largest
+    assert pol.select(SchedRequest(req, deadline_s=0.5)) == ("iters7", "deadline")
+    assert pol.select(SchedRequest(req, deadline_s=30.0)) == ("iters32", "default")
+    assert pol.select(req) == ("iters32", "default")
+    assert iter_tier_name(7) == "iters7"
+    with pytest.raises(ValueError):
+        IterTierPolicy(())
+    with pytest.raises(ValueError):
+        IterTierPolicy((0, 4))
+
+
+def test_iter_tier_serving_routes_and_strips(tmp_path):
+    """Two iteration tiers of one tiny model behind make_serving: pins route
+    to the right tier (tier_dispatch events), every result resolves once,
+    and consumers see the stripped [H, W, 1] contract. One count serves on
+    one engine, eagerly with the convergence exit."""
     model = _model(converge_eps=0.05)
-    with pytest.raises(SystemExit, match="iteration-tier dispatcher"):
-        make_serving(model, 16, InferOptions(adaptive_iters=True, iter_tiers=(7, 16),
-                                             converge_eps=0.05))
-    with pytest.raises(SystemExit, match="queue A"):
-        demo.main(["--adaptive_iters", "--iter_tiers", "7,16", "--valid_iters", "32",
-                   "--hidden_dims", "32", "32", "32", "--n_gru_layers", "1",
-                   "-l", "/nonexistent/*/im0.png", "-r", "/nonexistent/*/im1.png",
-                   "--output_directory", tempfile.mkdtemp()], device="cpu")
+    infer = InferOptions(batch=2, adaptive_iters=True, iter_tiers=(2, 4), converge_eps=0.05,
+                         deadline_s=WAIT_S)
+    tel = telemetry.install(telemetry.Telemetry(str(tmp_path)))
+    try:
+        serving, stream = make_serving(model, 4, infer)
+
+        def requests():
+            for i in range(4):
+                a = np.random.default_rng(i).random((32, 64, 3), dtype=np.float32) * 255
+                yield SchedRequest(InferRequest(payload=i, inputs=(a, a)),
+                                   iters=2 if i % 2 else None)
+
+        outs = {res.payload: res for res in stream(requests())}
+    finally:
+        telemetry.uninstall(tel)
+    assert len(outs) == 4 and all(r.ok for r in outs.values())
+    assert all(r.output.shape == (32, 64, 1) for r in outs.values())
+    disp = [(e["tier"], e["reason"]) for e in _events(tmp_path) if e["event"] == "tier_dispatch"]
+    assert sorted(disp) == [("iters2", "pinned")] * 2 + [("iters4", "default")] * 2, disp
+    assert sorted(serving.tier_set.names) == ["iters2", "iters4"]
+    assert not any(e.capture for e in serving.tier_set.engines.values())
     engine, _ = make_serving(model, 16, InferOptions(adaptive_iters=True, iter_tiers=(16,),
                                                      converge_eps=0.05))
-    assert not engine.capture
+    assert isinstance(engine, InferenceEngine) and not engine.capture
+
+
+def test_video_multi_tier_plain_engines_never_starve():
+    """Video + iteration tiers without --sched routes gated frames to plain
+    tier engines at batch 2: the session layer's FlushRequest reaches the
+    routed tier (the TieredServer passes it to its plain tiers), or frame 0
+    would wait for batchmates its own gate forbids."""
+    infer = InferOptions(batch=2, adaptive_iters=True, converge_eps=0.05, iter_tiers=(2, 4),
+                         video=True, deadline_s=WAIT_S)
+    serving, stream = make_serving(_model(converge_eps=0.05), 4, infer)
+
+    def requests():
+        for i in range(3):
+            a, b = _frame(7, h=32)
+            yield SchedRequest(InferRequest(payload=i, inputs=(a, b)), session="v")
+
+    res = list(stream(requests()))
+    assert len(res) == 3 and all(r.ok for r in res), [str(r.error) for r in res if not r.ok]
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.05], ids=["captured_route", "early_exit"])
+def test_iter_tiers_serve_as_the_jax_tiers(eps, tmp_path):
+    """The same carried weights and mixed contexts through the port's and
+    the JAX package's make_serving with --iter_tiers 2,4 (batch 2): each
+    payload goes to the same tier for the same reason, and its disparity is
+    within the engine test's tolerance of the JAX one (atol 5e-3, rtol
+    1e-4)."""
+    from raft_stereo_tpu.runtime import infer as jinfer
+    from raft_stereo_tpu.runtime import telemetry as jtelemetry
+
+    cfg = dict(hidden_dims=(32, 32, 32), n_gru_layers=1, corr_levels=2, corr_radius=2,
+               corr_implementation="alt", converge_eps=eps)
+    jmodel = JaxRAFTStereo(JaxConfig(**cfg))
+    img = jnp.asarray(np.random.RandomState(0).rand(1, 32, 64, 3) * 255, jnp.float32)
+    variables = jax.jit(lambda k: JaxRAFTStereo(JaxConfig(**{**cfg, "converge_eps": 0.0})).init(
+        k, img, img, iters=1, test_mode=True))(jax.random.PRNGKey(0))
+    rng = np.random.RandomState(9)
+    pairs = [tuple((rng.rand(32, 64, 3) * 255).astype(np.float32) for _ in range(2))
+             for _ in range(6)]
+    ctx = [dict(iters=2), dict(), dict(deadline_s=0.5), dict(iters=3), dict(tier="iters2"),
+           dict(deadline_s=5.0)]
+
+    jtel = jtelemetry.install(jtelemetry.Telemetry(str(tmp_path / "jax")))
+    try:
+        _, jstream = jax_evaluate.make_serving(
+            jmodel, variables, 4, jinfer.InferOptions(batch=2, adaptive_iters=True,
+                                                      iter_tiers=(2, 4), converge_eps=eps))
+        want = {r.payload: r for r in jstream(iter(
+            [jax_scheduler.SchedRequest(jinfer.InferRequest(payload=i, inputs=p), **c)
+             for i, (p, c) in enumerate(zip(pairs, ctx))]))}
+    finally:
+        jtelemetry.uninstall(jtel)
+    model = evaluate.load_model(RAFTStereoConfig(**cfg), device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    tel = telemetry.install(telemetry.Telemetry(str(tmp_path / "port")))
+    try:
+        _, stream = make_serving(model, 4, InferOptions(batch=2, adaptive_iters=True,
+                                                        iter_tiers=(2, 4), converge_eps=eps,
+                                                        deadline_s=WAIT_S))
+        got = {r.payload: r for r in stream(iter(
+            [SchedRequest(InferRequest(payload=i, inputs=p), **c)
+             for i, (p, c) in enumerate(zip(pairs, ctx))]))}
+    finally:
+        telemetry.uninstall(tel)
+
+    def routes(run_dir):
+        return sorted((e["tier"], e["reason"]) for e in _events(run_dir)
+                      if e["event"] == "tier_dispatch")
+
+    assert routes(tmp_path / "port") == routes(tmp_path / "jax")
+    assert sorted(got) == sorted(want) == list(range(6))
+    for k, r in got.items():
+        assert r.ok and want[k].ok and r.output.shape == (32, 64, 1)
+        np.testing.assert_allclose(r.output, np.asarray(want[k].output), atol=5e-3, rtol=1e-4)
+
+
+def test_demo_iter_tiers_end_to_end(tmp_path):
+    """``demo.main --adaptive_iters --iter_tiers 2,3`` with a tiny model:
+    every pair is served (by the default, largest tier) and saved; the
+    merged stats count each pair once."""
+    _write_frames(tmp_path / "frames", 3)
+    run = demo.main(["--hidden_dims", "32", "32", "32", "--n_gru_layers", "1",
+                     "--corr_levels", "2", "--corr_radius", "2", "--corr_implementation", "alt",
+                     "--valid_iters", "3", "--adaptive_iters", "--iter_tiers", "2,3",
+                     "-l", str(tmp_path / "frames" / "*" / "im0.png"),
+                     "-r", str(tmp_path / "frames" / "*" / "im1.png"),
+                     "--output_directory", str(tmp_path / "out"), "--infer_batch", "2",
+                     "--infer_timeout", str(WAIT_S)], device="cpu")
+    assert run.saved == 3 and run.shapes == [(32, 64, 1)] * 3
+    assert run.engine.stats.images == 3 and run.graphs is None
+    assert run.engine.tier_set.engine("iters3").stats.images == 3
 
 
 # --------------------------------------------------------- session serving

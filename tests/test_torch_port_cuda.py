@@ -6,7 +6,10 @@ forwards with the kernels against the forwards with the plain versions;
 then the captured forwards: replays against eager runs, the graph cache's
 eviction, and the engine on the card; and the serving layers over the
 captured engine: a weight update replayed without a new capture, the
-scheduler on a FIFO stream, the video forward's three-input graph.
+scheduler on a FIFO stream, the video forward's three-input graph; and
+several engines in one process: one capturing while another replays on
+its own thread, and the cascade's held fast result outliving the fast
+engine's later replays.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -673,3 +676,107 @@ def test_adaptive_server_pushes_steps_without_a_capture(tmp_path):
     assert served is not model
     again = next(iter(engine.stream(iter(_engine_requests(shapes[:1], 13))))).output
     assert not np.array_equal(first, again)
+
+
+def test_two_engines_capture_while_the_other_serves():
+    """Two captured engines in one process, each on its own thread (the
+    tiers' shape): each of engine B's captures is held open until engine A,
+    serving a stream on another thread, has replayed a batch, copied it out
+    and synced on it. Thread-local capture mode keeps both valid: one
+    capture per key on each engine, and every output bitwise a fresh
+    engine's serving that stream alone."""
+    import threading
+
+    _cuda()
+    a_model = load_model(PRESETS["raftstereo-realtime"], seed=7)
+    b_model = load_model(PRESETS["raftstereo-realtime"], seed=8)
+    pool = _engine_requests([(60, 100)] * 4, seed=14)  # A cycles these: batches (0,1), (2,3)
+    b_reqs = lambda: _engine_requests([(80, 128)] * 3 + [(60, 100)] * 2, seed=15)  # noqa: E731
+    engine_a = make_engine(a_model, 3, InferOptions(batch=2))
+    engine_b = make_engine(b_model, 3, InferOptions(batch=2))
+    a_started, in_capture, a_replayed, stop = (threading.Event() for _ in range(4))
+    overlapped = []
+    forward_b = engine_b.forward_fn
+
+    def held_forward(*inputs):
+        if torch.cuda.is_current_stream_capturing():
+            in_capture.set()
+            overlapped.append(a_replayed.wait(timeout=60))
+            a_replayed.clear()
+        return forward_b(*inputs)
+
+    engine_b.forward_fn = held_forward
+    got_a, got_b, errors = {}, {}, []
+
+    def a_source():
+        i = 0
+        while not stop.is_set():
+            yield InferRequest(payload=i, inputs=pool[i % 4].inputs)
+            i += 1
+
+    def serve_a():
+        try:
+            for r in engine_a.stream(a_source()):
+                got_a[r.payload] = r
+                if len(got_a) == 2:
+                    a_started.set()
+                if in_capture.is_set():  # a result replayed during B's capture
+                    in_capture.clear()
+                    a_replayed.set()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+        finally:
+            a_started.set()
+            a_replayed.set()
+
+    thread_a = threading.Thread(target=serve_a)
+    thread_a.start()
+    try:
+        assert a_started.wait(timeout=120)
+        for r in engine_b.stream(iter(b_reqs())):
+            got_b[r.payload] = r
+    finally:
+        stop.set()
+        thread_a.join(timeout=120)
+    assert not errors and not thread_a.is_alive()
+    assert overlapped == [True, True]  # both of B's captures held while A served
+    alone_a = make_engine(a_model, 3, InferOptions(batch=2))
+    want_a = {r.payload: r.output for r in alone_a.stream(iter(pool))}
+    alone_b = make_engine(b_model, 3, InferOptions(batch=2))
+    want_b = {r.payload: r.output for r in alone_b.stream(iter(b_reqs()))}
+    for engine, got, want, key in ((engine_a, got_a, want_a, lambda k: k % 4),
+                                   (engine_b, got_b, want_b, lambda k: k)):
+        assert all(r.ok for r in got.values())
+        assert set(engine.graphs.captures_by_key.values()) == {1}
+        for k, r in got.items():
+            np.testing.assert_array_equal(r.output, want[key(k)])
+    assert sorted(got_b) == sorted(want_b) and len(got_a) > 4
+
+
+def test_cascade_fallback_holds_the_fast_result_past_later_replays():
+    """The cascade holds an escalated pair's fast result while the fast
+    engine replays its graph for later batches; when the escalation fails
+    (the quality stream ends unserved) the held result is served, bitwise
+    the fast engine's output for that pair alone."""
+    _cuda()
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.runtime.tiers import (CascadeServer, TierSet, madnet2_tier,
+                                                     raft_stereo_tier)
+
+    mad = make_madnet2(seed=5, device="cuda")
+    raft = load_model(PRESETS["raftstereo-realtime"], seed=7)
+    ts = TierSet([madnet2_tier(mad), raft_stereo_tier(raft, 3)], InferOptions(batch=2))
+    ts._stream_fns["quality"] = lambda feed: iter(())
+    reqs = _engine_requests([(100, 200)] * 8, 16)
+    reqs[0].inputs[0][0, 0, 0] = -1.0  # the pair the gate escalates
+    casc = CascadeServer(ts, threshold=0.5,
+                         confidence_fn=lambda left, right, d: float(left[0, 0, 0] >= 0))
+    got = {r.payload: r for r in casc.serve(iter(reqs))}
+    fast = ts.engine("fast")
+    assert casc.summary()["fallbacks"] == 1 and casc.summary()["accepted"] == 7
+    assert fast.graphs.replays == 4 and fast.graphs.captures == 1
+    alone = TierSet([madnet2_tier(mad)], InferOptions(batch=2)).engine("fast")
+    want = {r.payload: r.output for r in alone.stream(iter(reqs))}
+    assert sorted(got) == sorted(want) == list(range(8))
+    for k in want:
+        np.testing.assert_array_equal(got[k].output, want[k])

@@ -78,7 +78,8 @@ def test_importing_the_port_loads_no_jax():
     for m in ("train", "losses", "runtime.loop", "runtime.checkpoint", "parallel.train_step",
               "data.augmentor", "native", "runtime.telemetry", "runtime.faultinject",
               "models.madnet2", "models.attention", "models.madnet2_fusion", "evaluate_mad",
-              "train_mad", "serve_adaptive", "runtime.adapt"):
+              "train_mad", "serve_adaptive", "runtime.adapt", "runtime.tiers",
+              "runtime.controller", "runtime.debug_server"):
         assert f"raft_stereo_tpu_torch.{m}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -12,6 +12,7 @@ per-image. Every engine has a deadline, so a hang fails its test.
 """
 
 import json
+import threading
 import time
 
 import numpy as np
@@ -323,24 +324,29 @@ TINY = RAFTStereoConfig(hidden_dims=(32, 32, 32), n_gru_layers=1, corr_levels=2,
 
 
 class _Samples:
-    """A dataset of ``n`` seeded 32x64 samples, (img1, img2, flow, valid),
-    each read taking ``read_s`` (a slow decode, so a stop lands before the
-    source is exhausted); ``read`` records the indices read."""
+    """A dataset of ``n`` seeded 32x64 samples, (img1, img2, flow, valid);
+    ``read`` records the indices read. Reads ``free`` and up wait for
+    ``gate`` (set when the consumer requests the stop), so the stop lands
+    before the source is exhausted however slowly the forwards run: the
+    engine yields a batch's results once the next batch is staged, so the
+    first two predictions of batch 2 need the first four reads."""
 
-    def __init__(self, n, read_s=0.2):
+    def __init__(self, n, free=4):
         rng = np.random.RandomState(4)
         self.items = [((rng.rand(32, 64, 3) * 255).astype(np.float32),
                        (rng.rand(32, 64, 3) * 255).astype(np.float32),
                        np.zeros((32, 64, 2), np.float32), np.ones((32, 64), np.float32))
                       for _ in range(n)]
-        self.read_s = read_s
+        self.free = free
+        self.gate = threading.Event()
         self.read = []
 
     def __len__(self):
         return len(self.items)
 
     def __getitem__(self, i):
-        time.sleep(self.read_s)
+        if i >= self.free:
+            assert self.gate.wait(WAIT_S), "the stop never came"
         self.read.append(i)
         return self.items[i]
 
@@ -362,6 +368,7 @@ def test_validator_predictions_drain_mid_stream(route, tel):
         got.append(i)
         if len(got) == 2:
             shutdown.request_stop()
+            ds.gate.set()
     assert 2 <= len(got) < 12
     assert sorted(got) == sorted(ds.read)
     names = [e["event"] for e in _events(tel.run_dir)]

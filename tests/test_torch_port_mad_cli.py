@@ -18,6 +18,7 @@ import argparse
 import json
 import os
 import os.path as osp
+import threading
 
 import fixture_trees as ft
 import jax
@@ -271,14 +272,8 @@ def test_serve_adaptive_main_summary(extra, tmp_path, monkeypatch, capsys):
 
 
 LEFT_OUT = [
-    (["--cascade"], "item 6"), (["--cascade_threshold", "0.5"], "item 6"),
-    (["--quality_iters", "4"], "item 6"), (["--quality_ckpt", "q.pth"], "item 6"),
-    (["--controller"], "item 6"), (["--controller_interval", "1"], "item 6"),
-    (["--controller_dwell", "2"], "item 6"), (["--controller_burn_high", "2"], "item 6"),
-    (["--controller_depth_high", "8"], "item 6"), (["--slo_p95_ms", "50"], "item 6"),
-    (["--slo_budget", "0.1"], "item 6"), (["--tier", "quality"], "item 6"),
-    (["--debug_port", "8080"], "item 6"), (["--aot_dir", "aot"], "item 3b"),
-    (["--spatial_threshold", "5000"], "item 7"), (["--multihost"], "item 4"),
+    (["--aot_dir", "aot"], "item 3b"), (["--spatial_threshold", "5000"], "item 7"),
+    (["--multihost"], "item 4"),
 ]
 
 
@@ -289,6 +284,58 @@ def test_serve_adaptive_refuses_what_the_port_does_not_have(flag, item, monkeypa
     with pytest.raises(SystemExit, match=f"ROADMAP queue A, {item}"):
         serve_adaptive.main(["--source", "synthetic"] + flag, device="cpu")
     assert not os.listdir(tmp_path)  # refused before anything was built
+
+
+@pytest.fixture(scope="module")
+def quality_pth(tmp_path_factory):
+    """A reference-style .pth of the default RAFT-Stereo, seed 1."""
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.evaluate import load_model
+
+    path = tmp_path_factory.mktemp("quality") / "raftstereo.pth"
+    model = load_model(RAFTStereoConfig(), device="cpu", seed=1)
+    torch.save({f"module.{k}": v for k, v in model.state_dict().items()}, path)
+    return str(path)
+
+
+COMPOSITION = {
+    "cascade": ["--cascade", "--cascade_threshold", "1.0", "--quality_iters", "1"],
+    "quality_ckpt": ["--cascade", "--cascade_threshold", "1.0", "--quality_iters", "1",
+                     "--quality_ckpt", "QUALITY_PTH"],
+    "controller": ["--sched", "--max_pending", "8", "--controller", "--controller_interval",
+                   "0.01", "--controller_dwell", "0", "--controller_burn_high", "2",
+                   "--controller_depth_high", "4"],
+    "slo": ["--slo_p95_ms", "1e-6", "--slo_budget", "0.5"],
+    "debug_port": ["--debug_port", "0"],
+}
+
+
+@pytest.mark.parametrize("name", list(COMPOSITION))
+def test_serve_adaptive_runs_the_serving_composition(name, quality_pth, tmp_path, monkeypatch,
+                                                     capsys):
+    """Each flag the port used to refuse runs: the cascade escalating every
+    pair to a quality tier at --quality_iters (seeded, or read from a .pth by
+    --quality_ckpt), the overload controller at its cadence, dwell and bands,
+    the SLO target and budget, the debug server on an ephemeral port."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--source", "synthetic", "--synthetic_size", "64", "96", "--num_requests", "4",
+            "--adapt_every", "2", "--infer_batch", "2"]
+    argv += [quality_pth if a == "QUALITY_PTH" else a for a in COMPOSITION[name]]
+    summary = serve_adaptive.main(argv, device="cpu")
+    assert summary["served"] == 4 and summary["failed"] == 0
+    events = [json.loads(x) for x in open("runs/serve-mad/events.jsonl")]
+    out = capsys.readouterr().out
+    if name in ("cascade", "quality_ckpt"):
+        assert summary["cascade"]["escalated"] == summary["cascade"]["replaced"] == 4
+    elif name == "controller":
+        holds = [e for e in events if e["event"] == "ctrl_hold"]
+        assert holds and all(e["reason"] in ("calm", "band") for e in holds)
+    elif name == "slo":
+        assert "slo [serving]: 0.0% hit" in out
+        assert "slo_budget_burn" in open("runs/serve-mad/metrics.prom").read()
+    else:
+        assert "[debug] introspection server on http://127.0.0.1:" in out
+        assert "debug-server" not in [t.name for t in threading.enumerate()]
 
 
 def test_serve_adaptive_takes_the_fast_tier(tmp_path, monkeypatch):
