@@ -152,6 +152,16 @@ Phases, each printing one JSON line:
      every request resolves once, the debug endpoints answer while it
      serves (``controller_path``). Every tier engine captures each key
      once, whichever tier captured while another served.
+ 15. the replica fleet (``runtime/fleet.py``, ``serve_fleet.py``), MADNet2
+     at 375x1242, batch 2, each worker process capturing its own graph on
+     the one card (``fleet_path``): 96 requests through 2 hosts bitwise a
+     single host in this process, no failover; host 0 SIGKILLed a third of
+     the way in, every payload resolved once; ``serve_fleet
+     --rolling_restart_after 24`` with no failed request; ``--source video``
+     sessions pinned, the router's own process holding no CUDA context;
+     pairs/s at 1 and 2 hosts, start-up seconds, device memory a worker and
+     the wire's ms a frame on each side, recorded. Launches not counted (other
+     processes; MADNet2 runs none of K1-K3).
 Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -4691,7 +4701,10 @@ CASCADE_STREAM_REQUESTS = 256
 # past the SLO's 250 ms over several ticks. Then no arrival until the
 # ladder is back at rung 0 (at most CTRL_SETTLE_S), and a calm tail of
 # CTRL_TAIL requests, one batch a tier, inside the SLO (on an H100 a pair of
-# the 8-iteration quality tier takes ~45 device ms, PERF §6).
+# the 8-iteration quality tier takes ~45 device ms, PERF §6). The quality
+# tier captures its graph before any traffic: when the bar drops before the
+# burst's first decision, the tail's escalation would otherwise be the
+# first, and its capture a real breach of the SLO in the tail.
 CTRL_ARGV = ["--source", "synthetic", "--synthetic_size", "375", "1242", "--infer_batch", "2",
              "--adapt_every", "32", "--cascade", "--cascade_threshold", "0.99",
              "--quality_iters", "8", "--sched",
@@ -5052,7 +5065,8 @@ def phase_controller_path(tmp: Path):
     resolves once; a thread GETs the debug endpoints throughout and, in the
     pause, each answers 200 and names the controller and the tiers. The
     quality tier is the default raftstereo (the reg lookup, no kernel), so
-    K1-K3 launch 0 times."""
+    K1-K3 launch 0 times; it captures its graph on a warm-up batch before
+    any traffic, so the calm tail replays it."""
     import io
     import re
     import statistics
@@ -5063,6 +5077,7 @@ def phase_controller_path(tmp: Path):
 
     from raft_stereo_tpu_torch import serve_adaptive
     from raft_stereo_tpu_torch.runtime import controller
+    from raft_stereo_tpu_torch.runtime.infer import InferRequest
 
     t_phase = time.perf_counter()
     root = tmp / "ctrl"
@@ -5101,9 +5116,23 @@ def phase_controller_path(tmp: Path):
 
     inner_stream = serve_adaptive.request_stream
 
+    def warm_quality(args):
+        """One batch straight through the quality tier's engine, on this
+        (the consumer's) thread before the first chunk is served: its
+        graph is captured, and its results observed, before any traffic.
+        Its wall ms is what a first escalation would wait (ROADMAP queue C)."""
+        quality = serve_adaptive.last_cascade().tiers.engine("quality")
+        pair = serve_adaptive.synthetic_frame(SEED, *args.synthetic_size)
+        warm = [InferRequest(payload=f"warm{k}", inputs=pair) for k in range(args.infer_batch)]
+        t0 = time.perf_counter()
+        if not all(r.ok for r in quality.stream(iter(warm))):
+            raise AssertionError("controller_path: the quality tier's warm-up failed")
+        state["quality_cold_ms"] = 1e3 * (time.perf_counter() - t0)
+
     def bursty(args):
         for i, req in enumerate(inner_stream(args)):
             if i == 0:
+                warm_quality(args)
                 state["port"] = int(re.search(
                     r"introspection server on http://127\.0\.0\.1:(\d+)",
                     out.getvalue()).group(1))
@@ -5152,8 +5181,7 @@ def phase_controller_path(tmp: Path):
         serve_adaptive.AdaptiveServer = Recording.__mro__[1]
         controller.OverloadController._tick = tick
     launches = _launches()
-    srv = serve_adaptive.last_server()
-    cascade = srv._stream_fn.__self__  # the CascadeServer the adaptive server serves through
+    cascade = serve_adaptive.last_cascade()
     tiers = _tiers_report(cascade.tiers)
     events = _events_of(tel_dir)
     moves = [e for e in events if e["event"] in ("ctrl_degrade", "ctrl_promote")]
@@ -5182,6 +5210,9 @@ def phase_controller_path(tmp: Path):
            "entry": "raft_stereo_tpu_torch.serve_adaptive.main --cascade --controller",
            "argv": argv, "burst": CTRL_BURST, "tail": CTRL_TAIL, "wall_s": wall,
            "calm_s": state.get("calm_s"),
+           # the quality tier's first batch, its capture included: a first
+           # escalation's wait were it not warmed (the SLO is 250 ms p95)
+           "quality_cold_ms": state.get("quality_cold_ms"),
            "summary": {k: v for k, v in summary.items() if k != "quality"},
            "ladder": ladder, "moves": walk,
            "ticks": len(tick_ms), "tick_ms": {
@@ -5198,7 +5229,7 @@ def phase_controller_path(tmp: Path):
            "launches": launches, "seconds": time.perf_counter() - t_phase,
            "card": smi_line()}
     emit(res)
-    del srv, cascade
+    del cascade
     torch.cuda.empty_cache()
     _no_kernel_launched("controller_path", launches)
     if sorted(p for p, _ in resolved) != sorted(yielded) or \
@@ -5223,6 +5254,379 @@ def phase_controller_path(tmp: Path):
            for p, want in want_names.items()):
         raise AssertionError(f"controller_path: the endpoints name {names}")
     _one_capture_a_key("controller_path", tiers)
+    return res
+
+
+# ------------------------------------------------------------------ the fleet
+
+FLEET_HW = (375, 1242)  # KITTI 2015, as mad_adapt_serve
+FLEET_BATCH = 2
+FLEET_REQUESTS = 96
+FLEET_KILL_AFTER = 32  # about a third of the results, then SIGKILL host 0
+FLEET_RESTART_AFTER = 24
+FLEET_RESTART_REQUESTS = 48
+FLEET_VIDEO_REQUESTS = 24
+FLEET_MAX_WAIT_S = 0.2
+FLEET_CLI_TIMEOUT_S = 240.0
+FLEET_DEVICE = "cuda"
+FLEET_CLI = ["-m", "raft_stereo_tpu_torch.serve_fleet"]
+FLEET_CLI_ARGV = ["--model", "madnet2", "--n_hosts", "2", "--synthetic_size",
+                  str(FLEET_HW[0]), str(FLEET_HW[1]), "--infer_batch", str(FLEET_BATCH),
+                  "--sched_max_wait", str(FLEET_MAX_WAIT_S)]
+
+
+def _fleet_pairs(n: int):
+    """``n`` in-memory requests at FLEET_HW, made from SEED (the serve
+    times the fleet, not a synthetic frame's ~0.2 s of host work)."""
+    import numpy as np
+
+    from raft_stereo_tpu_torch.runtime.infer import InferRequest
+
+    rng = np.random.default_rng(SEED)
+    shape = (*FLEET_HW, 3)
+    return [InferRequest(payload=i, inputs=tuple(
+        (rng.random(shape, dtype=np.float32) * 255.0) for _ in range(2))) for i in range(n)]
+
+
+def _compute_apps() -> dict:
+    """``nvidia-smi``'s compute processes, (pid, used MiB) each, and the
+    card's memory in use (MiB). In a container the pids may be another
+    namespace's: the entries still count the processes holding a context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, mib = (x.strip() for x in line.split(","))
+        apps.append((int(pid), float(mib)))
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True).stdout
+    return {"apps": apps, "used_mib": float(used.strip().splitlines()[0])}
+
+
+def _worker_captures(workdir: Path, n_hosts: int) -> dict:
+    """Each worker's ``bucket_compile`` events (one a warm-up and capture),
+    by engine key, and their ms, from its own telemetry directory."""
+    out = {}
+    for i in range(n_hosts):
+        evs = [e for e in _events_of(workdir / f"host{i}") if e["event"] == "bucket_compile"]
+        keys = {}
+        for e in evs:
+            k = f"{e['bucket'][0]}x{e['bucket'][1]}/b{e['batch']}"
+            keys[k] = keys.get(k, 0) + 1
+        out[str(i)] = {"by_key": keys, "compile_ms": [e["compile_ms"] for e in evs]}
+    return out
+
+
+def _fleet_hosts(snap: dict) -> dict:
+    return {h: {k: v[k] for k in ("pid", "state", "incarnation", "dispatched", "resolved",
+                                  "spawn_s", "ready_s")} for h, v in snap["hosts"].items()}
+
+
+def _fleet_serve(router, reqs, kill_after=None):
+    """Serve ``reqs`` once, SIGKILLing host 0 after ``kill_after`` results;
+    the results by payload, the wall seconds, and how often each payload
+    resolved."""
+    import os
+    import signal
+
+    seen, results = {}, {}
+    t0 = time.perf_counter()
+    for res in router.serve(iter(reqs)):
+        seen[res.payload] = seen.get(res.payload, 0) + 1
+        results[res.payload] = res
+        if kill_after is not None and len(results) == kill_after:
+            os.kill(router.host_pid(0), signal.SIGKILL)
+    return results, time.perf_counter() - t0, seen
+
+
+def _fleet_cli(root: Path, name: str, extra, sample_apps: bool = False) -> dict:
+    """``python -m raft_stereo_tpu_torch.serve_fleet`` as its own process
+    (the router's); its summary, wall seconds and telemetry events, and,
+    with ``sample_apps``, ``nvidia-smi``'s compute processes every 0.5 s
+    while it serves. The router's process group is killed on a timeout."""
+    import os
+    import signal
+    import threading
+
+    tel_dir = root / name
+    argv = [sys.executable] + FLEET_CLI + ["--name", name, "--telemetry_dir", str(tel_dir)] \
+        + FLEET_CLI_ARGV + list(extra)
+    env = dict(os.environ)
+    repo = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    samples, stop = [], threading.Event()
+    before = _compute_apps() if sample_apps else None
+
+    def sampler():
+        while not stop.wait(0.5):
+            samples.append(_compute_apps())
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    thread = threading.Thread(target=sampler, daemon=True)
+    if sample_apps:
+        thread.start()
+    try:
+        out, err = proc.communicate(timeout=FLEET_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"fleet_path: serve_fleet {name} ran past "
+                             f"{FLEET_CLI_TIMEOUT_S:.0f}s: {err[-4000:]}")
+    finally:
+        stop.set()
+        if sample_apps:
+            thread.join(timeout=10)
+    wall = time.perf_counter() - t0
+    (root / f"{name}.stderr.txt").write_text(err)
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet_path: serve_fleet {name} exit {proc.returncode}: "
+                             f"{err[-4000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])["serve_fleet"]
+    return {"argv": argv[1 + len(FLEET_CLI):], "router_pid": proc.pid, "wall_s": wall, "summary": summary,
+            "events": _events_of(tel_dir), "workdir": tel_dir / "fleet", "samples": samples,
+            "before": before}
+
+
+def phase_fleet_path(tmp: Path):
+    """The replica fleet (``runtime/fleet.py``, ``serve_fleet.py``) on one
+    card, MADNet2 (the JAX ``MADNet2Config`` widths, seeded weights, fp32)
+    at KITTI 2015's 375x1242, batch 2, each worker its own process with its
+    own captured graph:
+    (a) 96 in-memory requests through a 2-host ``FleetRouter`` in this
+        process, twice, every output bitwise this process's single-host
+        engine and scheduler on the same weights and batch; no failover,
+        fence, shed or ``fleet_host_down``; one capture per engine key in
+        each worker (its telemetry);
+    (b) the same with host 0 SIGKILLed after FLEET_KILL_AFTER results:
+        every payload resolved once, ``failovers >= 1``, no typed loss,
+        completions bitwise (a)'s;
+    (c) ``serve_fleet --rolling_restart_after 24`` as its own process: no
+        failed request, each host respawned once, ``fleet_drain`` begin and
+        complete bracketing each host in turn;
+    (d) ``serve_fleet --source video --video_sessions 2``: each session on
+        one host (no host went down), the router's pid never among
+        ``nvidia-smi``'s compute processes while the workers serve, and its
+        own CUDA uninitialised;
+    (e) recorded, not bounded: pairs/s over the 96 requests at 1 and 2
+        hosts (the second serve of each router: graphs captured), the
+        single host's in this process, each worker's seconds from launch to
+        its portfile and to its first healthy poll, each worker's device
+        memory, the wire's ms a frame (the router's pickle and send, the
+        workers' receive and unpickle, the router's of each result), the
+        phase's seconds. The workers are other processes: their kernel counters are
+        not read here (MADNet2 runs none of K1-K3)."""
+    import torch
+
+    from raft_stereo_tpu_torch import serve_fleet
+    from raft_stereo_tpu_torch.evaluate_mad import make_mad_engine
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.ops.pad import bucket_shape
+    from raft_stereo_tpu_torch.runtime import telemetry
+    from raft_stereo_tpu_torch.runtime.fleet import FleetRouter
+    from raft_stereo_tpu_torch.runtime.infer import InferOptions
+    from raft_stereo_tpu_torch.runtime.scheduler import ContinuousBatchingScheduler
+
+    t_phase = time.perf_counter()
+    root = tmp / "fleet"
+    root.mkdir()
+    reqs = _fleet_pairs(FLEET_REQUESTS)
+    kw = {"model": "madnet2", "device": FLEET_DEVICE, "batch": FLEET_BATCH,
+          "infer_timeout": 300.0, "retries": 2}
+    flags = {"cudnn_benchmark": torch.backends.cudnn.benchmark,
+             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    if flags != {"cudnn_benchmark": False, "cudnn_allow_tf32": True,
+                 "matmul_allow_tf32": False}:
+        raise AssertionError(f"fleet_path: this process is not at torch's defaults, as the "
+                             f"workers are: {flags}")
+
+    # the single-host reference: this process's engine and scheduler, on the
+    # workers' weights (serve_fleet.build_engine's seed 0)
+    model = make_madnet2(seed=0, device=FLEET_DEVICE)
+    engine = make_mad_engine(model, infer=InferOptions(batch=FLEET_BATCH))
+    sched = ContinuousBatchingScheduler(engine, max_wait_s=FLEET_MAX_WAIT_S)
+    ref = {r.payload: r.output for r in sched.serve(iter(reqs))}
+    t0 = time.perf_counter()
+    again = {r.payload: r for r in sched.serve(iter(reqs))}
+    single_s = time.perf_counter() - t0
+    if sorted(ref) != list(range(FLEET_REQUESTS)) or _bitwise(again, ref)["bitwise_equal"] \
+            != FLEET_REQUESTS:
+        raise AssertionError("fleet_path: the single-host reference is not stable")
+    del model, engine, sched, again
+    if FLEET_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    def in_process(name, n_hosts, serves, kill_after=None):
+        """A ``FleetRouter`` in this process, its own telemetry directory:
+        ``serves`` serves of ``reqs``; each serve's results, seconds and
+        resolutions a payload, the snapshot, the router's events."""
+        tel = telemetry.install(telemetry.Telemetry(str(root / name / "router")))
+        fr = FleetRouter(serve_fleet.FACTORY, n_hosts, factory_kw=kw,
+                         workdir=str(root / name), max_wait_s=FLEET_MAX_WAIT_S)
+        try:
+            t0 = time.perf_counter()
+            fr.start()
+            start_s = time.perf_counter() - t0
+            runs = [_fleet_serve(fr, reqs, kill_after=kill_after if k == 0 else None)
+                    for k in range(serves)]
+            snap = fr.snapshot()
+        finally:
+            fr.close()
+            telemetry.uninstall(tel)
+        return {"start_s": start_s, "serves": runs, "snapshot": snap,
+                "events": _events_of(root / name / "router"),
+                "captures": _worker_captures(root / name, n_hosts)}
+
+    # (a) fault-free, twice (the second serve's rate is (e)'s at 2 hosts)
+    run_a = in_process("a", 2, serves=2)
+    # (b) SIGKILL host 0 a third of the way in
+    run_b = in_process("b", 2, serves=1, kill_after=FLEET_KILL_AFTER)
+    # (e) one host, twice
+    run_e = in_process("e", 1, serves=2)
+    # (c) rolling restart, (d) video sessions: the CLI, the router its own process
+    cli_c = _fleet_cli(root, "c", ["--num_requests", str(FLEET_RESTART_REQUESTS),
+                                   "--rolling_restart_after", str(FLEET_RESTART_AFTER)])
+    cli_d = _fleet_cli(root, "d", ["--source", "video", "--video_sessions", "2",
+                                   "--num_requests", str(FLEET_VIDEO_REQUESTS)],
+                       sample_apps=True)
+
+    def counted(ev, name):
+        return [e for e in ev if e["event"] == name]
+
+    def rate(serve):
+        return len(serve[0]) / serve[1]
+
+    # (a)
+    a_bits = [_bitwise(s[0], ref) for s in run_a["serves"]]
+    a_snap = run_a["snapshot"]
+    # (b)
+    b_results, _b_s, b_seen = run_b["serves"][0]
+    b_snap = run_b["snapshot"]
+    b_done = {k: r for k, r in b_results.items() if r.ok}
+    b_bits = _bitwise(b_done, ref)
+    # (c)
+    c_sum, c_ev = cli_c["summary"], cli_c["events"]
+    drains = [(e["host"], e["phase"]) for e in counted(c_ev, "fleet_drain")]
+    # (d)
+    d_sum, d_ev = cli_d["summary"], cli_d["events"]
+    d_routes = counted(d_ev, "fleet_route")
+    sessions = {}
+    for e in d_routes:
+        sessions.setdefault(e["session"], set()).add(e["host"])
+    d_pids = {int(v["pid"]) for v in d_sum["hosts"].values()}
+    samples = cli_d["samples"]
+    apps_seen = sorted({pid for s in samples for pid, _ in s["apps"]})
+    peak = max(samples, key=lambda s: s["used_mib"]) if samples else None
+    n_before = len(cli_d["before"]["apps"])
+    worker_mib = {
+        "by_pid": {str(pid): max((m for s in samples for p, m in s["apps"] if p == pid),
+                                 default=None) for pid in sorted(d_pids)},
+        "card_used_before": cli_d["before"]["used_mib"],
+        "card_used_peak": peak["used_mib"] if peak else None,
+        "per_worker_from_card": ((peak["used_mib"] - cli_d["before"]["used_mib"]) / 2
+                                 if peak else None),
+        "entries_at_peak": peak["apps"] if peak else None}
+    # processes holding a context while the fleet serves, beyond this one's
+    entries_added = max((len(s["apps"]) for s in samples), default=0) - n_before
+    res = {
+        "phase": "fleet_path", "model": "madnet2 (MADNet2Config widths, seed 0, fp32)",
+        "hw": list(FLEET_HW), "batch": FLEET_BATCH, "requests": FLEET_REQUESTS,
+        "torch_flags": flags,
+        "launches": "not counted: the workers are other processes; MADNet2 runs none of K1-K3",
+        "single_host": {"pairs_per_s": FLEET_REQUESTS / single_s, "seconds": single_s},
+        "fault_free": {
+            "start_s": run_a["start_s"], "bitwise": a_bits,
+            "counters": {k: a_snap[k] for k in ("routed", "failovers", "fenced",
+                                                "typed_losses", "shed")},
+            "host_down": len(counted(run_a["events"], "fleet_host_down")),
+            "routes_by_host": {h: v["dispatched"] for h, v in a_snap["hosts"].items()},
+            "captures": run_a["captures"], "hosts": _fleet_hosts(a_snap),
+            "wire": a_snap["wire"],
+            "pairs_per_s": [rate(s) for s in run_a["serves"]]},
+        "sigkill": {
+            "kill_after": FLEET_KILL_AFTER, "resolved": len(b_seen),
+            "resolved_twice": sorted(k for k, c in b_seen.items() if c != 1),
+            "completed": len(b_done), "bitwise": b_bits,
+            "errors": sorted({type(r.error).__name__ for r in b_results.values() if not r.ok}),
+            "counters": {k: b_snap[k] for k in ("failovers", "fenced", "typed_losses")},
+            "host_down": [{k: e.get(k) for k in ("host", "reason", "inflight")}
+                          for e in counted(run_b["events"], "fleet_host_down")],
+            "failover_outcomes": sorted({e["outcome"] for e in
+                                         counted(run_b["events"], "fleet_failover")}),
+            "hosts": _fleet_hosts(b_snap)},
+        "rolling_restart": {
+            "argv": cli_c["argv"], "wall_s": cli_c["wall_s"], "served": c_sum["served"],
+            "failed": c_sum["failed"], "drains": drains,
+            "host_down_reasons": sorted({e["reason"] for e in
+                                         counted(c_ev, "fleet_host_down")}),
+            "hosts": _fleet_hosts(c_sum), "captures": _worker_captures(cli_c["workdir"], 2)},
+        "video": {
+            "argv": cli_d["argv"], "wall_s": cli_d["wall_s"], "served": d_sum["served"],
+            "failed": d_sum["failed"], "sessions": {s: sorted(h) for s, h in sessions.items()},
+            "host_down": len(counted(d_ev, "fleet_host_down")),
+            "router_pid": cli_d["router_pid"], "worker_pids": sorted(d_pids),
+            "compute_apps_seen": apps_seen, "samples": len(samples),
+            "compute_apps_before": cli_d["before"]["apps"],
+            "compute_apps_added_max": entries_added, "worker_mib": worker_mib,
+            "router_cuda_initialized": d_sum["router_cuda_initialized"],
+            "hosts": _fleet_hosts(d_sum)},
+        "recorded": {
+            "pairs_per_s": {"hosts_1": rate(run_e["serves"][1]),
+                            "hosts_2": rate(run_a["serves"][1]),
+                            "single_host_in_process": FLEET_REQUESTS / single_s,
+                            "first_serve_hosts_1": rate(run_e["serves"][0]),
+                            "first_serve_hosts_2": rate(run_a["serves"][0])},
+            "one_host_bitwise": [_bitwise(s[0], ref) for s in run_e["serves"]],
+            "launch_to_portfile_s": {r: {h: v["spawn_s"] for h, v in s["hosts"].items()}
+                                     for r, s in (("a", a_snap), ("b", b_snap),
+                                                  ("e", run_e["snapshot"]), ("c", c_sum),
+                                                  ("d", d_sum))},
+            "launch_to_healthy_s": {r: {h: v["ready_s"] for h, v in s["hosts"].items()}
+                                    for r, s in (("a", a_snap), ("b", b_snap),
+                                                 ("e", run_e["snapshot"]), ("c", c_sum),
+                                                 ("d", d_sum))},
+            # ms a frame: the router's pickle and send, the workers'
+            # receive and unpickle, the router's of each result
+            "wire_ms": {"hosts_2": a_snap["wire"], "hosts_1": run_e["snapshot"]["wire"]},
+            "worker_device_mib": worker_mib},
+        "seconds": time.perf_counter() - t_phase, "card": smi_line(),
+    }
+    emit(res)
+    del reqs, run_a, run_b, run_e, b_results, b_done
+    fails = []
+    if any(b["bitwise_equal"] != FLEET_REQUESTS for b in a_bits) or \
+            any(res["fault_free"]["counters"][k] for k in ("failovers", "fenced",
+                                                             "typed_losses")) or \
+            a_snap["shed"] or res["fault_free"]["host_down"]:
+        fails.append("(a) fault-free")
+    bucket = bucket_shape(*FLEET_HW, 128)
+    key = f"{bucket[0]}x{bucket[1]}/b{FLEET_BATCH}"
+    if any(v["by_key"] != {key: 1} for v in res["fault_free"]["captures"].values()):
+        fails.append("(a) captures")
+    if res["sigkill"]["resolved"] != FLEET_REQUESTS or res["sigkill"]["resolved_twice"] or \
+            b_snap["failovers"] < 1 or b_snap["typed_losses"] or \
+            b_bits["bitwise_equal"] != b_bits["compared"] or \
+            b_bits["compared"] != FLEET_REQUESTS or \
+            [d["host"] for d in res["sigkill"]["host_down"]] != [0]:
+        fails.append("(b) sigkill")
+    if c_sum["served"] != FLEET_RESTART_REQUESTS or c_sum["failed"] or \
+            drains != [(0, "begin"), (0, "complete"), (1, "begin"), (1, "complete")] or \
+            any(v["incarnation"] != 2 or v["state"] != "up" for v in c_sum["hosts"].values()) \
+            or set(res["rolling_restart"]["host_down_reasons"]) - {"drain_exit"}:
+        fails.append("(c) rolling restart")
+    if d_sum["served"] != FLEET_VIDEO_REQUESTS or d_sum["failed"] or \
+            sorted(sessions) != ["video0", "video1"] or \
+            any(len(h) != 1 for h in sessions.values()) or res["video"]["host_down"]:
+        fails.append("(d) video sessions")
+    if d_sum["router_cuda_initialized"] or cli_d["router_pid"] in apps_seen or \
+            not samples or entries_added > 2:
+        fails.append("(d) the router holds a CUDA context")
+    if fails:
+        raise AssertionError(f"fleet_path: {fails}")
     return res
 
 
@@ -5255,6 +5659,9 @@ PATH_KERNELS = {
     "cascade_path": ("alt_corr",),
     "iter_tiers_path": ("alt_corr",),
     "controller_path": (),
+    # the fleet's workers are other processes: their counters are not read
+    # here (MADNet2 runs none of K1-K3)
+    "fleet_path": (),
 }
 
 
@@ -5321,7 +5728,12 @@ def main() -> int:
                   phase_iter_tiers_path(Path(tmp), tier["untiered"]),
                   phase_controller_path(Path(tmp))]
         emit({"phase": "composition_total", "seconds": time.perf_counter() - t_comp})
-    by_path = {r["phase"]: r["launches"] for r in paths}
+        paths.append(phase_fleet_path(Path(tmp)))
+    # every phase's counters were read here but the fleet's (its workers')
+    uncounted = [r["phase"] for r in paths if not isinstance(r["launches"], dict)]
+    if uncounted != ["fleet_path"]:
+        raise AssertionError(f"phases without launch counts: {uncounted}")
+    by_path = {r["phase"]: r["launches"] for r in paths if r["phase"] != "fleet_path"}
     for path, counts in by_path.items():
         if any(counts[k] < 1 for k in PATH_KERNELS[path]):
             raise AssertionError(f"{path}: a kernel of the path never launched: {counts}")

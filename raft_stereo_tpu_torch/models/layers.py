@@ -1,6 +1,6 @@
-"""Encoder building blocks: convs, norms and the residual unit (PyTorch port
-of ``raft_stereo_tpu/models/layers.py``), with the reference's torch module
-and parameter names.
+"""Encoder building blocks: convs, norms, the residual unit and the
+bottleneck unit (PyTorch port of ``raft_stereo_tpu/models/layers.py``),
+with the reference's torch module and parameter names.
 
 Parameters stay fp32. Under mixed precision the activations are bf16 and a
 conv casts its weights to the activation's dtype per call, as the JAX
@@ -119,6 +119,41 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.relu(self.norm1(self.conv1(x)))
         y = self.relu(self.norm2(self.conv2(y)))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return self.relu(x + y)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 → 3x3 (stride) → 1x1 bottleneck, planes // 4 wide inside, each
+    conv followed by its norm and a relu, with a strided 1x1 conv + norm
+    shortcut iff stride != 1 (the JAX ``BottleneckBlock``,
+    ``models/layers.py:249``; no model of either package builds one). As in
+    the reference, the shortcut norm is registered both as ``norm4`` and as
+    ``downsample.1``; the inner norms take the JAX package's group count
+    (a quarter-width norm's own channels // 8).
+    """
+
+    def __init__(self, in_planes: int, planes: int, norm_fn: str = "group", stride: int = 1):
+        super().__init__()
+        q = planes // 4
+        self.conv1 = conv(in_planes, q, 1)
+        self.conv2 = conv(q, q, 3, stride)
+        self.conv3 = conv(q, planes, 1)
+        self.relu = nn.ReLU()
+        self.norm1 = make_norm(norm_fn, q)
+        self.norm2 = make_norm(norm_fn, q)
+        self.norm3 = make_norm(norm_fn, planes)
+        if stride == 1:
+            self.downsample = None
+        else:
+            self.norm4 = make_norm(norm_fn, planes)
+            self.downsample = nn.Sequential(conv(in_planes, planes, 1, stride), self.norm4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.relu(self.norm1(self.conv1(x)))
+        y = self.relu(self.norm2(self.conv2(y)))
+        y = self.relu(self.norm3(self.conv3(y)))
         if self.downsample is not None:
             x = self.downsample(x)
         return self.relu(x + y)

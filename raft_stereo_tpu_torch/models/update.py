@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from raft_stereo_tpu_torch.models.layers import conv
+from raft_stereo_tpu_torch.models.layers import Conv2d, conv
 from raft_stereo_tpu_torch.ops.sampling import avg_pool2x, interp_bilinear
 
 
@@ -56,6 +56,31 @@ class ConvGRU(nn.Module):
         r = torch.sigmoid(self.convr(hx) + cr)
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
         return (1 - z) * h + z * q
+
+
+class SepConvGRU(nn.Module):
+    """Separable ConvGRU: a 1x5 GRU pass, then a 5x1 one, on h and the
+    concatenated inputs (the JAX ``SepConvGRU``, ``models/update.py:197``;
+    no model of either package builds one). No context biases."""
+
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        for suffix, k, pad in (("1", (1, 5), (0, 2)), ("2", (5, 1), (2, 0))):
+            for gate in ("z", "r", "q"):
+                setattr(self, f"conv{gate}{suffix}", Conv2d(cin, hidden_dim, k, padding=pad))
+
+    def forward(self, h, *x_list):
+        if not x_list:
+            raise ValueError("SepConvGRU requires at least one input tensor")
+        x = torch.cat(x_list, dim=1)
+        for suffix in ("1", "2"):
+            hx = torch.cat([h, x], dim=1)
+            z = torch.sigmoid(getattr(self, f"convz{suffix}")(hx))
+            r = torch.sigmoid(getattr(self, f"convr{suffix}")(hx))
+            q = torch.tanh(getattr(self, f"convq{suffix}")(torch.cat([r * h, x], dim=1)))
+            h = (1 - z) * h + z * q
+        return h
 
 
 class BasicMotionEncoder(nn.Module):

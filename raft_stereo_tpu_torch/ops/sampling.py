@@ -3,8 +3,9 @@
 
 Layouts: ``interp_bilinear`` and ``avg_pool2x`` work on the NCHW tensors
 inside the modules; ``coords_grid``, ``avg_pool_w2``, ``bilinear_sampler``,
-``bilinear_upsample`` and ``convex_upsample`` keep the JAX package's channel-last layout, the layout
-the correlation state and the model's outputs use.
+``bilinear_upsample``, ``upflow``, ``convex_upsample`` and ``gauss_blur``
+keep the JAX package's channel-last layout, the layout the correlation
+state and the model's outputs use.
 """
 
 from __future__ import annotations
@@ -89,3 +90,25 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int) -> torc
     up = torch.sum(m * up, dim=2)  # [B, D, f, f, H, W]
     up = up.permute(0, 4, 2, 5, 3, 1)  # B, H, fy, W, fx, D
     return up.reshape(B, factor * H, factor * W, D)
+
+
+def upflow(flow: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Bilinear ×``factor`` of a flow field [B, H, W, C] (align_corners=True),
+    its magnitude scaled by ``factor`` (the JAX ``upflow``,
+    ``ops/sampling.py:173``)."""
+    _, H, W, _ = flow.shape
+    up = interp_bilinear(flow.permute(0, 3, 1, 2), (factor * H, factor * W))
+    return factor * up.permute(0, 2, 3, 1)
+
+
+def gauss_blur(x: torch.Tensor, N: int = 5, std: float = 1.0) -> torch.Tensor:
+    """Depthwise N×N Gaussian blur of [B, H, W, C], zero padded, the kernel
+    normalised to sum 1 (the JAX ``gauss_blur``, ``ops/sampling.py:211``)."""
+    r = torch.arange(N, dtype=torch.float32, device=x.device) - N // 2
+    yy, xx = torch.meshgrid(r, r, indexing="ij")
+    g = torch.exp(-(xx ** 2 + yy ** 2) / (2 * std ** 2))
+    g = g / g.sum().clamp_min(1e-4)
+    C = x.shape[-1]
+    kernel = g.to(x.dtype).expand(C, 1, N, N)
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel, padding=N // 2, groups=C)
+    return y.permute(0, 2, 3, 1)

@@ -39,7 +39,7 @@ import argparse
 import copy
 import json
 import logging
-from typing import Iterator, Optional, Tuple
+from typing import TYPE_CHECKING, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -55,13 +55,22 @@ from raft_stereo_tpu_torch.runtime.infer import (
 
 logger = logging.getLogger(__name__)
 
-# The last run's server (its engine, adaptation history and step times),
+if TYPE_CHECKING:
+    from raft_stereo_tpu_torch.runtime.tiers import CascadeServer
+
+# The last run's server (its engine, adaptation history and step times)
+# and, under ``--cascade``, the cascade it serves through (its ``tiers``),
 # for the caller of ``main``.
 _last_server: Optional[AdaptiveServer] = None
+_last_cascade: Optional["CascadeServer"] = None
 
 
 def last_server() -> Optional[AdaptiveServer]:
     return _last_server
+
+
+def last_cascade() -> Optional["CascadeServer"]:
+    return _last_cascade
 
 
 # ------------------------------------------------------- synthetic source
@@ -285,7 +294,7 @@ def _cascade_tiers(args, served, infer: InferOptions, dev):
 
 def main(argv=None, device=None):
     """Serve; returns the summary (also printed as the last stdout line)."""
-    global _last_server
+    global _last_server, _last_cascade
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     refuse_left_out(args)
@@ -348,7 +357,7 @@ def main(argv=None, device=None):
             server = AdaptiveServer(engine, state, args.snapshot_dir, config, name=args.name,
                                     stream_fn=stream_fn,
                                     should_stop=lambda: shutdown.should_stop)
-            _last_server = server
+            _last_server, _last_cascade = server, cascade
             # the quality observatory: bit-exact goldens only on the frozen
             # fp32 path (adaptation and bf16 move bits)
             qh, qw = args.synthetic_size

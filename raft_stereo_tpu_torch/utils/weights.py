@@ -94,19 +94,26 @@ def load_reference_pth(model, path: str) -> None:
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax variables (numpy leaves) → the port's ``state_dict``.
 
-    The reference registers a residual block's shortcut norm twice (as
-    ``norm3`` and as ``downsample.1``); both keys are emitted. BatchNorm's
-    ``num_batches_tracked`` counter, which the Flax tree does not keep, is 0.
+    The reference registers a block's shortcut norm twice, as
+    ``downsample.1`` and as ``norm3`` in a residual block, ``norm4`` in a
+    bottleneck block (the one with a ``conv3``); both keys are emitted.
+    BatchNorm's ``num_batches_tracked`` counter, which the Flax tree does
+    not keep, is 0.
     """
     sd: Dict[str, torch.Tensor] = {}
+    params = _flatten(variables.get("params", {}))
+    bottlenecks = {_torch_module_path(path[:-2]) for path in params
+                   if len(path) >= 2 and path[-2] == "conv3"}
 
     def put(module: str, leaf: str, arr: np.ndarray) -> None:
         t = torch.from_numpy(np.array(arr))
         sd[f"{module}.{leaf}" if module else leaf] = t
         if module == "downsample.1" or module.endswith(".downsample.1"):
-            sd[f"{module[: -len('downsample.1')]}norm3.{leaf}"] = t
+            block = module[: -len("downsample.1")]
+            norm = "norm4" if block.rstrip(".") in bottlenecks else "norm3"
+            sd[f"{block}{norm}.{leaf}"] = t
 
-    for path, arr in _flatten(variables.get("params", {})).items():
+    for path, arr in params.items():
         module, leaf = _torch_module_path(path[:-1]), path[-1]
         if leaf == "kernel" and arr.ndim == 4:
             put(module, "weight", arr.transpose(3, 2, 0, 1))  # HWIO → OIHW

@@ -9,7 +9,7 @@ captured engine: a weight update replayed without a new capture, the
 scheduler on a FIFO stream, the video forward's three-input graph; and
 several engines in one process: one capturing while another replays on
 its own thread, and the cascade's held fast result outliving the fast
-engine's later replays.
+engine's later replays; and two fleet worker processes sharing the card.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -780,3 +780,51 @@ def test_cascade_fallback_holds_the_fast_result_past_later_replays():
     assert sorted(got) == sorted(want) == list(range(8))
     for k in want:
         np.testing.assert_array_equal(got[k].output, want[k])
+
+
+def test_fleet_workers_capture_on_one_card_bitwise_one_host(tmp_path):
+    """Two fleet workers on the card, each capturing its own MADNet2 graph,
+    serve a paced stream bitwise this process's captured engine at the
+    same batch; after host 0 is SIGKILLed mid-stream, every request still
+    resolves once, on the other."""
+    _cuda()
+    import os
+    import signal
+    import time
+
+    from raft_stereo_tpu_torch import serve_fleet
+    from raft_stereo_tpu_torch.evaluate_mad import make_mad_engine
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.runtime.fleet import FleetRouter
+
+    reqs = _engine_requests([(200, 300)] * 12, 21)
+    # the workers' weights: build_engine's seed 0
+    engine = make_mad_engine(make_madnet2(seed=0, device="cuda"), infer=InferOptions(batch=2))
+    want = {r.payload: r.output for r in engine.stream(iter(reqs))}
+    kw = {"model": "madnet2", "device": "cuda", "batch": 2}
+
+    def paced():
+        for r in reqs:
+            yield r
+            time.sleep(0.15)
+
+    for kill in (False, True):
+        seen = {}
+        with FleetRouter(serve_fleet.FACTORY, 2, factory_kw=kw, max_wait_s=0.1,
+                         workdir=str(tmp_path / f"fleet{int(kill)}")) as router:
+            for r in router.serve(paced()):
+                seen[r.payload] = seen.get(r.payload, 0) + 1
+                assert r.ok, r.error
+                np.testing.assert_array_equal(r.output, want[r.payload])
+                if kill and len(seen) == 4:
+                    os.kill(router.host_pid(0), signal.SIGKILL)
+            deadline = time.monotonic() + 10.0
+            while kill and router.snapshot()["hosts"]["0"]["state"] != "down" \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            snap = router.snapshot()
+        assert sorted(seen) == list(range(12)) and set(seen.values()) == {1}
+        assert snap["typed_losses"] == 0 and snap["fenced"] == 0
+        assert snap["hosts"]["0"]["state"] == ("down" if kill else "up")
+        if not kill:
+            assert snap["failovers"] == 0

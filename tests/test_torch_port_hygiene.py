@@ -79,7 +79,7 @@ def test_importing_the_port_loads_no_jax():
               "data.augmentor", "native", "runtime.telemetry", "runtime.faultinject",
               "models.madnet2", "models.attention", "models.madnet2_fusion", "evaluate_mad",
               "train_mad", "serve_adaptive", "runtime.adapt", "runtime.tiers",
-              "runtime.controller", "runtime.debug_server"):
+              "runtime.controller", "runtime.debug_server", "runtime.fleet", "serve_fleet"):
         assert f"raft_stereo_tpu_torch.{m}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -117,6 +117,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path
                        (serve_adaptive.main, ["--source", "synthetic"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
+    # a fleet worker's engine factory (the router itself holds no model)
+    from raft_stereo_tpu_torch import serve_fleet
+
+    for model in ("madnet2", "toy"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_fleet.build_engine({"model": model})
 
 
 def test_demo_runs_end_to_end_on_the_cpu(tmp_path):

@@ -779,3 +779,8 @@ class TestCliWiring:
         acc = [e for e in _events("runs/t-casc") if e["event"] == "cascade_accept"]
         assert len(acc) == 4
         assert serve_adaptive.last_server().engine.stats.compiles == 1
+        # the cascade it served through, public to the caller of main
+        casc = serve_adaptive.last_cascade()
+        assert casc.tiers.engine("fast") is serve_adaptive.last_server().engine
+        assert casc.tiers.engine("quality").stats.compiles == 0
+        assert casc.summary()["accepted"] == 4
