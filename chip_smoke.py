@@ -96,6 +96,12 @@ Phases, each printing one JSON line:
      (``train_path_alt``: K1 steps x 22 x 2 times, one more step profiled);
      SIGTERM at step 2, then ``--resume auto`` to step 4 (``train_resume``,
      batch 2, 4 iterations; the restored state held bitwise to the saved);
+     ``train --multihost`` through ``python -m torch.distributed.run`` at
+     world 1 on NCCL with the alt recipe (``ddp_path``: DDP, K1 steps x 44
+     from the child's log, s/step beside ``train_path_alt``'s), then two
+     gloo ranks sharing the card (``python3 chip_smoke.py ddp-rank R DIR``)
+     against one process at global batch 8 (``DDP_PARITY``), the ranks
+     bitwise equal, a planted per-rank mean failing;
      then ``evaluate.main --telemetry_dir`` and ``train.main --telemetry
      --profile_steps 2:3`` (3 steps), each run directory's events.jsonl,
      heartbeat.json (the card's memory in it), metrics.prom and
@@ -3502,6 +3508,317 @@ def phase_train_resume(tmp: Path):
         raise AssertionError(f"train_resume: the resumed run {res}")
     return res
 
+# ------------------------------------------ training across processes (DDP)
+
+# ddp_path: ``train --multihost`` under torchrun, one process (NCCL, world
+# 1), with the train_path_alt recipe for DDP_STEPS steps; then the parity
+# check of two gloo ranks sharing the card against one process.
+DDP_STEPS = 4
+DDP_TIMEOUT_S = 600.0
+# The parity check: raftstereo with the alt lookup, fp32 (TF32 off, cuDNN
+# deterministic), 2 iterations, global batch 8 at 320x720 (4 a rank), two
+# steps; rank 0's samples valid on a quarter of their pixels, rank 1's on
+# all. The ranks and the one process compute the same sums in other orders
+# (convs at batch 4 and 8, the gradient all-reduce): Adam's first moment
+# (0.1 x the clipped gradient, then the second step's share) is held per
+# tensor to TRAIN_STEP_GRAD_RTOL of its largest magnitude, as the train
+# step check holds its gradients, and the conv biases before an instance
+# norm (rounding noise both ways) to ZERO_GRAD_NOISE_RTOL of their conv
+# weight's. Each updated parameter element is held to what that moment
+# tolerance allows Adam's update, lr x min(2, 2 tol/|mu|) summed over the
+# steps, plus 1e-6 of |p| (the fp32 rounding of the update's arithmetic).
+# The losses and EPEs: 1e-5 relative at the first step, 1e-4 at the second
+# (whose parameters already differ where Adam's sign flipped); the 1/3/5 px
+# fractions 1e-4 absolute (pixels within rounding of a threshold). The
+# ranks' states: bitwise equal to each other. A planted per-rank mean (DDP
+# averaging the ranks' own masked means) must fail.
+DDP_PARITY = {"batch": 8, "hw": (320, 720), "iters": 2, "steps": 2, "valid_rank0": 0.25}
+DDP_LOSS_RTOL = (1e-5, 1e-4)
+DDP_PX_ATOL = 1e-4
+
+
+def _ddp_batch(seed):
+    """The parity check's global batch on the card: rank 0's half valid on
+    a quarter of its pixels."""
+    import torch
+
+    B, (H, W) = DDP_PARITY["batch"], DDP_PARITY["hw"]
+    batch = _synthetic_batch(B, H, W, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    quarter = (torch.rand((B // 2, H, W), generator=g, device="cuda")
+               < DDP_PARITY["valid_rank0"]).float()
+    batch["valid"] = torch.cat([quarter, batch["valid"][B // 2:]])
+    return batch
+
+
+def _ddp_parity_run(ddp: bool, plant_per_rank_mean: bool = False):
+    """The parity check's steps from seeded weights: [(metrics, state)]
+    after each step, the states' tensors on the host. ``ddp``: this
+    process is a rank of the group and steps on its piece."""
+    import dataclasses
+
+    import torch
+
+    from raft_stereo_tpu_torch import losses
+    from raft_stereo_tpu_torch.config import PRESETS, TrainConfig
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.parallel import mesh
+    from raft_stereo_tpu_torch.parallel.train_step import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(PRESETS["raftstereo"], corr_implementation="alt")
+    real = losses.sequence_loss
+    if plant_per_rank_mean:
+        losses.sequence_loss = lambda *a, distributed=False, **k: real(*a, **k)
+    saved_det = torch.backends.cudnn.deterministic
+    out = []
+    try:
+        with _fp32_checks():
+            torch.backends.cudnn.deterministic = True
+            state = create_train_state(load_model(cfg, seed=SEED).train(),
+                                       TrainConfig(lr=2e-4, num_steps=100))
+            step = make_train_step(DDP_PARITY["iters"], nonfinite_guard=True, ddp=ddp)
+            for k in range(1 if plant_per_rank_mean else DDP_PARITY["steps"]):
+                batch = _ddp_batch(SEED + 70 + k)
+                state, metrics = step(state, mesh.shard_batch(batch) if ddp else batch)
+                torch.cuda.synchronize()
+                out.append(({n: float(v) for n, v in metrics.items()},
+                            _ddp_state_tensors(state)))
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        losses.sequence_loss = real
+    return out
+
+
+def _ddp_state_tensors(state) -> dict:
+    """{parameter name: (parameter, exp_avg)} on the host."""
+    opt = state.optimizer
+    return {n: (p.detach().to("cpu", copy=True), opt.state[p]["exp_avg"].to("cpu", copy=True))
+            for n, p in state.model.named_parameters()}
+
+
+def _ddp_digest(tensors: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        for t in tensors[n]:
+            h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_rank_main(rank: int, workdir: str) -> int:
+    """One of the parity check's two gloo ranks, sharing ``cuda:0``
+    (``python3 chip_smoke.py ddp-rank RANK DIR``; the parent sets RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT): its metrics and a digest of
+    its state after each step into ``DIR/rank<RANK>.json``, rank 0's states
+    into ``DIR/rank0_<k>.pt``, the planted per-rank mean's too."""
+    import torch
+
+    from raft_stereo_tpu_torch.parallel import mesh
+
+    mesh.init_distributed("cuda:0", backend="gloo")
+    try:
+        runs = {"ddp": _ddp_parity_run(True), "planted": _ddp_parity_run(True, True)}
+    finally:
+        mesh.destroy()
+    report = {}
+    for name, steps in runs.items():
+        report[name] = [{"metrics": m, "digest": _ddp_digest(t)} for m, t in steps]
+        if rank == 0:
+            for k, (_, t) in enumerate(steps):
+                torch.save(t, Path(workdir) / f"rank0_{name}_{k}.pt")
+    report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def _ddp_mismatches(got: dict, want: dict, lrs, zero: dict) -> dict:
+    """The parameters outside the parity rules (see DDP_PARITY), with each
+    one's moment and parameter error over its allowance."""
+    bad, worst = {}, {"moment": 0.0, "param": 0.0}
+    for n, (p, m) in got.items():
+        wp, wm = want[n][0].double(), want[n][1].double()
+        p, m = p.double(), m.double()
+        if n in zero:
+            tol = ZERO_GRAD_NOISE_RTOL * float(want[zero[n]][1].abs().max()) + 1e-12
+        else:
+            tol = TRAIN_STEP_GRAD_RTOL * float(wm.abs().max()) + 1e-12
+        allow = (sum(lrs) * (2.0 * tol / wm.abs().clamp(min=1e-30)).clamp(max=2.0)
+                 + 1e-6 * wp.abs() + 1e-9)
+        m_err = float((m - wm).abs().max()) / tol
+        p_err = float(((p - wp).abs() / allow).max())
+        worst = {"moment": max(worst["moment"], m_err), "param": max(worst["param"], p_err)}
+        if m_err > 1 or p_err > 1:
+            bad[n] = (m_err, p_err)
+    return {"over": bad, "worst": worst}
+
+
+def _ddp_metric_errors(got: dict, want: dict, k: int) -> dict:
+    errs = {n: abs(got[n] - want[n]) / abs(want[n]) for n in ("live_loss", "epe")}
+    errs.update({n: abs(got[n] - want[n]) for n in ("1px", "3px", "5px")})
+    ok = (all(errs[n] <= DDP_LOSS_RTOL[k] for n in ("live_loss", "epe"))
+          and all(errs[n] <= DDP_PX_ATOL for n in ("1px", "3px", "5px")))
+    return {"errors": errs, "ok": ok}
+
+
+def _ddp_torchrun(root: Path, name: str, steps: int) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    raft_stereo_tpu_torch.train --multihost`` in ``root``: the child's
+    kernel launches in its loop (its log line), its per-step seconds (the
+    ``device_step`` spans of its trace) and its final checkpoint."""
+    import os
+    import signal
+
+    from raft_stereo_tpu_torch.runtime.checkpoint import read_manifest, verify_checkpoint
+
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            "1", "-m", "raft_stereo_tpu_torch.train", "--multihost", "--name", name,
+            "--train_datasets", "sceneflow", "--num_steps", str(steps),
+            "--corr_implementation", "alt", *TRAIN_RECIPE]
+    env = dict(os.environ)
+    repo = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"ddp_path: torchrun ran past {DDP_TIMEOUT_S:.0f}s: {out[-4000:]}")
+    wall = time.perf_counter() - t0
+    (root / f"{name}.log").write_text(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"ddp_path: torchrun exit {proc.returncode}: {out[-4000:]}")
+    found = re.findall(r"kernel launches in the loop \(rank 0\): (\{.*\})", out)
+    if len(found) != 1:
+        raise AssertionError(f"ddp_path: no launch count in the child's log: {out[-4000:]}")
+    trace = json.loads((root / "runs" / name / "trace_host.json").read_text())
+    step_s = [e["dur"] / 1e6 for e in trace["traceEvents"] if e.get("name") == "device_step"]
+    final = str((root / "checkpoints" / name / name).resolve())
+    return {"argv": argv[1:], "launches": json.loads(found[0]), "step_seconds": step_s,
+            "wall_s_with_setup": wall, "final_verified": verify_checkpoint(final),
+            "final_step": (read_manifest(final) or {}).get("step"),
+            "nccl": "NCCL" in out or "nccl" in out}
+
+
+def phase_ddp_path(tmp: Path, plain_alt: dict):
+    """Data-parallel training (``parallel/mesh.py``, DDP in
+    ``parallel/train_step.py``). First ``train --multihost`` through the
+    real launcher on NCCL at world 1 with the train_path_alt recipe: K1
+    must launch DDP_STEPS x 22 x 2 times in its loop, and its s/step
+    stands beside train_path_alt's (DDP's cost at world 1). Then two gloo
+    ranks sharing the card (NCCL refuses two ranks on one card) against one
+    process at the same global batch (DDP_PARITY), the one process run
+    after the ranks have exited; the planted per-rank mean must fail."""
+    import dataclasses
+    import os
+    import socket
+
+    import torch
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+    from raft_stereo_tpu_torch.parallel.train_step import onecycle_linear
+
+    root = tmp / "train"
+    if not (root / "datasets").exists():
+        _write_things_tree(root)
+    torch.cuda.empty_cache()
+    run = _ddp_torchrun(root, "ddp_path", DDP_STEPS)
+    first = 1  # as train_path_alt at 4 steps: the median of steps 2-4
+    median = statistics.median(run["step_seconds"][first:])
+
+    # the parity check: two ranks (processes of their own), then one process
+    work = tmp / "ddp_parity"
+    work.mkdir(exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = open(work / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                        "ddp-rank", str(r), str(work)], env=env, stdout=log,
+                                       stderr=subprocess.STDOUT, start_new_session=True), log))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        for p, _ in procs:
+            os.killpg(p.pid, 9)
+            p.wait()
+        raise AssertionError("ddp_path: the parity ranks ran past their limit")
+    finally:
+        for _, log in procs:
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"ddp_path: parity rank {r} exit {p.returncode}: "
+                                 f"{(work / f'rank{r}.log').read_text()[-4000:]}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    one = _ddp_parity_run(False)
+    torch.cuda.empty_cache()
+    zero = _biases_before_instance_norm(RAFTStereo(dataclasses.replace(
+        PRESETS["raftstereo"], corr_implementation="alt")))
+    sched = onecycle_linear(2e-4, 200)  # TrainConfig(lr=2e-4, num_steps=100)
+    steps = []
+    for k, (m_one, t_one) in enumerate(one):
+        got = torch.load(work / f"rank0_ddp_{k}.pt")
+        steps.append({
+            "metrics_ranks": ranks[0]["ddp"][k]["metrics"], "metrics_one": m_one,
+            "metric_check": _ddp_metric_errors(ranks[0]["ddp"][k]["metrics"], m_one, k),
+            "state_check": _ddp_mismatches(got, t_one, [sched(i) for i in range(k + 1)], zero),
+            "ranks_bitwise": ranks[0]["ddp"][k]["digest"] == ranks[1]["ddp"][k]["digest"],
+        })
+    planted = {
+        "metric_check": _ddp_metric_errors(ranks[0]["planted"][0]["metrics"], one[0][0], 0),
+        "state_check": _ddp_mismatches(torch.load(work / "rank0_planted_0.pt"), one[0][1],
+                                       [sched(0)], zero),
+    }
+    planted["state_check"]["over"] = len(planted["state_check"]["over"])
+    for s in steps:
+        s["state_check"]["over"] = dict(list(s["state_check"]["over"].items())[:5])
+    res = {
+        "phase": "ddp_path", "card": smi_line(),
+        "entry": "python -m torch.distributed.run --standalone --nproc_per_node 1 "
+                 "-m raft_stereo_tpu_torch.train --multihost",
+        "backend": "nccl", "world": 1, "steps": DDP_STEPS, "launches": run["launches"],
+        "s_per_step_median_steps_2_4": median, "step_seconds": run["step_seconds"],
+        "train_path_alt_s_per_step": plain_alt["s_per_step_median_steps_3_6"],
+        "ddp_over_plain": median / plain_alt["s_per_step_median_steps_3_6"],
+        "wall_s_with_setup": run["wall_s_with_setup"], "final_verified": run["final_verified"],
+        "final_step": run["final_step"],
+        "parity": {"config": "raftstereo, corr alt, fp32, TF32 off, cuDNN deterministic",
+                   **DDP_PARITY, "backend": "gloo, two ranks on cuda:0",
+                   "ranks_wall_s": ranks_s,
+                   "rank_peak_bytes": [r["max_memory_allocated_bytes"] for r in ranks],
+                   "moment_rtol": TRAIN_STEP_GRAD_RTOL, "loss_rtol": DDP_LOSS_RTOL,
+                   "px_atol": DDP_PX_ATOL, "steps": steps, "planted_per_rank_mean": planted},
+    }
+    emit(res)
+    want_k1 = DDP_STEPS * TRAIN_ITERS * 2
+    if run["launches"]["alt_corr"] != want_k1:
+        raise AssertionError(f"ddp_path: K1 launched {run['launches']['alt_corr']} times in the "
+                             f"torchrun run, expected {want_k1}")
+    if not (run["final_verified"] and run["final_step"] == DDP_STEPS
+            and len(run["step_seconds"]) == DDP_STEPS):
+        raise AssertionError(f"ddp_path: the torchrun run {run}")
+    for k, s in enumerate(steps):
+        if not (s["metric_check"]["ok"] and not s["state_check"]["over"]
+                and s["ranks_bitwise"]):
+            raise AssertionError(f"ddp_path: two ranks disagree with one process at step "
+                                 f"{k + 1}: {s}")
+    if planted["metric_check"]["ok"] or not planted["state_check"]["over"]:
+        raise AssertionError(f"ddp_path: the planted per-rank mean passes: {planted}")
+    return res
+
+
 # ------------------------------------- serving: scheduler, lifecycle, video
 
 # sched_path: the interleaved stream, the engine pairs (by payload) in
@@ -5641,6 +5958,8 @@ PATH_KERNELS = {
     "engine_path_realtime_packed": ("alt_corr", "packed_conv"),
     "train_path": (),
     "train_path_alt": ("alt_corr",),
+    # the torchrun child's loop (its counters, from its log)
+    "ddp_path": ("alt_corr",),
     "engine_faults_degraded": ("alt_corr", "packed_conv"),
     "train_grad_check_k2": ("fused_update",),
     "sched_path": ("alt_corr",),
@@ -5705,9 +6024,11 @@ def main() -> int:
         grad_check, k2_grad_path = phase_train_grad_check()
         paths.append(k2_grad_path)
         phase_train_step_check()
-        paths += [phase_train_path(Path(tmp)),
-                  phase_train_path(Path(tmp), corr="alt", steps=4)]
+        paths.append(phase_train_path(Path(tmp)))
+        alt = phase_train_path(Path(tmp), corr="alt", steps=4)
+        paths.append(alt)
         phase_train_resume(Path(tmp))
+        paths.append(phase_ddp_path(Path(tmp), alt))
         phase_telemetry_runs(Path(tmp))
         t_serving = time.perf_counter()
         paths.append(phase_sched_path(Path(tmp)))
@@ -5829,4 +6150,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ddp-rank"]:
+        sys.exit(ddp_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

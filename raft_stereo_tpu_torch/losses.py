@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from raft_stereo_tpu_torch.ops.sampling import bilinear_sampler, coords_grid
+from raft_stereo_tpu_torch.parallel import mesh
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -29,7 +30,8 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Tensor,
-                  loss_gamma: float = 0.9, max_flow: float = 700.0
+                  loss_gamma: float = 0.9, max_flow: float = 700.0,
+                  distributed: bool = False
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """γ-weighted L1 over the refinement sequence.
 
@@ -38,6 +40,14 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.
     so the total weighting is the same for any iteration count; pixels
     count where valid >= 0.5 and the GT magnitude is below ``max_flow``.
     Metrics: the last prediction's EPE and its 1/3/5 px fractions.
+
+    ``distributed`` (each rank holding its piece of the global batch, under
+    DDP): the masked means are the global batch's, as JAX takes them over
+    the sharded batch. The valid count is summed over the ranks before the
+    backward, and the returned loss is this rank's share, scaled so that
+    DDP's average of the ranks' gradients is the gradient of the global
+    loss; the metrics are the global ones, and ``live_loss`` the global
+    loss.
     """
     n = flow_preds.shape[0]
     mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=-1))
@@ -47,17 +57,30 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.
     weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
                                     device=flow_preds.device)
     abs_err = torch.abs(flow_preds - flow_gt[None])
-    per_iter = torch.stack([_masked_mean(e, mask) for e in abs_err])
-    flow_loss = torch.sum(weights * per_iter)
-
     epe = torch.sqrt(torch.sum((flow_preds[-1] - flow_gt) ** 2, dim=-1))
-    metrics = {
-        "epe": _masked_mean(epe, valid),
-        "1px": _masked_mean((epe < 1).float(), valid),
-        "3px": _masked_mean((epe < 3).float(), valid),
-        "5px": _masked_mean((epe < 5).float(), valid),
-    }
-    return flow_loss, metrics
+    world = mesh.world() if distributed else 1
+    if world == 1:
+        per_iter = torch.stack([_masked_mean(e, mask) for e in abs_err])
+        metrics = {
+            "epe": _masked_mean(epe, valid),
+            "1px": _masked_mean((epe < 1).float(), valid),
+            "3px": _masked_mean((epe < 3).float(), valid),
+            "5px": _masked_mean((epe < 5).float(), valid),
+        }
+        return torch.sum(weights * per_iter), metrics
+
+    # the global batch's means: sums over this rank's mask over the ranks'
+    # total count, the loss scaled by the world for DDP's average
+    denom = torch.clamp(mesh.all_sum(valid.sum().float()), min=1.0)
+    per_iter = torch.stack([torch.where(mask, e, torch.zeros_like(e)).sum() for e in abs_err])
+    share = torch.sum(weights * (per_iter / denom)) * world
+    epe, zero = epe.detach(), torch.zeros_like(epe)
+    sums = mesh.all_sum(torch.stack([share.detach() / world] + [
+        torch.where(valid, x, zero).sum()
+        for x in (epe, (epe < 1).float(), (epe < 3).float(), (epe < 5).float())]))
+    metrics = {k: sums[i] / denom for i, k in enumerate(("epe", "1px", "3px", "5px"), 1)}
+    metrics["live_loss"] = sums[0]
+    return share, metrics
 
 
 def ssim_distance(x: torch.Tensor, y: torch.Tensor, md: int = 1) -> torch.Tensor:

@@ -16,6 +16,9 @@ on the payloads of ``utils/checkpoints.py``).
   * ``restore_latest_verified`` (``--resume auto``) restores the newest
     checkpoint whose leaves match its manifest, reading each candidate's
     payload once, and skips corrupt ones.
+  * Across ranks (JAX ``utils/checkpoints.py:45-81``) the replicas hold the
+    same state, so rank 0 alone writes a commit (``primary_only``):
+    barriers bracket it, so no rank goes on before it is published.
 
 Layout for a run NAME under ``checkpoints/NAME/``::
 
@@ -34,6 +37,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from raft_stereo_tpu_torch.parallel import mesh
 from raft_stereo_tpu_torch.runtime import faultinject, telemetry
 from raft_stereo_tpu_torch.utils.checkpoints import (
     apply_tree,
@@ -82,11 +86,32 @@ def _write_json_atomic(path: str, obj: dict, crash_name: Optional[str] = None) -
     os.replace(tmp, path)
 
 
+def primary_only(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on rank 0 alone, between two barriers (the
+    call itself in one process); its result on rank 0, None elsewhere. A
+    failure on rank 0 leaves the others at the second barrier until the
+    launcher tears the group down."""
+    mesh.barrier()
+    out = fn(*args, **kwargs) if mesh.rank() == 0 else None
+    mesh.barrier()
+    return out
+
+
 def commit_checkpoint(path: str, state, *, step: Optional[int] = None, tag: str = "periodic",
                       extra: Optional[Dict] = None) -> CheckpointInfo:
     """Save ``state`` at ``path`` and publish its manifest: the payload
     first, the manifest last, each commit atomic. ``extra`` adds caller
-    metadata (``stream_pos`` also goes into the payload)."""
+    metadata (``stream_pos`` also goes into the payload). Across ranks
+    every rank calls it with the same ``step`` and rank 0 writes
+    (``primary_only``)."""
+    if mesh.world() > 1:
+        primary_only(_commit, path, state, step, tag, extra)
+        return CheckpointInfo(path=os.path.abspath(path), step=int(step), tag=tag)
+    return _commit(path, state, step, tag, extra)
+
+
+def _commit(path: str, state, step: Optional[int], tag: str,
+            extra: Optional[Dict]) -> CheckpointInfo:
     path = os.path.abspath(path)
     t0 = time.perf_counter()
     tree = to_host(state_tree(state))
@@ -271,6 +296,7 @@ __all__ = [
     "find_latest_checkpoint",
     "list_checkpoints",
     "manifest_path",
+    "primary_only",
     "read_manifest",
     "restore_latest_verified",
     "restore_train_state",

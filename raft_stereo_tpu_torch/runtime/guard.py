@@ -6,7 +6,8 @@ streaks.
     applies the optimizer update only if the loss and every gradient are
     finite, so a bad step leaves parameters and optimizer moments bitwise
     untouched and costs one batch (``parallel/train_step.py`` reads the
-    flag on the host once a step);
+    flag on the host once a step; under DDP the flag is agreed across the
+    ranks first, as the JAX step decides on the global batch's loss);
   * ``sanitize_metrics`` zeroes the non-finite metrics of a skipped step
     and records ``skipped``;
   * ``NonFiniteGuard`` counts the ``skipped`` flags on the host and raises
@@ -21,6 +22,7 @@ from typing import Any, Iterable, List, Tuple
 
 import torch
 
+from raft_stereo_tpu_torch.parallel import mesh
 from raft_stereo_tpu_torch.runtime import telemetry
 
 logger = logging.getLogger(__name__)
@@ -38,11 +40,15 @@ def all_finite(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack([f.to(flags[0].device) for f in flags]).all()
 
 
-def apply_or_skip(update, loss: torch.Tensor, grads: Iterable[torch.Tensor]) -> bool:
+def apply_or_skip(update, loss: torch.Tensor, grads: Iterable[torch.Tensor],
+                  distributed: bool = False) -> bool:
     """Run ``update()`` (the optimizer step) only if ``loss`` and every
     gradient are finite; returns whether it ran. The flag is read on the
-    host: a skipped step writes nothing, moments included."""
-    finite = bool(all_finite([loss, *grads]))
+    host: a skipped step writes nothing, moments included. ``distributed``
+    (DDP): the step runs only if it is finite on every rank, so the
+    replicas skip together and never part."""
+    flag = all_finite([loss, *grads])
+    finite = mesh.all_ranks(flag) if distributed else bool(flag)
     if finite:
         update()
     return finite

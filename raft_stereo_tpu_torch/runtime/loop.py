@@ -1,5 +1,6 @@
 """The pipelined training loop (the port's own copy of
-``raft_stereo_tpu/runtime/loop.py:87-871``, in one process).
+``raft_stereo_tpu/runtime/loop.py:87-871``), in one process or on each
+rank of a data-parallel group (``parallel/mesh.py``).
 
   * ``DeviceStager``: a background thread pulls host batches from the
     loader stream, applies NaN fault injection and stages each batch for
@@ -17,6 +18,12 @@
     + validation, the final checkpoint (deduped from a periodic commit of
     the same step), the heartbeat, and the per-step wall-time breakdown
     (``data_wait``, ``h2d_stage``, ``device_step``, ``ckpt_stall``).
+  * Across ranks (``mesh.world() > 1``): a stop is acted on only at
+    ``STOP_AGREE_EVERY`` boundaries, once the ranks agree on it, so a
+    SIGTERM that reaches one rank stops them all at the same step; rank 0
+    alone writes and rotates checkpoints, between barriers, and commits
+    stay synchronous; ``resume_state`` restores the checkpoint rank 0
+    resolved on every rank.
 
 With a telemetry sink installed (``runtime.telemetry``; ``train.py
 --telemetry``) the loop emits ``run_start``, ``run_end``,
@@ -46,24 +53,31 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from raft_stereo_tpu_torch.parallel import mesh
 from raft_stereo_tpu_torch.runtime import faultinject, telemetry
 from raft_stereo_tpu_torch.runtime.checkpoint import (
     CheckpointInfo,
     clone_checkpoint,
     commit_checkpoint,
+    find_latest_checkpoint,
+    primary_only,
     read_manifest,
     restore_latest_verified,
     rotate_checkpoints,
     verify_checkpoint,
 )
 from raft_stereo_tpu_torch.runtime.preemption import GracefulShutdown
-from raft_stereo_tpu_torch.utils.checkpoints import restore_train_state, state_tree, to_host
+from raft_stereo_tpu_torch.utils.checkpoints import restore_train_state, state_tree
 
 logger = logging.getLogger(__name__)
 
 _END = object()  # stager sentinel: the batch stream is exhausted
 
 HEARTBEAT_NAME = "heartbeat.json"
+
+# Ranks agree on the stop flag every this many steps (JAX loop.py:75), so
+# the steady-state loop has no per-step collective of its own.
+STOP_AGREE_EVERY = 4
 
 # A step that waited on the stager longer than this is an underrun: the
 # loader and staging failed to keep a batch ready.
@@ -264,7 +278,7 @@ class AsyncCheckpointer:
         depth = int(self._inflight is not None and not self._inflight.done())
         self.join()  # at most one commit in flight
         with telemetry.span("ckpt_snapshot"):
-            host_state = to_host(state_tree(state), copy=True)
+            host_state = mesh.fetch_to_host(state_tree(state))
         telemetry.emit("checkpoint_enqueue", step=step, tag=tag, async_queue_depth=depth)
 
         def _commit():
@@ -385,7 +399,15 @@ def resume_state(resume: str, ckpt_dir: Path, target):
     """Resolve ``--resume`` and restore: ``(state, manifest, path)``, with
     ``path`` '' (and ``state is target``) when there is nothing to resume.
     ``auto`` restores the newest valid checkpoint under ``ckpt_dir`` in one
-    read of its payload; a path restores that checkpoint."""
+    read of its payload; a path restores that checkpoint. Across ranks,
+    rank 0 resolves ``auto`` (verifying) and every rank restores the path
+    it broadcasts, so all restore the same checkpoint."""
+    if resume == "auto" and mesh.world() > 1:
+        info = find_latest_checkpoint(str(ckpt_dir)) if mesh.rank() == 0 else None
+        resume = mesh.broadcast_object(info.path if info is not None else "")
+        if not resume:
+            logger.info("--resume auto: no valid checkpoint under %s; starting fresh", ckpt_dir)
+            return target, None, ""
     if resume != "auto":
         return restore_train_state(resume, target), read_manifest(resume), resume
     hit = restore_latest_verified(str(ckpt_dir), target)
@@ -400,7 +422,7 @@ def resume_state(resume: str, ckpt_dir: Path, target):
 
 def _write_heartbeat(run_dir: str, fields: dict) -> None:
     """Atomically replace ``<run_dir>/heartbeat.json`` (tmp, fsync, rename)."""
-    hb = {"t_wall": time.time(), "t_mono": time.monotonic(), "host": 0, **fields}
+    hb = {"t_wall": time.time(), "t_mono": time.monotonic(), "host": mesh.rank(), **fields}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         hb["device_memory"] = {"bytes_in_use": torch.cuda.memory_allocated(),
                                "peak_bytes_in_use": torch.cuda.max_memory_allocated()}
@@ -450,8 +472,12 @@ def run_training_loop(
     telemetry sink or, without one, to ``run_dir``; ``profile_steps``
     (A, B) profiles those steps into ``profile_dir``. The caller owns the
     model and optimizer, the resume restore (``resume_state``) and
-    ``mlog.close()``."""
+    ``mlog.close()``. Across ranks every rank runs the loop on its own
+    piece of each batch (the process group gives ``host_id`` and
+    ``num_hosts``); a stop is acted on only every ``STOP_AGREE_EVERY``
+    steps."""
     ckpt_dir = Path(ckpt_dir)
+    host_id, num_hosts = mesh.rank(), mesh.world()
     total_steps = start_steps = _state_step(state)
     if (resumed and resume_manifest is not None and stream_geometry is not None
             and resume_manifest.get("stream_geometry") not in (None, stream_geometry)):
@@ -472,7 +498,13 @@ def run_training_loop(
     last_committed: Optional[CheckpointInfo] = None
     # a resumed run that already reached num_steps trains no extra step
     should_keep_training = total_steps < num_steps
-    committer = AsyncCheckpointer() if async_ckpt and should_keep_training else None
+    committer = None
+    if async_ckpt and should_keep_training:
+        if num_hosts > 1:
+            logger.info("asynchronous checkpoint commits are for one process; %d ranks keep "
+                        "synchronous commits", num_hosts)
+        else:
+            committer = AsyncCheckpointer()
     stager = None
     if should_keep_training:
         stream = iter(batches) if batches is not None else loader.stream(stream_pos)
@@ -524,7 +556,7 @@ def run_training_loop(
 
     telemetry.emit("run_start", step=total_steps, name=name, num_steps=num_steps,
                    resumed=resumed, prefetch_depth=prefetch_depth,
-                   async_ckpt=committer is not None, host_id=0, num_hosts=1,
+                   async_ckpt=committer is not None, host_id=host_id, num_hosts=num_hosts,
                    stream_pos=stream_pos)
     outcome = "aborted"  # set by the success and preemption exits
     pending_stall = 0.0  # last commit's loop-thread stall, logged with the next step
@@ -570,7 +602,14 @@ def run_training_loop(
                 if committer is not None:
                     committer.poll()  # surface async-commit failures promptly
 
-                if stopper.should_stop:
+                stop_now = stopper.should_stop
+                if num_hosts > 1:
+                    # act only at agreed boundaries: a rank that has not
+                    # seen the signal would otherwise enter the next step's
+                    # collectives while the others commit
+                    stop_now = (total_steps % STOP_AGREE_EVERY == 0
+                                and mesh.any_rank(stop_now))
+                if stop_now:
                     # join the in-flight periodic commit, then commit the
                     # emergency checkpoint at this step boundary
                     if committer is not None:
@@ -600,7 +639,8 @@ def run_training_loop(
                                 rotate_dir=str(ckpt_dir), keep=keep_ckpts)
                         else:
                             last_committed = sync_commit("periodic")
-                            rotate_checkpoints(str(ckpt_dir), keep=keep_ckpts)
+                            if host_id == 0:
+                                rotate_checkpoints(str(ckpt_dir), keep=keep_ckpts)
                     stall_s = time.perf_counter() - t_ck
                     timings.stall(stall_s)
                     pending_stall += stall_s
@@ -623,7 +663,7 @@ def run_training_loop(
         final = ckpt_dir / name
         existing_final = read_manifest(str(final))
         if last_committed is not None and last_committed.step == total_steps:
-            clone_checkpoint(last_committed.path, str(final), tag="final")
+            primary_only(clone_checkpoint, last_committed.path, str(final), tag="final")
             logger.info("final checkpoint %s deduped from step checkpoint %s (step %d)",
                         final, last_committed.path, total_steps)
         elif (resumed and total_steps == start_steps and existing_final is not None
@@ -665,6 +705,7 @@ __all__ = [
     "DeviceStager",
     "LoopResult",
     "STAGER_UNDERRUN_S",
+    "STOP_AGREE_EVERY",
     "StagedBatch",
     "StepTimeBreakdown",
     "add_loop_args",

@@ -4,7 +4,9 @@ and for a serving run a bounded graceful drain (the port's own copy of
 
 The training loop polls ``should_stop`` once a step and, when set, commits
 an emergency checkpoint and flushes its metrics before it exits; with
-``--resume auto`` the run then continues where it stopped.
+``--resume auto`` the run then continues where it stopped. Across ranks
+the flag latched on any one rank stops them all: the loop agrees on it
+every ``STOP_AGREE_EVERY`` steps (``runtime/loop.py``).
 
 For a serving run the first signal starts ``ServeDrain``: ``drain_begin``
 is emitted, the blackbox dumps, the attached scheduler starts its bounded

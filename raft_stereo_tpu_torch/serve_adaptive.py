@@ -189,7 +189,6 @@ def request_stream(args) -> Iterator[InferRequest]:
 _LEFT_OUT = (
     ("aot_dir", "persisting compiled forwards across processes is ROADMAP queue A, item 3b"),
     ("spatial_threshold", "spatial serving is ROADMAP queue A, item 7"),
-    ("multihost", "multi-card serving and training (DDP) is ROADMAP queue A, item 4"),
 )
 
 

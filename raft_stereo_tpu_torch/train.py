@@ -1,17 +1,30 @@
-"""Training entry point on one CUDA card (the port of
-``raft_stereo_tpu/train.py``, the reference's train_stereo.py).
+"""Training entry point on one CUDA card or, data-parallel, one process a
+card (the port of ``raft_stereo_tpu/train.py``, the reference's
+train_stereo.py).
 
     python -m raft_stereo_tpu_torch.train --batch_size 8 --train_iters 22 \\
         --mixed_precision --spatial_scale -0.2 0.4 --saturation_range 0 1.4
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+        -m raft_stereo_tpu_torch.train --multihost --batch_size 8 ...
 
-The flag surface is the JAX package's (reference train_stereo.py:214-249)
-without its multi-host flags. With ``--telemetry`` (the default) the run
+The flag surface is the JAX package's (reference train_stereo.py:214-249).
+``--multihost`` joins the process group torchrun describes
+(``parallel/mesh.py::init_distributed``: NCCL, the card
+``cuda:LOCAL_RANK``); each rank loads a disjoint shard of every epoch and
+trains through ``DistributedDataParallel`` (``parallel/train_step.py``).
+``--batch_size`` is per process, as in a JAX multi-host run: the global
+batch is the world size times it. Rank 0 writes the checkpoints and
+``metrics.jsonl``; every rank validates under ``--validate`` (rank 0
+writes the results), so no rank waits at a collective meanwhile; a rank
+r > 0 writes its telemetry under ``runs/NAME/rank<r>``. With
+``--telemetry`` (the default) the run
 writes ``runs/NAME/{events.jsonl,trace_host.json,heartbeat.json,
 metrics.prom}`` (``runtime/telemetry.py``); ``--profile_steps A:B`` adds a
 ``torch.profiler`` trace of those steps under ``runs/NAME/profile``.
 Checkpoints carry the model, the optimizer's moments, the schedule, the
 step and the data-stream position, so ``--resume auto`` continues exactly
-where a run stopped; the
+where a run stopped, at any world size; ``--restore_ckpt`` also takes a
+JAX npz train state (``utils/checkpoints.py``). The
 loop (``runtime/loop.py``) stages batches ahead of the step and commits
 periodic checkpoints on a background thread.
 
@@ -22,6 +35,7 @@ Everything runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 from pathlib import Path
@@ -41,6 +55,7 @@ from raft_stereo_tpu_torch.data.datasets import fetch_dataloader
 from raft_stereo_tpu_torch.evaluate import resolve_device, validate_things
 from raft_stereo_tpu_torch.models.layers import init_weights
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.parallel import mesh
 from raft_stereo_tpu_torch.parallel.train_step import (
     create_train_state,
     make_train_step,
@@ -48,6 +63,7 @@ from raft_stereo_tpu_torch.parallel.train_step import (
 )
 from raft_stereo_tpu_torch.runtime import telemetry
 from raft_stereo_tpu_torch.runtime.guard import NonFiniteGuard
+from raft_stereo_tpu_torch.runtime.infer import kernel_launches
 from raft_stereo_tpu_torch.runtime.loop import (
     LoopResult,
     add_loop_args,
@@ -63,8 +79,24 @@ from raft_stereo_tpu_torch.utils.metrics import MetricLogger
 logger = logging.getLogger(__name__)
 
 
-def train(args, device=None) -> LoopResult:
-    dev = resolve_device(device)
+def train(args, device=None, backend: Optional[str] = None) -> LoopResult:
+    """Train on ``device`` (the card unless the caller asks for the CPU);
+    with ``args.multihost`` as one rank of the process group, over
+    ``backend`` (NCCL on a card, gloo on the CPU, by default)."""
+    if not args.multihost:
+        if backend is not None:
+            raise ValueError("train: backend= is for a --multihost run")
+        return _train(args, resolve_device(device))
+    owned = not torch.distributed.is_initialized()
+    dev = mesh.init_distributed(device, backend)
+    try:
+        return _train(args, dev)
+    finally:
+        if owned:
+            mesh.destroy()
+
+
+def _train(args, dev: torch.device) -> LoopResult:
     Path("checkpoints").mkdir(exist_ok=True)
     cfg = RAFTStereoConfig(
         hidden_dims=tuple(args.hidden_dims),
@@ -92,12 +124,14 @@ def train(args, device=None) -> LoopResult:
 
     ckpt_dir = Path("checkpoints") / args.name
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    run_dir = f"runs/{args.name}"
+    rank = mesh.rank()
+    run_dir = f"runs/{args.name}" + (f"/rank{rank}" if rank else "")
 
     # The sink is installed before the resume, so restore decisions reach
     # events.jsonl too, and uninstalled after the metric logger closes (its
     # last flush folds in the event counters).
-    tel = telemetry.install(telemetry.Telemetry(run_dir)) if args.telemetry else None
+    tel = (telemetry.install(telemetry.Telemetry(run_dir, host=rank)) if args.telemetry
+           else None)
     try:
         return _train_under_telemetry(args, dev, tcfg, state, ckpt_dir, run_dir)
     finally:
@@ -122,17 +156,24 @@ def _train_under_telemetry(args, dev, tcfg, state, ckpt_dir, run_dir) -> LoopRes
     if not resumed and args.restore_ckpt:
         state = restore_train_state(args.restore_ckpt, state)
         logger.info("Restored checkpoint %s at step %d", args.restore_ckpt, state.step)
+    # every rank starts from rank 0's state (its optimizer moments too)
+    mesh.replicate(state.state_dict())
 
+    host_id, num_hosts = mesh.rank(), mesh.world()
     nan_guard = not args.no_nan_guard
     step = make_train_step(tcfg.train_iters, tcfg.loss_gamma, tcfg.max_flow, remat=tcfg.remat,
-                           nonfinite_guard=nan_guard, grad_clip=tcfg.grad_clip)
+                           nonfinite_guard=nan_guard, grad_clip=tcfg.grad_clip,
+                           ddp=args.multihost)
     guard = NonFiniteGuard(max_consecutive=args.max_skipped_steps) if nan_guard else None
-    loader = fetch_dataloader(args)
-    mlog = MetricLogger(run_dir=run_dir, schedule=onecycle_linear(tcfg.lr, tcfg.num_steps + 100))
-    stream_geometry = {"batch_size": int(args.batch_size), "num_shards": 1,
+    loader = fetch_dataloader(args, shard_index=host_id, num_shards=num_hosts)
+    mlog = MetricLogger(run_dir=run_dir if host_id == 0 else None,
+                        schedule=onecycle_linear(tcfg.lr, tcfg.num_steps + 100))
+    stream_geometry = {"batch_size": int(args.batch_size), "num_shards": num_hosts,
                        "dataset_len": len(loader.dataset)}
 
     def validate_fn(step_num, cur_state):
+        # every rank validates (no rank waits at a collective meanwhile);
+        # the logger writes on rank 0 only
         cur_state.model.eval()
         try:
             results = validate_things(cur_state.model, iters=tcfg.valid_iters)
@@ -140,6 +181,7 @@ def _train_under_telemetry(args, dev, tcfg, state, ckpt_dir, run_dir) -> LoopRes
             cur_state.model.train()
         mlog.write_dict(step_num, results)
 
+    launches0 = kernel_launches()
     try:
         return run_training_loop(
             state=state,
@@ -166,6 +208,8 @@ def _train_under_telemetry(args, dev, tcfg, state, ckpt_dir, run_dir) -> LoopRes
         )
     finally:
         mlog.close()
+        logger.info("kernel launches in the loop (rank %d): %s", host_id,
+                    json.dumps({k: v - launches0[k] for k, v in kernel_launches().items()}))
 
 
 def build_parser(argv=None) -> argparse.ArgumentParser:
@@ -182,6 +226,10 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
                         "emergency checkpoints are not rotated away)")
     add_loop_args(parser)
     parser.add_argument("--mixed_precision", action="store_true")
+    parser.add_argument("--multihost", action="store_true",
+                        help="one rank of a data-parallel run launched by torchrun (python -m "
+                        "torch.distributed.run): NCCL, the card cuda:LOCAL_RANK, DDP; "
+                        "--batch_size is per process")
     parser.add_argument("--validate", action="store_true",
                         help="run validate_things at checkpoints")
 
@@ -222,7 +270,8 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None, device: Optional[str] = None) -> LoopResult:
+def main(argv=None, device: Optional[str] = None, backend: Optional[str] = None
+         ) -> LoopResult:
     """Parse ``argv`` and train; returns the loop's result (``.path`` is the
     final checkpoint, or the emergency one after a preemption)."""
     args = build_parser(argv).parse_args(argv)
@@ -230,7 +279,7 @@ def main(argv=None, device: Optional[str] = None) -> LoopResult:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)-8s [%(filename)s:%(lineno)d] %(message)s")
-    return train(args, device=device)
+    return train(args, device=device, backend=backend)
 
 
 if __name__ == "__main__":

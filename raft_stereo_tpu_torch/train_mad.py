@@ -339,8 +339,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--do_flip", default=None, choices=["h", "v"])
     parser.add_argument("--spatial_scale", type=float, nargs="+", default=[0, 0])
     parser.add_argument("--noyjitter", action="store_true")
-    parser.add_argument("--multihost", action="store_true",
-                        help="refused: multi-card training (DDP) is ROADMAP queue A, item 4")
     return parser
 
 
@@ -348,9 +346,6 @@ def main(argv=None, device: Optional[str] = None):
     """Train (the loop's ``LoopResult``) or, with ``--adapt``, adapt (the
     adapted checkpoint's path)."""
     args = build_parser().parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost: multi-card training (DDP) is not in the port yet "
-                         "(ROADMAP queue A, item 4)")
     if args.batch_size is None:
         args.batch_size = 1 if args.adapt else 6
     logging.basicConfig(

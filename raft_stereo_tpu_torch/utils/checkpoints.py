@@ -12,6 +12,10 @@ A state is either an object with ``state_dict``/``load_state_dict`` (the
 train state) or a plain tree of dicts, lists and tensors. The manifest
 layer (``runtime/checkpoint.py``) records a CRC32 of every leaf of the
 tree, keyed as :func:`keyed_leaves` flattens it.
+
+``restore_train_state`` also reads the JAX package's npz train state
+(``utils/weights.py::train_state_tree_from_jax_npz``). A JAX orbax
+directory is refused: reading it needs orbax, which imports JAX.
 """
 
 from __future__ import annotations
@@ -40,15 +44,15 @@ def state_tree(state) -> Any:
     return state
 
 
-def to_host(tree, copy: bool = False):
-    """``tree`` with every tensor on the CPU; ``copy`` also copies CPU
-    tensors (a snapshot that later in-place updates do not reach)."""
+def to_host(tree):
+    """``tree`` with every tensor on the CPU (a CPU tensor is not copied;
+    ``parallel/mesh.py::fetch_to_host`` takes a snapshot)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=copy)
+        return tree.detach().to("cpu")
     if isinstance(tree, dict):
-        return {k: to_host(v, copy) for k, v in tree.items()}
+        return {k: to_host(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_host(v, copy) for v in tree)
+        return type(tree)(to_host(v) for v in tree)
     return tree
 
 
@@ -136,10 +140,21 @@ def apply_tree(target, tree):
 def restore_train_state(path: str, target):
     """Restore the checkpoint at ``path`` into ``target``. A released
     reference ``.pth`` loads into the target's model alone, by
-    ``utils.weights.load_reference_pth`` (strict, ``module.`` stripped)."""
-    if path.endswith(".pth"):
-        from raft_stereo_tpu_torch.utils.weights import load_reference_pth
+    ``utils.weights.load_reference_pth`` (strict, ``module.`` stripped); a
+    JAX npz train state (``path`` ending in ``.npz``, or ``path.npz`` when
+    there is no ``path.pt``) into the whole train state, exactly."""
+    from raft_stereo_tpu_torch.utils import weights
 
-        load_reference_pth(target.model if hasattr(target, "model") else target, path)
+    if path.endswith(".pth"):
+        weights.load_reference_pth(target.model if hasattr(target, "model") else target, path)
+        return target
+    if os.path.isdir(path):
+        raise ValueError(f"{path!r} is a directory, a JAX orbax checkpoint: the port cannot "
+                         "read it (orbax imports JAX). Save the JAX train state with "
+                         "raft_stereo_tpu.utils.checkpoints.save_train_state_npz and restore "
+                         "the .npz")
+    npz = path if path.endswith(".npz") else path + ".npz"
+    if path.endswith(".npz") or (not checkpoint_exists(path) and os.path.isfile(npz)):
+        target.load_state_dict(weights.train_state_tree_from_jax_npz(npz, target))
         return target
     return apply_tree(target, load_payload(path)["state"])

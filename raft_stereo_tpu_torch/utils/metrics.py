@@ -7,7 +7,9 @@ retries and checkpoint commits line up against the loss curve.
 
 A flushed non-finite running mean raises ``NonFiniteMetricError`` after its
 row is written: the reference's fail-fast on a NaN loss, at no per-step
-cost.
+cost. A logger without a ``run_dir`` (a data-parallel rank other than 0,
+whose metrics are the global ones rank 0 writes) writes nothing but still
+fails fast at the same step as rank 0.
 """
 
 from __future__ import annotations
@@ -33,17 +35,20 @@ class NonFiniteMetricError(RuntimeError):
 class MetricLogger:
     """Accumulates per-step metrics; flushes running means every SUM_FREQ."""
 
-    def __init__(self, run_dir: str, schedule: Optional[Callable] = None,
+    def __init__(self, run_dir: Optional[str], schedule: Optional[Callable] = None,
                  fail_on_nonfinite: bool = True):
         self.run_dir = run_dir
         self.schedule = schedule
         self.fail_on_nonfinite = fail_on_nonfinite
-        os.makedirs(run_dir, exist_ok=True)
-        self.jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
+        self.jsonl = None
         self.running: Dict[str, float] = {}
         self.count = 0
         self.last_step = 0
         self._closed = False
+        if run_dir is None:
+            return
+        os.makedirs(run_dir, exist_ok=True)
+        self.jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
         # Restart marker: the file is appended to, so a resumed run's rows
         # are told from the interrupted run's by the marker between them.
         self.jsonl.write(json.dumps({"marker": "logger_start", "wall_time": time.time()}) + "\n")
@@ -92,6 +97,8 @@ class MetricLogger:
         self._write(step, results)
 
     def _write(self, step: int, values: Dict[str, float]) -> None:
+        if self.jsonl is None:
+            return
         # NaN/Inf as strings: the row stays strict JSON
         safe = {k: (v if isinstance(v, str) or math.isfinite(v) else repr(float(v)))
                 for k, v in values.items()}
@@ -108,4 +115,5 @@ class MetricLogger:
             if self.count:
                 self._flush_running(self.last_step)
         finally:
-            self.jsonl.close()
+            if self.jsonl is not None:
+                self.jsonl.close()

@@ -14,12 +14,21 @@ Sequential's index ``decoder.{2(j-1)}.0``, ``conv_{k}`` is
 ``conv_{k}.0``; the attention's packed ``in_proj_*`` pass verbatim, a Dense
 kernel [in, out] becomes a Linear weight [out, in], a LayerNorm ``scale``
 its ``weight``.
+
+``train_state_tree_from_jax_npz`` reads a JAX train state that
+``raft_stereo_tpu/utils/checkpoints.py::save_train_state_npz`` wrote (the
+step, the parameters, the frozen batch-norm statistics and optax's AdamW
+state, keyed by tree path) with numpy alone, and maps it onto the port's
+train state: the parameters and statistics as above, Adam's ``mu`` and
+``nu`` through the same map into ``torch.optim.AdamW``'s ``exp_avg`` and
+``exp_avg_sq``, its ``count`` into each parameter's ``step``, and the
+schedule's ``count`` into ``LambdaLR``'s position and the learning rate.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +144,80 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         if leaf == "mean":
             put(module, "num_batches_tracked", np.zeros((), np.int64))
     return sd
+
+
+_KEY_TOKEN = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
+
+
+def _key_path(key: str) -> Tuple[Any, ...]:
+    """A JAX ``keystr`` (``.opt_state[1][0].mu['cnet']['conv1']['bias']``)
+    as a tuple of names and indices."""
+    tokens = list(_KEY_TOKEN.finditer(key))
+    if "".join(m.group(0) for m in tokens) != key:
+        raise ValueError(f"unparsed JAX checkpoint key {key!r}")
+    return tuple(int(m.group(2)) if m.group(2) else (m.group(1) or m.group(3))
+                 for m in tokens)
+
+
+def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, arr in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def train_state_tree_from_jax_npz(path: str, target) -> dict:
+    """The tree ``TrainState.load_state_dict`` takes, for ``target`` (the
+    port's ``TrainState``, whose optimizer and schedule supply everything
+    the JAX state does not carry), from the JAX npz train state at
+    ``path``. Raises on a key it cannot place."""
+    with np.load(path) as data:
+        arrays = {_key_path(k): np.asarray(data[k]) for k in data.files}
+    step = None
+    trees: Dict[str, Dict[Tuple[str, ...], np.ndarray]] = {
+        "params": {}, "batch_stats": {}, "mu": {}, "nu": {}}
+    counts: List[Tuple[Tuple[Any, ...], int]] = []
+    adam = None  # the opt_state path of optax's ScaleByAdamState
+    for p, arr in arrays.items():
+        if p == ("step",):
+            step = int(arr)
+        elif p[0] in ("params", "batch_stats"):
+            trees[p[0]][p[1:]] = arr
+        elif p[0] == "opt_state" and p[-1] == "count":
+            counts.append((p[:-1], int(arr)))
+        elif p[0] == "opt_state" and ("mu" in p or "nu" in p):
+            at = p.index("mu") if "mu" in p else p.index("nu")
+            if adam not in (None, p[:at]):
+                raise ValueError(f"{path}: two Adam states ({adam}, {p[:at]})")
+            adam = p[:at]
+            trees[p[at]][p[at + 1:]] = arr
+        else:
+            raise ValueError(f"{path}: no place in the port's train state for "
+                             f"{'/'.join(map(str, p))}")
+    adam_count = [c for prefix, c in counts if prefix == adam]
+    schedule_count = [c for prefix, c in counts if prefix != adam]
+    if step is None or len(adam_count) != 1 or len(schedule_count) != 1:
+        raise ValueError(f"{path}: not an AdamW train state of the JAX package (step {step}, "
+                         f"counts {counts})")
+    model_sd = state_dict_from_jax({"params": _nest(trees["params"]),
+                                    "batch_stats": _nest(trees["batch_stats"])})
+    mu = state_dict_from_jax({"params": _nest(trees["mu"])})
+    nu = state_dict_from_jax({"params": _nest(trees["nu"])})
+
+    names = {id(p): n for n, p in target.model.named_parameters()}
+    order = [p for group in target.optimizer.param_groups for p in group["params"]]
+    optimizer = target.optimizer.state_dict()
+    optimizer["state"] = {i: {"step": torch.tensor(float(adam_count[0])),
+                              "exp_avg": mu[names[id(p)]], "exp_avg_sq": nu[names[id(p)]]}
+                          for i, p in enumerate(order)}
+    position = schedule_count[0]
+    lrs = [base * fn(position) for base, fn in zip(target.scheduler.base_lrs,
+                                                   target.scheduler.lr_lambdas)]
+    for group, lr in zip(optimizer["param_groups"], lrs):
+        group["lr"] = lr
+    scheduler = dict(target.scheduler.state_dict(), last_epoch=position,
+                     _step_count=position + 1, _last_lr=lrs)
+    return {"step": step, "model": model_sd, "optimizer": optimizer, "scheduler": scheduler}
