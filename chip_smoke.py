@@ -168,6 +168,20 @@ Phases, each printing one JSON line:
      pairs/s at 1 and 2 hosts, start-up seconds, device memory a worker and
      the wire's ms a frame on each side, recorded. Launches not counted (other
      processes; MADNet2 runs none of K1-K3).
+ 16. the spatial tier (``models/raft_stereo_spatial.py``,
+     ``parallel/spatial.py``, ``runtime/tiers.py::SpatialServer``), before
+     the fleet, with the raftstereo-middlebury preset and the slabs on
+     ``[cuda:0] * k`` (``spatial_path``): the sharded forward against the
+     unsharded one at 544x960 (bf16 at one iteration within
+     ENGINE_PER_IMAGE_TOL, which a planted conv halo one row short must
+     exceed; fp32 at two iterations, unfused and fused, within
+     PARITY_ATOL_*, which K2 on slabs one row short must exceed), K1's
+     launches at 32 iterations (32·k a pair), K2's in the fused variant (one
+     a shard), a ``SpatialServer`` stream routing the 992x1440 pairs past a
+     1,000,000-pixel bar (each output bitwise its tier's engine's),
+     ``evaluate --spatial_threshold``, and the 1024x1440 pair's device ms
+     and peak memory at k = 1, 2, 4. ``python3 chip_smoke.py spatial`` runs
+     the device, build, K1 check and this phase alone.
 Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -542,6 +556,8 @@ def phase_kernel_check():
         ("engine_b4_480x640", (4, 120, 160, 256), 4, 4, 20, 2),
         ("engine_realtime_b4_544x960", (4, 68, 120, 256), 4, 4, 20, 2),
         ("engine_realtime_b4_480x640", (4, 60, 80, 256), 4, 4, 20, 2),
+        # a slab of spatial_path's 544x960 pair split over two shards
+        ("spatial_slab_k2_544x960", (1, 68, 240, 256), 4, 4, 50, 5),
     ]
     checks = []
     saved = alt_corr.LAUNCHES
@@ -5947,6 +5963,265 @@ def phase_fleet_path(tmp: Path):
     return res
 
 
+# The spatial tier (``spatial_path``): the quality tier's pairs and the
+# megapixel ones (bucket 1024x1440, 1.47 MP) above the routing bar, and the
+# shard counts the sharded forward runs at on the one card.
+SPATIAL_HW = (544, 960)
+SPATIAL_BIG_HW = (992, 1440)
+SPATIAL_THRESHOLD = 1_000_000
+SPATIAL_K = (2, 4)
+
+
+def _spatial_pair(H: int, W: int, seed: int):
+    """One seeded in-memory pair as ``_write_pairs`` makes them: a smoothed
+    random texture and a copy shifted by 20 px, float32 [H, W, 3]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    tex = rng.rand(H, W + 64, 3)
+    for axis in (0, 1):
+        tex = sum(np.roll(tex, s, axis=axis) for s in range(-2, 3)) / 5.0
+    tex = (tex * 255).astype(np.float32)
+    return np.ascontiguousarray(tex[:, 32:32 + W]), np.ascontiguousarray(tex[:, 52:52 + W])
+
+
+@contextlib.contextmanager
+def _short_conv_halo():
+    """A planted fault: every conv's halo one row short, its farthest
+    neighbour row read as zeros."""
+    from raft_stereo_tpu_torch.parallel import spatial
+
+    conv2d, halo = spatial.conv2d, spatial.halo
+
+    def short_halo(slabs, above, below, dim=2, zeros=True):
+        out = halo(slabs, above, below, dim, zeros)
+        for i, t in enumerate(out):
+            if i > 0 and above:
+                t.narrow(dim, 0, 1).zero_()
+            if i < len(out) - 1 and below:
+                t.narrow(dim, t.shape[dim] - 1, 1).zero_()
+        return out
+
+    def faulty(*args, **kw):
+        spatial.halo = short_halo
+        try:
+            return conv2d(*args, **kw)
+        finally:
+            spatial.halo = halo
+
+    spatial.conv2d = faulty
+    try:
+        yield
+    finally:
+        spatial.conv2d = conv2d
+
+
+def phase_spatial_path(tmp: Path):
+    """The spatial tier on the one card, shards on ``[cuda:0] * k``, with
+    the raftstereo-middlebury preset (bf16, alt lookup, seeded weights):
+
+      * parity: the sharded forward at k = 2 and 4 against the unsharded one
+        at 544x960, one iteration (32 amplify rounding, ENGINE_PER_IMAGE_TOL's
+        note), within ENGINE_PER_IMAGE_TOL, which a planted conv halo one
+        row short must exceed; in fp32 (TF32 off) at two iterations from a
+        seeded initial flow, the unfused and the fused (``--fused_update``,
+        one K2 step a shard) forward within PARITY_ATOL_* / PARITY_RTOL,
+        which K2 on slabs extended by one row too few must exceed; the bf16
+        fused variant's difference reported;
+      * the path (counts set to 0 before, read after): the fused variant,
+        the sharded forward at 32 iterations at k = 2 and 4 (K1 launches 32·k
+        a pair, one a lookup a shard), a ``SpatialServer`` stream of 6 pairs
+        at 544x960 and 2 at 992x1440 at batch 2 with the bar at 1,000,000 px
+        and the spatial tier at k = 2 (2 routed, none degraded, each routed
+        output bitwise the spatial engine's for the same input and each
+        other the quality engine's), and ``evaluate --spatial_threshold``
+        on the synthetic ETH3D tree (one shard on one card);
+      * reported only: the 1024x1440 pair at k = 1, 2 and 4, 32 iterations:
+        device ms of its captured forward (CUDA events around replays), ms
+        eager (host launches included) and the eager run's peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch import evaluate
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.models import raft_stereo_spatial
+    from raft_stereo_tpu_torch.models.raft_stereo_spatial import SpatialRAFTStereo
+    from raft_stereo_tpu_torch.ops import alt_corr, fused_update
+    from raft_stereo_tpu_torch.ops.pad import InputPadder
+    from raft_stereo_tpu_torch.runtime import tiers as tiers_mod
+    from raft_stereo_tpu_torch.runtime.infer import GraphCache, InferOptions, InferRequest
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = PRESETS["raftstereo-middlebury"]
+    model = load_model(cfg, device=dev, seed=SEED)
+    fused_model = load_model(dataclasses.replace(cfg, fused_update=True), device=dev, seed=SEED)
+    small = [_spatial_pair(*SPATIAL_HW, SEED + 40 + i) for i in range(6)]
+    big = [_spatial_pair(*SPATIAL_BIG_HW, SEED + 50 + i) for i in range(2)]
+    a, b = (torch.from_numpy(x)[None].to(dev) for x in small[0])
+
+    def diff(got, want):
+        return _diff_stats([(got.float() - want.float()).abs().cpu().numpy()])
+
+    def within(st):
+        return all(st[k] <= v for k, v in ENGINE_PER_IMAGE_TOL.items())
+
+    def fp32_errors(got, want):
+        """The largest |got - want| of lowres and disp_up, each over its
+        PARITY_ATOL_* + PARITY_RTOL·|want| (within the limit at <= 1)."""
+        return max(float(((g - w).abs() / (atol + PARITY_RTOL * w.abs())).max())
+                   for g, w, atol in zip(got, want, (PARITY_ATOL_LOWRES, PARITY_ATOL_UP)))
+
+    with _launches_kept(), torch.no_grad():
+        ref = model(a, b, iters=1)[1]
+        parity = {f"k{k}": diff(SpatialRAFTStereo(model, [dev] * k)(a, b, iters=1)[1], ref)
+                  for k in SPATIAL_K}
+        with _short_conv_halo():
+            planted = diff(SpatialRAFTStereo(model, [dev] * 2)(a, b, iters=1)[1], ref)
+        fused_ref = fused_model(a, b, iters=2)[1]
+    # a seeded initial flow: the first K2 step's delta then depends on the
+    # flow 9 rows away (from a zero flow the ninth row adds nothing)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flow0 = 8.0 * torch.randn((1, SPATIAL_HW[0] // 4, SPATIAL_HW[1] // 4, 2), generator=g,
+                              device=dev)
+    fp32 = {}
+    with _fp32_checks(), torch.no_grad():
+        for fused in (False, True):
+            m32 = load_model(dataclasses.replace(cfg, mixed_precision=False, fused_update=fused),
+                             device=dev, seed=SEED)
+            want32 = m32(a, b, iters=2, flow_init=flow0)
+            name = "fused" if fused else "unfused"
+            for k in SPATIAL_K:
+                fp32[f"{name}_k{k}"] = fp32_errors(
+                    SpatialRAFTStereo(m32, [dev] * k)(a, b, iters=2, flow_init=flow0), want32)
+            if fused:
+                saved_rows = raft_stereo_spatial.K2_HALO_ROWS
+                raft_stereo_spatial.K2_HALO_ROWS = saved_rows - 1
+                try:
+                    fp32["fused_k2_planted_halo_rows_8"] = fp32_errors(
+                        SpatialRAFTStereo(m32, [dev] * 2)(a, b, iters=2, flow_init=flow0),
+                        want32)
+                finally:
+                    raft_stereo_spatial.K2_HALO_ROWS = saved_rows
+            del m32, want32
+
+    _zero_launches()
+    k2_before = fused_update.LAUNCHES
+    fused_out = SpatialRAFTStereo(fused_model, [dev] * 2)(a, b, iters=2)[1]
+    fused_k2 = fused_update.LAUNCHES - k2_before
+    fused_parity = diff(fused_out, fused_ref)
+    k1_a_pair, finite = {}, True
+    for k in SPATIAL_K:
+        before = alt_corr.LAUNCHES
+        out = SpatialRAFTStereo(model, [dev] * k)(a, b, iters=32)[1]
+        k1_a_pair[f"k{k}"] = alt_corr.LAUNCHES - before
+        finite = finite and bool(torch.isfinite(out).all())
+
+    ts = tiers_mod.TierSet(
+        [tiers_mod.raft_stereo_tier(model, 32),
+         tiers_mod.spatial_tier(model, 32, num_spatial=2, devices=[dev] * 2)],
+        InferOptions(batch=2, sched=True, deadline_s=300.0))
+    server = tiers_mod.SpatialServer(ts, base="quality", spatial="spatial",
+                                     threshold=SPATIAL_THRESHOLD)
+    # the megapixel pairs arrive together, so the spatial tier serves them
+    # as one batch
+    pairs = small[:2] + big + small[2:]
+    is_big = [False, False, True, True, False, False, False, False]
+    t0 = time.perf_counter()
+    results = {r.payload: r for r in server.serve(
+        iter([InferRequest(payload=i, inputs=p) for i, p in enumerate(pairs)]))}
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    replayed = _replayed(ts)
+    with _launches_kept():
+        spatial_out = {r.payload: r.output for r in ts.engines["spatial"].stream(iter(
+            [InferRequest(payload=i, inputs=p) for i, p in enumerate(pairs) if is_big[i]]))}
+        quality_out = {r.payload: r.output for r in ts.engines["quality"].stream(iter(
+            [InferRequest(payload=i, inputs=p) for i, p in enumerate(pairs) if not is_big[i]]))}
+    want = {**spatial_out, **quality_out}
+    bitwise = sum(int(i in results and results[i].ok and want[i].shape == results[i].output.shape
+                      and np.array_equal(results[i].output, want[i])) for i in want)
+    routing = {
+        "requests": len(pairs), "ok": sum(r.ok for r in results.values()),
+        "spatial_routed": ts.schedulers["quality"].stats.spatial_routed,
+        "degraded": {n: e.stats.degraded for n, e in ts.engines.items()},
+        "images": {n: e.stats.images for n, e in ts.engines.items()},
+        "bitwise_each_tier_engine": bitwise, "serve_s": serve_s,
+        "tiers": _tiers_report(ts),
+        "spatial_engine": {k: ts.engines["spatial"].snapshot()[k]
+                           for k in ("num_spatial", "divis_h", "active_shards", "capture")},
+    }
+
+    root = _eth3d_tree(tmp)
+    # the 480x720 scenes (bucket 480x736, 353,280 px) route, the 400x640 ones
+    # (416x640) stay on the quality tier
+    argv = ["--dataset", "eth3d", "--preset", "raftstereo-middlebury", "--valid_iters", "32",
+            "--infer_batch", "2", "--spatial_threshold", "300000"]
+    with _chdir(root), _recorded_predictions() as cli:
+        cli_metrics = evaluate.main(argv)
+    cli_routed = cli["serving"].tier_set.schedulers["quality"].stats.spatial_routed
+    # the eager launches, the warm-ups' and the captures', and each graph's
+    # at capture x replays
+    cli_replayed = _replayed(cli["serving"])
+    launches = {k: n + replayed[k] + cli_replayed[k] for k, n in _launches().items()}
+
+    timing = {}
+    pad = InputPadder((1, *SPATIAL_BIG_HW, 3), divis_by=32)
+    x, y = (torch.from_numpy(t)[None].to(dev) for t in big[0])
+    x, y = pad.pad(x, y)
+    mp = x.shape[1] * x.shape[2] / 1e6
+    with _launches_kept(), torch.no_grad():
+        for k in (1, *SPATIAL_K):
+            sharded = SpatialRAFTStereo(model, [dev] * k)
+            sharded(x, y, iters=32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eager_ms = _time_ms(lambda: sharded(x, y, iters=32), reps=2, warmup=0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            graphs = GraphCache()
+            entry = graphs.get(k, lambda p, q: sharded(p, q, iters=32)[1], (x, y))
+            ms = _time_ms(lambda: graphs.replay(entry, (x, y)), reps=3, warmup=1)
+            del graphs, entry
+            timing[f"k{k}"] = {"device_ms": ms, "device_ms_per_mp": ms / mp,
+                               "eager_ms": eager_ms, "peak_gib": peak,
+                               "peak_gib_per_mp": peak / mp}
+    res = {"phase": "spatial_path", "entry": "raft_stereo_tpu_torch.runtime.tiers.SpatialServer",
+           "preset": "raftstereo-middlebury", "parity_1_iter": parity,
+           "planted_short_halo_1_iter": planted, "tol": ENGINE_PER_IMAGE_TOL,
+           "fp32_2_iter_of_limit": fp32,
+           "fused_bf16_2_iter": {"k": 2, "k2_launches": fused_k2, "parity": fused_parity},
+           "k1_launches_a_pair_32_iters": k1_a_pair, "routing": routing,
+           "evaluate_cli": {"argv": argv, "metrics": cli_metrics, "spatial_routed": cli_routed},
+           "timing_1024x1440_32_iters": {"megapixels": mp, **timing},
+           "k1_slab_check": "kernel_check spatial_slab_k2_544x960",
+           "launches": launches, "seconds": time.perf_counter() - t_phase, "card": smi_line()}
+    emit(res)
+    fails = []
+    if not all(within(st) for st in parity.values()):
+        fails.append("parity at 1 iteration")
+    if within(planted):
+        fails.append("the planted short halo passes the limit")
+    if any(v > 1 for n, v in fp32.items() if "planted" not in n):
+        fails.append("fp32 parity at 2 iterations")
+    if fp32["fused_k2_planted_halo_rows_8"] <= 1:
+        fails.append("K2 on slabs one row short passes the limit")
+    if fused_k2 != 2:
+        fails.append("K2 launches in the fused variant")
+    if any(n != 32 * int(k[1:]) for k, n in k1_a_pair.items()) or not finite:
+        fails.append("K1 launches a pair")
+    if (routing["ok"] != len(pairs) or routing["spatial_routed"] != 2
+            or any(routing["degraded"].values()) or bitwise != len(pairs)):
+        fails.append("routing")
+    if cli_routed != 4 or not all(math.isfinite(v) for v in cli_metrics.values()):
+        fails.append("evaluate --spatial_threshold")
+    if fails:
+        raise AssertionError(f"spatial_path: {fails}")
+    return res
+
+
 # The kernels each main path must launch.
 PATH_KERNELS = {
     "main_path": ("alt_corr",),
@@ -5981,6 +6256,8 @@ PATH_KERNELS = {
     # the fleet's workers are other processes: their counters are not read
     # here (MADNet2 runs none of K1-K3)
     "fleet_path": (),
+    # K1 on every lookup of every shard, K2 a shard in the fused variant
+    "spatial_path": ("alt_corr", "fused_update"),
 }
 
 
@@ -6049,6 +6326,7 @@ def main() -> int:
                   phase_iter_tiers_path(Path(tmp), tier["untiered"]),
                   phase_controller_path(Path(tmp))]
         emit({"phase": "composition_total", "seconds": time.perf_counter() - t_comp})
+        paths.append(phase_spatial_path(Path(tmp)))
         paths.append(phase_fleet_path(Path(tmp)))
     # every phase's counters were read here but the fleet's (its workers')
     uncounted = [r["phase"] for r in paths if not isinstance(r["launches"], dict)]
@@ -6149,7 +6427,29 @@ def main() -> int:
     return 0
 
 
+def spatial_main() -> int:
+    """``python3 chip_smoke.py spatial``: the device, the build, K1's checks
+    and ``spatial_path`` alone (a quick check of the spatial tier; no
+    ``ok`` line)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    import raft_stereo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    phase_device()
+    phase_build()
+    phase_kernel_check()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        res = phase_spatial_path(Path(tmp))
+    if any(res["launches"][k] < 1 for k in PATH_KERNELS["spatial_path"]):
+        raise AssertionError(f"spatial_path: a kernel of the path never launched: {res}")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ddp-rank"]:
         sys.exit(ddp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["spatial"]:
+        sys.exit(spatial_main())
     sys.exit(main())

@@ -30,7 +30,9 @@ metrics of the completed pairs; ``--adaptive_iters --converge_eps`` serves
 with the convergence exit, and ``--iter_tiers 7,32`` with several
 iteration counts behind the tiered dispatcher; ``--tier`` serves through
 one named tier and ``--cascade`` through the MADNet2 -> RAFT-Stereo cascade
-(``runtime/tiers.py``; ``--fast_ckpt``); ``--controller`` arms the overload
+(``runtime/tiers.py``; ``--fast_ckpt``); ``--spatial_threshold N`` routes
+buckets of more than N padded pixels to the spatial tier, which splits each
+request's rows over the visible cards; ``--controller`` arms the overload
 controller over them (``--slo_p95_ms``, ``--slo_budget``) and
 ``--debug_port`` the introspection server; the quality observatory watches
 every user result (``--no_quality`` turns it off) and ``--canary_every``
@@ -299,6 +301,35 @@ class _TieredServing:
         return merged
 
 
+def _spatial_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=None):
+    """The ``--spatial_threshold`` assembly: the quality tier (this model)
+    and a spatial tier on ``infer.spatial_shards`` of the model's devices
+    (every visible card for 0; the CPU when the model is there) under the
+    pixel-aware ``SpatialServer``, whose routing lives in the base tier's
+    scheduler (so the run is scheduler-backed, ``--sched`` or not); the
+    controller, when armed, takes both schedulers."""
+    import dataclasses
+
+    from raft_stereo_tpu_torch.runtime import tiers as tiers_mod
+
+    if not infer.sched:
+        logger.info("--spatial_threshold routes in the admission layer: enabling the "
+                    "continuous-batching scheduler for this serve")
+        infer = dataclasses.replace(infer, sched=True)
+    dev = next(model.parameters()).device
+    ts = tiers_mod.TierSet(
+        [tiers_mod.raft_stereo_tier(model, iters),
+         tiers_mod.spatial_tier(model, iters, num_spatial=infer.spatial_shards,
+                                devices=[dev] if dev.type == "cpu" else None)],
+        infer)
+    if drain is not None:
+        drain.attach(ts)
+    server = tiers_mod.SpatialServer(ts, base="quality", spatial="spatial",
+                                     threshold=int(infer.spatial_threshold))
+    stream = _maybe_controlled(server.serve, infer, schedulers=list(ts.schedulers.values()))
+    return _TieredServing(ts), stream
+
+
 def _load_fast_tier(infer: InferOptions, mixed_precision: bool = False, device=None):
     """The MADNet2 fast tier of ``--tier fast`` / ``--cascade``: seeded, or
     restored from ``--fast_ckpt`` (a reference ``.pth`` or a port
@@ -321,9 +352,19 @@ def make_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=None)
     ``TierSet`` routing every request to NAME (``quality`` is this model,
     bitwise the untiered engine; ``fast`` adds a MADNet2 tier).
     ``--cascade``: both tiers under the ``CascadeServer``.
-    ``--adaptive_iters``: the adaptive assembly. ``serving.stats`` is the
-    accounting either way; ``drain`` (a ``ServeDrain``) is attached to
-    whatever can drain."""
+    ``--adaptive_iters``: the adaptive assembly. ``--spatial_threshold``:
+    the quality tier and the spatial tier under the ``SpatialServer``.
+    ``serving.stats`` is the accounting either way; ``drain`` (a
+    ``ServeDrain``) is attached to whatever can drain."""
+    if infer.spatial_threshold is not None:
+        # the pixel router extends the default path: in series with the
+        # multi-model or iteration-tier routers it would have no defined
+        # policy
+        if infer.tier or infer.cascade or infer.adaptive_iters:
+            raise SystemExit("--spatial_threshold adds a pixel-routed spatial tier to the "
+                             "default serving path; it is mutually exclusive with "
+                             "--tier/--cascade/--adaptive_iters")
+        return _spatial_serving(model, iters, infer, drain=drain)
     if infer.adaptive_iters:
         # iteration tiers of one model are another axis than the multi-model
         # tiers: two routers in series would have no defined policy

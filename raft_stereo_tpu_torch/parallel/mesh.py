@@ -1,6 +1,7 @@
 """The data axis across processes (the port's own copy of the data-axis
 part of ``raft_stereo_tpu/parallel/mesh.py:30-157``): one process a card,
-joined by ``torch.distributed``.
+joined by ``torch.distributed``; and the spatial tier's device list
+(``mesh.py:50-84,147-159``), which one process drives.
 
 JAX shards a batch over a named mesh axis and XLA inserts the gradient
 all-reduce; here each process (a *rank*) holds a full replica of the train
@@ -20,15 +21,22 @@ gradients. The global batch is the ranks' pieces in rank order, as JAX's
   * ``all_sum``, ``any_rank``, ``all_ranks``, ``broadcast_object`` and
     ``barrier`` are the few collectives the loss, the guard, the loop and
     the checkpoints need; each is a no-op in one process.
+  * ``spatial_mesh`` is the spatial tier's list of shard devices (the JAX
+    mesh's ``spatial`` axis; no process group: one process drives every
+    shard, as one JAX process drives its mesh), ``mesh_spatial_size`` its
+    length and ``shard_spatial`` the row slabs of a [B, H, W, C] batch on
+    them (``parallel/spatial.py`` holds the exchange between them).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from raft_stereo_tpu_torch.parallel import spatial
 
 
 def init_distributed(device=None, backend: Optional[str] = None) -> torch.device:
@@ -201,6 +209,46 @@ def barrier() -> None:
         dist.barrier()
 
 
+def indexed_device(d) -> torch.device:
+    """``d`` with an index where it is a card (``cuda`` is the current one)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def spatial_mesh(num_spatial: int = 0, devices: Optional[Sequence] = None
+                 ) -> List[torch.device]:
+    """The spatial tier's shard devices. ``devices`` None is every visible
+    card (``[cpu]`` without one); an explicit list may repeat a device
+    (several slabs on one card, or on the CPU). ``num_spatial`` 0 takes
+    them all; another count must divide their number (the JAX
+    ``spatial_mesh``'s rule, which leaves the rest to its data axis; the
+    spatial tier here has none, and takes the first ``num_spatial``)."""
+    if devices is None:
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if torch.cuda.is_available() else [torch.device("cpu")])
+    devices = [indexed_device(d) for d in devices]
+    k = len(devices) if num_spatial in (0, None) else int(num_spatial)
+    if k < 1 or len(devices) % k != 0:
+        raise ValueError(f"spatial_mesh: num_spatial={k} must be >= 1 and divide the "
+                         f"device count ({len(devices)})")
+    return devices[:k]
+
+
+def mesh_spatial_size(devices: Optional[Sequence]) -> int:
+    """How many shards a device list makes (1, no H sharding, for None)."""
+    return 1 if not devices else len(devices)
+
+
+def shard_spatial(devices: Sequence, x, unit: int) -> List[torch.Tensor]:
+    """[B, H, W, C] (a tensor or an array) as row slabs in whole units of
+    ``unit`` rows, one on each device that gets rows (``spatial.row_split``)."""
+    x = torch.as_tensor(x)
+    bounds = spatial.row_split(x.shape[1], unit, len(devices))
+    return spatial.split(x, bounds, [indexed_device(d) for d in devices], dim=1)
+
+
 __all__ = [
     "all_ranks",
     "all_sum",
@@ -210,8 +258,11 @@ __all__ = [
     "destroy",
     "fetch_to_host",
     "init_distributed",
+    "mesh_spatial_size",
     "rank",
     "replicate",
     "shard_batch",
+    "shard_spatial",
+    "spatial_mesh",
     "world",
 ]

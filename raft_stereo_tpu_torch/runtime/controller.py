@@ -1,20 +1,22 @@
 """Self-tuning overload control (PyTorch port of
-``raft_stereo_tpu/runtime/controller.py``; its spatial-bar rung comes with
-the spatial tier).
+``raft_stereo_tpu/runtime/controller.py``).
 
 A control thread (``overload-ctrl``, armed by ``--controller``; off by
 default, and then no controller code runs) reads the serve's sensors on a
 fixed cadence and moves its knobs through the servers' bounded, thread-safe
 setters (``CascadeServer.set_threshold``, ``TieredServer.set_policy``,
 ``AdaptiveServer.set_every``, ``ContinuousBatchingScheduler.
-set_max_pending``); every consumer reads its knob once a decision.
+set_max_pending``, ``set_spatial_threshold``); every consumer reads its
+knob once a decision.
 
   * **Sensors.** The windowed SLO budget burn (the change of the
     ``SLOTracker``'s cumulative counters since the last tick, over the
     budget), the deepest scheduler queue, and the quality observatory's
     verdict.
   * **Degradation ladder.** One rung per actuator present, in fixed order:
-    ``cascade_bar`` (lower the confidence bar by 0.3: fewer escalations),
+    ``spatial_bar`` (raise the schedulers' spatial routing bar 4x: the
+    megapixel band is shed first, one such pair costing several of the
+    quality tier's), ``cascade_bar`` (lower the confidence bar by 0.3: fewer escalations),
     ``iter_floor`` (route default traffic one iteration tier down),
     ``adapt_pause`` (adapt 4x less often), ``shed_tight`` (halve the
     admission cap). A rung whose actuator is absent is left out at
@@ -144,6 +146,24 @@ class OverloadController:
         """The degradation ladder in fixed order, from the actuators that
         exist."""
         ladder: List[_Rung] = []
+        spatial = [s for s in self._schedulers
+                   if getattr(s, "spatial_threshold", None) is not None]
+        if spatial:
+            bases = {id(s): int(s.spatial_threshold) for s in spatial}
+            raised = {k: v * 4 for k, v in bases.items()}
+
+            def raise_bar():
+                for s in spatial:
+                    s.set_spatial_threshold(raised[id(s)])
+
+            def lower_bar():
+                for s in spatial:
+                    s.set_spatial_threshold(bases[id(s)])
+
+            ladder.append(_Rung(
+                name="spatial_bar", knob="spatial_threshold", lo=float(max(bases.values())),
+                hi=float(max(raised.values())), baseline=float(max(bases.values())),
+                degraded=float(max(raised.values())), apply=raise_bar, revert=lower_bar))
         if cascade is not None:
             base = float(cascade.threshold)
             degraded = max(0.0, round(base - 0.3, 6))

@@ -55,6 +55,16 @@ its plain engine, its fault tolerance and its telemetry).
   * **Fault injection.** ``RAFT_FI_INFER_DECODE_FAIL``, ``_COMPILE_FAIL``,
     ``_OOM`` and ``_HANG`` (``runtime.faultinject``) drive each path.
 
+**The spatial tier.** An engine given ``spatial`` (a device list,
+``parallel.mesh.spatial_mesh``) serves a forward that splits each batch's
+rows over those devices (``models/raft_stereo_spatial.py``): batches are
+staged to the first device and the forward shards them. Buckets pad H to
+``divis_h = lcm(divis_by, num_spatial)`` (``ops.pad.spatial_divis``), as
+the JAX engine pads a spatial mesh's buckets; with one shard that is
+``divis_by`` and the buckets are the plain engine's. With every shard on
+one device the forward is captured as any other; with shards on several
+cards it runs eagerly, since one CUDA graph holds one device's work.
+
 **Serving hooks.** ``eager_finalize`` finalises the held dispatch as soon
 as the stager queue is empty (a video session's next frame depends on this
 result); ``idle_watchdog=False`` keeps the deadline on device waits but lets
@@ -100,7 +110,7 @@ import torch
 
 from raft_stereo_tpu_torch.experiments import packed_conv
 from raft_stereo_tpu_torch.ops import alt_corr, fused_update
-from raft_stereo_tpu_torch.ops.pad import BatchPadder, bucket_shape
+from raft_stereo_tpu_torch.ops.pad import BatchPadder, bucket_shape, spatial_divis
 from raft_stereo_tpu_torch.runtime import blackbox, faultinject, quality, telemetry
 
 logger = logging.getLogger(__name__)
@@ -692,7 +702,9 @@ class InferenceEngine:
     (device waits keep the deadline). ``tier`` labels the engine in SLO
     accounting, quality sketches and the blackbox (``engine:<tier>``);
     ``module`` is the ``nn.Module`` whose weights ``forward_fn`` reads,
-    which ``update_variables`` swaps.
+    which ``update_variables`` swaps. ``spatial`` is the spatial tier's
+    device list (see the module docstring), the first of which is
+    ``device``.
     """
 
     def __init__(self, forward_fn: Callable[..., torch.Tensor], *, device,
@@ -701,7 +713,7 @@ class InferenceEngine:
                  graph_key: Tuple = (), retries: int = 2, retry_backoff_s: float = 0.05,
                  eager_finalize: bool = False, idle_watchdog: bool = True,
                  tier: str = "serving", module: Optional[torch.nn.Module] = None,
-                 divis_by: int = 32):
+                 divis_by: int = 32, spatial: Optional[List[torch.device]] = None):
         if batch < 1:
             raise ValueError("InferenceEngine batch must be >= 1")
         if prefetch_depth < 1:
@@ -715,12 +727,20 @@ class InferenceEngine:
         self.divis_by = int(divis_by)
         self.forward_fn = forward_fn
         self.device = torch.device(device)
+        self.spatial = None if spatial is None else [torch.device(d) for d in spatial]
+        if self.spatial is not None and (not self.spatial or self.spatial[0] != self.device):
+            raise ValueError(f"InferenceEngine: the spatial devices {self.spatial} must start "
+                             f"with the engine's device {self.device}")
+        self.num_spatial = 1 if self.spatial is None else len(self.spatial)
+        self.divis_h = spatial_divis(self.divis_by, self.num_spatial)
         self.batch = int(batch)
         self.prefetch_depth = int(prefetch_depth)
         self.deadline_s = deadline_s
         self.retries = int(retries)
         self.retry_backoff_s = float(retry_backoff_s)
-        self.capture = bool(capture) and self.device.type == "cuda"
+        # one CUDA graph holds one device's work
+        self.capture = (bool(capture) and self.device.type == "cuda"
+                        and len(set(self.spatial or [self.device])) == 1)
         self.graph_key = tuple(graph_key)
         self.graphs = GraphCache(max_executables)
         self.stats = InferStats()
@@ -740,8 +760,12 @@ class InferenceEngine:
         """An introspection view (the blackbox provider): the degradation
         memory and the counts, read best-effort from the dump thread."""
         s = self.stats
+        active = getattr(self.forward_fn, "active_shards", None)
         return {
             "tier": self.tier_label, "batch": self.batch, "deadline_s": self.deadline_s,
+            "divis_by": self.divis_by, "num_spatial": self.num_spatial, "divis_h": self.divis_h,
+            "active_shards": None if active is None else {
+                f"{b[0]}x{b[1]}": active(b[0]) for b in list(s.buckets)},
             "retries": self.retries, "idle_watchdog": self.idle_watchdog,
             "eager_finalize": self.eager_finalize,
             "capture": self.capture, "executables": len(self.graphs),
@@ -1000,7 +1024,7 @@ class InferenceEngine:
         t0 = time.perf_counter()
         with telemetry.span("h2d_stage", trace_ids=_span_ids(trace_ids)):
             padder = BatchPadder([x.arrays[0].shape[:2] for x in items],
-                                 divis_by=self.divis_by)
+                                 divis_by=self.divis_by, divis_h=self.divis_h)
             arrays = tuple(padder.pad([x.arrays[k] for x in items])
                            for k in range(len(items[0].arrays)))
         return _StagedBatch(bucket=bucket, payloads=[x.payload for x in items[:valid]],
@@ -1055,7 +1079,8 @@ class InferenceEngine:
                     with telemetry.span("request_decode", trace_id=tid):
                         faultinject.infer_decode_point(getattr(req, "payload", None))
                         arrays = req.resolve()  # the lazy decode runs here
-                    bucket = bucket_shape(*arrays[0].shape[:2], divis_by=self.divis_by)
+                    bucket = bucket_shape(*arrays[0].shape[:2], divis_by=self.divis_by,
+                                          divis_h=self.divis_h)
                 except Exception as e:  # noqa: BLE001 — isolated to the request
                     telemetry.emit("request_failed", stage="decode", error=_errstr(e),
                                    trace_id=tid)
@@ -1373,6 +1398,12 @@ class InferOptions:
     canary_latch: int = 3
     canary_tol: float = 0.5
     golden_dir: Optional[str] = None
+    # the spatial tier (evaluate's and demo's serving): None keeps it off,
+    # and no spatial code runs; else the padded bucket H·W above which the
+    # scheduler routes a request to the tier that splits its rows over
+    # ``spatial_shards`` devices (0: every visible card; no CLI flag)
+    spatial_threshold: Optional[int] = None
+    spatial_shards: int = 0
 
 
 def add_infer_args(parser, default_batch: int = 4) -> None:
@@ -1524,6 +1555,15 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
         help="canary goldens (one npz per canary shape): loaded at start when present; a "
         "run that captured goldens saves them there, so the next run checks against them")
     parser.add_argument(
+        "--spatial_threshold", type=int, default=None, metavar="PIXELS",
+        help="megapixel serving: route requests whose padded bucket exceeds this many "
+        "pixels (H*W) to the spatial tier, which splits each request's rows over the "
+        "visible cards and exchanges halo rows between them (the correlation volume "
+        "splits with them), instead of letting oversized buckets trip the per-image "
+        "circuit fallback; the overload controller may raise the bar under saturation "
+        "(megapixel work is shed first); default: off, no spatial code runs and serving "
+        "is bit-identical to serving without the tier")
+    parser.add_argument(
         "--max_failed_frac", type=float, default=0.0, metavar="FRAC",
         help="tolerated fraction of failed requests before the run exits non-zero "
         "(default 0: any failure fails the run); failed requests are always excluded "
@@ -1595,6 +1635,7 @@ def options_from_args(args) -> Optional[InferOptions]:
         canary_latch=getattr(args, "canary_latch", 3),
         canary_tol=getattr(args, "canary_tol", 0.5),
         golden_dir=getattr(args, "golden_dir", None),
+        spatial_threshold=getattr(args, "spatial_threshold", None),
     )
 
 

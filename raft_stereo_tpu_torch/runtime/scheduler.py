@@ -1,6 +1,5 @@
 """Continuous-batching scheduler and video sessions over the engine (the
-port's own copy of ``raft_stereo_tpu/runtime/scheduler.py``, without the
-spatial tier's routing).
+port's own copy of ``raft_stereo_tpu/runtime/scheduler.py``).
 
 The engine serves one stream in arrival order: its stager stages a
 bucket's micro-batch the moment that bucket holds ``batch`` items, and a
@@ -36,6 +35,15 @@ rejected at admission (reason ``deadline``). ``request_drain(timeout_s)``
 complete, and resolves whatever is still queued when the bound expires as
 ``DrainedError``; a drained scheduler stays drained. Every request the
 source yields resolves exactly once.
+
+**Pixel-aware routing** (the spatial tier, off until ``configure_spatial``
+wires a sink): a decoded request whose padded bucket H·W exceeds the live
+bar is handed to the sink, the spatial tier's feed, instead of boarding
+this scheduler's queues (``sched_spatial_route``); the overload
+controller may raise the bar above its base with
+``set_spatial_threshold``, and the band (base, live] is then shed with
+the typed reason ``spatial``. With routing off, admission is the same
+code path it was without the tier.
 
 **Video sessions.** ``SessionServer`` serialises the frames of each
 session (frame t is admitted only after frame t-1 resolved) and
@@ -89,8 +97,10 @@ class ShedError(RuntimeError):
     """Typed admission-layer rejection: the request was resolved by the
     overload/lifecycle layer (never dispatched), with ``reason`` one of
     ``queue_full`` (hard ``max_pending`` depth exceeded), ``deadline``
-    (provably unmeetable under the bucket's EWMA service time) or
-    ``drained`` (still queued when a graceful drain hit its bound)."""
+    (provably unmeetable under the bucket's EWMA service time),
+    ``drained`` (still queued when a graceful drain hit its bound) or
+    ``spatial`` (the megapixel band, under a spatial bar the overload
+    controller raised above its base)."""
 
     def __init__(self, message: str, reason: str = "shed"):
         super().__init__(message)
@@ -175,6 +185,8 @@ class SchedStats:
     # being dispatched
     shed: int = 0
     shed_reasons: Dict[str, int] = field(default_factory=dict)
+    # requests handed to the spatial tier's sink
+    spatial_routed: int = 0
 
 
 class ContinuousBatchingScheduler:
@@ -246,6 +258,13 @@ class ContinuousBatchingScheduler:
         # (B same-dt folds would compound alpha to 1-(1-a)^B and let one
         # outlier batch own the estimate)
         self._ewma_folded: Dict[Tuple[int, int], float] = {}
+        # pixel-aware routing, off until configure_spatial(): the live bar
+        # (padded H·W above it routes to the sink) and the base the
+        # overload controller's bounded setter raises it from
+        self.spatial_threshold: Optional[int] = None
+        self._spatial_base: Optional[int] = None
+        self._spatial_sink: Optional[Callable[[Any], None]] = None
+        self._spatial_tier = "spatial"
         # crash forensics: self-register the introspection hook
         # with the installed blackbox dumper (free no-op when none)
         blackbox.register_provider(
@@ -294,6 +313,8 @@ class ContinuousBatchingScheduler:
                 "drain_remaining_s": drain_remaining,
                 "max_pending": self.max_pending,
                 "max_wait_s": self.max_wait_s,
+                "spatial_threshold": self.spatial_threshold,
+                "spatial_base": self._spatial_base,
                 "stats": {
                     "admitted": self.stats.admitted,
                     "failed_admits": self.stats.failed_admits,
@@ -303,6 +324,7 @@ class ContinuousBatchingScheduler:
                     "flush_reasons": dict(self.stats.flush_reasons),
                     "shed": self.stats.shed,
                     "shed_reasons": dict(self.stats.shed_reasons),
+                    "spatial_routed": self.stats.spatial_routed,
                 },
             }
 
@@ -319,6 +341,43 @@ class ContinuousBatchingScheduler:
                 raise ValueError("scheduler max_pending must be >= 1 or None")
         with self._cond:
             self.max_pending = max_pending
+            self._cond.notify_all()
+
+    def configure_spatial(self, threshold: int, sink, *,
+                          tier_name: str = "spatial") -> None:
+        """Wire pixel-aware routing: an admitted request whose padded
+        bucket H·W exceeds ``threshold`` is handed, decoded, to ``sink``
+        (the spatial tier's feed, called with a ``SchedRequest``) instead of
+        boarding this scheduler's queues. ``threshold`` becomes the base
+        bar, which ``set_spatial_threshold`` may raise. Never called,
+        routing stays off."""
+        threshold = int(threshold)
+        if threshold < 1:
+            raise ValueError("spatial threshold must be >= 1 pixel")
+        if not callable(sink):
+            raise TypeError("spatial sink must be callable")
+        with self._cond:
+            self._spatial_base = threshold
+            self.spatial_threshold = threshold
+            self._spatial_sink = sink
+            self._spatial_tier = str(tier_name)
+            self._cond.notify_all()
+
+    def set_spatial_threshold(self, threshold: int) -> None:
+        """The overload controller's bounded actuator: raise the live
+        spatial bar, so the band (base, threshold] is shed with the typed
+        reason ``spatial`` (the most expensive work goes first). It never
+        goes below the base (restoring is setting it back to the base).
+        Each admission decision reads the knob once."""
+        if self._spatial_base is None:
+            raise RuntimeError("set_spatial_threshold: configure_spatial() was never "
+                               "called on this scheduler")
+        threshold = int(threshold)
+        if threshold < self._spatial_base:
+            raise ValueError(f"spatial threshold {threshold} below the configured base "
+                             f"{self._spatial_base} (the actuator only raises the bar)")
+        with self._cond:
+            self.spatial_threshold = threshold
             self._cond.notify_all()
 
     # ---------------------------------------------------------- admission
@@ -388,9 +447,11 @@ class ContinuousBatchingScheduler:
                 # InferRequest.resolve: the engine's own decode +
                 # validation contract, run here on the admission thread
                 arrays = req.resolve()
-            # the engine stager's own bucketing: the queues agree with it
+            # the engine stager's own bucketing (with a spatial engine's
+            # H divisor): the queues agree with it
             bucket = bucket_shape(*arrays[0].shape[:2],
-                                  divis_by=self.engine.divis_by)
+                                  divis_by=self.engine.divis_by,
+                                  divis_h=self.engine.divis_h)
             admitted = InferRequest(
                 payload=req.payload, inputs=arrays, trace_id=tid)
         except Exception as e:  # noqa: BLE001 — isolated to this request
@@ -403,6 +464,35 @@ class ContinuousBatchingScheduler:
             decode_error = e
             admitted = InferRequest(
                 payload=req.payload, inputs=raise_it, trace_id=tid)
+        # pixel-aware routing: one knob read per decision. A decoded bucket
+        # above the live bar goes to the spatial sink; one between the base
+        # and a raised live bar is shed. Off (no sink), nothing here runs.
+        sink = self._spatial_sink
+        spatial_threshold = self.spatial_threshold
+        if sink is not None and spatial_threshold is not None and bucket is not None:
+            pixels = bucket[0] * bucket[1]
+            if pixels > spatial_threshold:
+                with self._cond:
+                    if gen is None:
+                        gen = self._gen
+                    stale = self._stopped or gen != self._gen
+                    if not stale:
+                        self.stats.spatial_routed += 1
+                if stale:
+                    return self._abandoned(req, tid, gen)
+                telemetry.emit("sched_spatial_route", bucket=list(bucket), pixels=pixels,
+                               threshold=spatial_threshold, tier=self._spatial_tier,
+                               trace_id=tid)
+                telemetry.inc_metric("sched_spatial_routed_total")
+                sink(SchedRequest(request=admitted, priority=int(priority),
+                                  deadline_s=rel_deadline))
+                return None
+            if pixels > self._spatial_base:
+                return self._shed_one(
+                    req, tid, "spatial", bucket=bucket, deadline_ms=rel_deadline,
+                    detail=f"megapixel band shed: {pixels} px in ({self._spatial_base}, "
+                           f"{spatial_threshold}] under the raised spatial bar",
+                    gen=gen)
         rec = _Admitted(admitted, bucket, int(priority), deadline, t_admit,
                         error=decode_error, canary=is_canary)
         shed_est: Optional[float] = None

@@ -1,6 +1,5 @@
-"""Latency-tiered multi-model serving and the confidence-gated cascade
-(PyTorch port of ``raft_stereo_tpu/runtime/tiers.py``, without the spatial
-tier, which needs several cards).
+"""Latency-tiered multi-model serving, the confidence-gated cascade and
+the spatial tier (PyTorch port of ``raft_stereo_tpu/runtime/tiers.py``).
 
 MADNet2 exists to be fast and RAFT-Stereo to be accurate; this module
 serves both from one process over the port's engine and scheduler:
@@ -8,9 +7,9 @@ serves both from one process over the port's engine and scheduler:
   * **Registry** (``ModelTier`` + ``TierSet``): N named tiers, each a model
     and the factory of its forward. ``TierSet``
     builds one ``InferenceEngine`` per tier, all on ONE device (the JAX
-    package's tiers share one mesh; the port has one card per process),
-    each with its own ``GraphCache``, and a scheduler per tier when the
-    options ask for one. ``update_variables(tier, state_dict)`` pushes
+    package's tiers share one mesh), each with its own ``GraphCache``, and
+    a scheduler per tier when the options ask for one; a spatial tier's
+    engine serves on its own device list instead. ``update_variables(tier, state_dict)`` pushes
     weights into the named tier's engine only (the online-adaptation
     path); ``request_drain`` fans out to every tier's scheduler, so
     ``ServeDrain.attach(tier_set)`` drains the whole set.
@@ -25,6 +24,13 @@ serves both from one process over the port's engine and scheduler:
     stream, and results interleave on one output queue; every request
     resolves exactly once, typed errors included. A single-tier policy
     gives that tier's engine's outputs.
+  * **Spatial tier** (``spatial_tier`` + ``SpatialServer``): RAFT-Stereo
+    with each request's rows split over a device list
+    (``parallel.mesh.spatial_mesh``; ``models/raft_stereo_spatial.py``).
+    The base tier's scheduler routes a request whose padded bucket exceeds
+    the threshold to it (``configure_spatial``); two lanes serve the base
+    tier over the incoming requests and the spatial tier over the routed
+    ones, and every request resolves exactly once.
   * **Cascade** (``CascadeServer``): every pair runs the fast tier first;
     ``photometric_confidence`` (host numpy: the mean photometric error of
     the right image warped by the fast disparity) gates it; a pair below
@@ -55,7 +61,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,14 +93,21 @@ class ModelTier:
     weights are the model's own (``update_variables`` copies into them).
     ``capture`` is False for a forward that reads a scalar back (the
     convergence exit), which runs eagerly; ``graph_key`` names what a graph
-    bakes in besides its shapes."""
+    bakes in besides its shapes.
+
+    ``num_spatial`` other than 1, or a ``devices`` list, makes a spatial
+    tier: its engine serves on ``spatial_mesh(num_spatial, devices)`` (0:
+    every device), and ``make_forward(model, devices)`` gets that list,
+    whose first device the batches are staged to."""
 
     name: str
     model: Any
-    make_forward: Callable[[Any], Callable]
+    make_forward: Callable[..., Callable]
     divis_by: int = 32
     capture: bool = True
     graph_key: Tuple = ()
+    num_spatial: int = 1
+    devices: Optional[Sequence[Any]] = None
 
 
 def raft_stereo_tier(model, iters: int, *, name: str = "quality") -> ModelTier:
@@ -110,6 +123,31 @@ def raft_stereo_tier(model, iters: int, *, name: str = "quality") -> ModelTier:
     return ModelTier(name=name, model=model, make_forward=make_forward, divis_by=32,
                      capture=model.config.converge_eps == 0,
                      graph_key=(id(model), repr(model.config), int(iters)))
+
+
+def spatial_tier(model, iters: int, *, name: str = "spatial", num_spatial: int = 0,
+                 devices: Optional[Sequence[Any]] = None) -> ModelTier:
+    """The spatial tier: ``raft_stereo_tier``'s forward with each batch's
+    rows split over ``spatial_mesh(num_spatial, devices)``
+    (``SpatialRAFTStereo``; 0: every visible card, ``[cpu]`` without one);
+    with one shard, the model's own forward. Buckets pad H to
+    ``lcm(32, shards)``."""
+    from raft_stereo_tpu_torch.models.raft_stereo_spatial import SpatialRAFTStereo
+
+    def make_forward(m, devs=None):
+        sharded = SpatialRAFTStereo(m, devs or [_model_device(m)])
+
+        def fwd(a, b):
+            return sharded(a, b, iters=iters)[1]
+
+        fwd.active_shards = sharded.active_shards
+        return fwd
+
+    return ModelTier(name=name, model=model, make_forward=make_forward, divis_by=32,
+                     capture=model.config.converge_eps == 0,
+                     graph_key=(id(model), repr(model.config), int(iters)),
+                     num_spatial=int(num_spatial),
+                     devices=None if devices is None else list(devices))
 
 
 def madnet2_tier(model, *, name: str = "fast") -> ModelTier:
@@ -143,7 +181,8 @@ class TierSet:
     (its SLO series, quality sketches and ``engine:<tier>`` blackbox
     provider), plus a continuous-batching scheduler per tier when
     ``infer.sched`` asks for one. ``device`` is the first tier's model's;
-    every tier's model must live there. ``stream_fn(name)`` is the
+    every tier's model must live there, but a spatial tier's, whose engine
+    serves on its own device list. ``stream_fn(name)`` is the
     tier's serving callable (the scheduler's ``serve`` or the engine's
     ``stream``)."""
 
@@ -164,11 +203,20 @@ class TierSet:
         self.schedulers: Dict[str, Any] = {}
         self._stream_fns: Dict[str, Callable] = {}
         for t in tiers:
-            if _model_device(t.model) != self.device:
+            devices = None
+            if t.num_spatial != 1 or t.devices is not None:
+                from raft_stereo_tpu_torch.parallel.mesh import spatial_mesh
+
+                devices = spatial_mesh(t.num_spatial, t.devices)
+                forward = t.make_forward(t.model, devices)
+            elif _model_device(t.model) != self.device:
                 raise ValueError(f"tier {t.name!r} lives on {_model_device(t.model)}, the set "
                                  f"on {self.device}: every tier serves from one device")
+            else:
+                forward = t.make_forward(t.model)
             engine = InferenceEngine(
-                t.make_forward(t.model), device=self.device, batch=infer.batch,
+                forward, device=self.device if devices is None else devices[0],
+                batch=infer.batch, spatial=devices,
                 divis_by=t.divis_by, prefetch_depth=infer.prefetch,
                 max_executables=infer.max_executables, deadline_s=infer.deadline_s,
                 retries=infer.retries, capture=t.capture, graph_key=(t.name, *t.graph_key),
@@ -574,6 +622,192 @@ class TieredServer:
             with self._lock:
                 self._t0s.clear()
                 self._dead.clear()
+
+
+# -------------------------------------------------------------- spatial
+
+
+class SpatialServer:
+    """Pixel-aware two-lane serving over a ``TierSet``.
+
+    The base tier's scheduler owns the routing decision
+    (``configure_spatial``): a request whose padded bucket H·W exceeds the
+    threshold is handed, decoded, to the spatial tier's feed instead of
+    boarding the base queues, so a megapixel pair rides the spatial tier
+    instead of the per-image circuit fallback. ``serve(requests)`` is a
+    drop-in stream: the ``spatial-base`` lane drives the base tier's
+    scheduler over the incoming requests, the ``spatial-serve`` lane the
+    spatial tier's stream over the routed feed, and results interleave on
+    one output queue. Every admitted request resolves exactly once: one
+    routed after the spatial lane ended resolves as ``TierClosedError``.
+    ``TierSet.request_drain`` fans one drain over both lanes. One serve at
+    a time per instance."""
+
+    def __init__(self, tiers: TierSet, *, base: str = "quality", spatial: str = "spatial",
+                 threshold: int = 1_000_000):
+        for name in (base, spatial):
+            if name not in tiers.tiers:
+                raise ValueError(f"SpatialServer needs tier {name!r}; the TierSet has "
+                                 f"{tiers.names}")
+        if base == spatial:
+            raise ValueError("spatial base and spatial tiers must differ")
+        base_sched = tiers.schedulers.get(base)
+        if base_sched is None:
+            raise ValueError("SpatialServer needs a scheduler-backed base tier (--sched): "
+                             "pixel-aware routing lives in the admission layer")
+        self.tiers = tiers
+        self.base = base
+        self.spatial = spatial
+        self.stats = TierStats()
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        # this serve's channels: the sink reads them under the lock, so a
+        # routed request never lands on an earlier serve's queues
+        self._feed_q: Optional["queue.Queue"] = None
+        self._out_q: Optional["queue.Queue"] = None
+        self._spatial_dead = False
+        base_sched.configure_spatial(int(threshold), self._sink, tier_name=spatial)
+        blackbox.register_provider("spatial", self.snapshot)
+
+    @property
+    def threshold(self) -> Optional[int]:
+        """The live routing bar (the base scheduler's knob)."""
+        return self.tiers.schedulers[self.base].spatial_threshold
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The two-lane ledger (blackbox, debug server); each lane's queue
+        depths are in its scheduler's own snapshot."""
+        sched = self.tiers.schedulers[self.base]
+        with self._lock:
+            return {
+                "base": self.base, "spatial": self.spatial,
+                "threshold": sched.spatial_threshold, "threshold_base": sched._spatial_base,
+                "spatial_dead": self._spatial_dead,
+                "stats": {"dispatched": dict(self.stats.dispatched),
+                          "completed": dict(self.stats.completed),
+                          "failed": dict(self.stats.failed)},
+            }
+
+    def _closed_result(self, item) -> InferResult:
+        """A routed request whose spatial lane had already ended: a typed
+        failure, counted as an SLO miss (canaries excepted)."""
+        inner = getattr(item, "request", item)
+        with self._lock:
+            self.stats.failed[self.spatial] = self.stats.failed.get(self.spatial, 0) + 1
+        if not quality.is_canary(inner.payload):
+            telemetry.observe_slo(self.spatial, None, ok=False)
+        return InferResult(
+            payload=inner.payload,
+            error=TierClosedError(f"tier {self.spatial!r} stream ended before this request "
+                                  f"was admitted"),
+            trace_id=getattr(inner, "trace_id", None))
+
+    def _sink(self, item) -> None:
+        """The base scheduler's spatial sink (on its admission thread):
+        forward one routed request to the spatial lane, or resolve it typed
+        when the lane is gone."""
+        with self._lock:
+            dead = self._spatial_dead
+            feed_q, out_q = self._feed_q, self._out_q
+        if out_q is None:
+            raise RuntimeError("SpatialServer sink called outside an active serve")
+        if dead or feed_q is None:
+            out_q.put(self._closed_result(item))
+            return
+        with self._lock:
+            self.stats.dispatched[self.spatial] = self.stats.dispatched.get(self.spatial, 0) + 1
+        feed_q.put(item)
+
+    def _guard(self, requests: Iterable[Any]) -> Iterator[Any]:
+        """The base lane's source: stops at the next item once the consumer
+        has gone."""
+        for item in requests:
+            if self._stop.is_set():
+                return
+            yield item
+
+    def _feed(self, q: "queue.Queue") -> Iterator[Any]:
+        """The spatial lane's routed feed."""
+        while True:
+            item = q.get()
+            if item is _DONE:
+                return
+            yield item
+
+    def _consume(self, name: str, source: Iterable[Any], feed_q: "queue.Queue",
+                 out_q: "queue.Queue") -> None:
+        """One lane's consumer thread. The base lane ending means admission
+        is over, so it closes the spatial feed."""
+        error: Optional[BaseException] = None
+        try:
+            for res in self.tiers.stream_fn(name)(source):
+                with self._lock:
+                    ledger = self.stats.completed if res.ok else self.stats.failed
+                    ledger[name] = ledger.get(name, 0) + 1
+                telemetry.inc_metric("tier_requests_total", tier=name,
+                                     status="completed" if res.ok else "failed")
+                out_q.put(res)
+        except BaseException as e:  # noqa: BLE001 — re-raised by serve
+            error = e
+        finally:
+            if name == self.base:
+                feed_q.put(_DONE)
+            else:
+                with self._lock:
+                    self._spatial_dead = True
+            out_q.put(_StreamEnd(name, error))
+
+    def serve(self, requests: Iterable[Any]) -> Iterator[InferResult]:
+        """Serve ``requests`` through both lanes; yield every result
+        exactly once, interleaved across lanes as they complete."""
+        feed_q: "queue.Queue" = queue.Queue()
+        out_q: "queue.Queue" = queue.Queue()
+        self._stop.clear()
+        with self._lock:
+            self._feed_q, self._out_q = feed_q, out_q
+            self._spatial_dead = False
+        lanes = [threading.Thread(target=self._consume, name="spatial-base", daemon=True,
+                                  args=(self.base, self._guard(requests), feed_q, out_q)),
+                 threading.Thread(target=self._consume, name="spatial-serve", daemon=True,
+                                  args=(self.spatial, self._feed(feed_q), feed_q, out_q))]
+        for t in lanes:
+            t.start()
+        pending_ends = 2
+        errors: List[BaseException] = []
+
+        def drain_typed():
+            # feed orphans: routed after the spatial lane died, or still
+            # queued when it ended
+            while True:
+                try:
+                    orphan = feed_q.get_nowait()
+                except queue.Empty:
+                    return
+                if orphan is not _DONE:
+                    yield self._closed_result(orphan)
+
+        try:
+            while pending_ends:
+                item = out_q.get()
+                if isinstance(item, _StreamEnd):
+                    pending_ends -= 1
+                    if item.error is not None:
+                        errors.append(item.error)
+                    if item.name == self.spatial:
+                        yield from drain_typed()
+                    continue
+                yield item
+            # the base lane may have routed into the dead spatial lane
+            # between that lane's drain and its own end
+            yield from drain_typed()
+            if errors:
+                raise errors[0]
+        finally:
+            self._stop.set()
+            with self._lock:
+                self._feed_q, self._out_q = None, None
+            for t in lanes:
+                t.join(timeout=5.0)
 
 
 # -------------------------------------------------------------- cascade

@@ -29,7 +29,8 @@ overload controller over the cascade bar, the adaptation cadence and the
 admission cap, with ``--slo_p95_ms``/``--slo_budget`` its burn sensor;
 ``--debug_port`` serves the introspection endpoints. Flags of serving
 layers the port does not have yet are refused, each naming its ROADMAP
-item. Everything runs on the CUDA card unless the caller passes
+item; ``--spatial_threshold`` is refused as the JAX CLI refuses it (MADNet2
+has no spatial tier). Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
@@ -188,7 +189,6 @@ def request_stream(args) -> Iterator[InferRequest]:
 # with the ROADMAP item that brings it.
 _LEFT_OUT = (
     ("aot_dir", "persisting compiled forwards across processes is ROADMAP queue A, item 3b"),
-    ("spatial_threshold", "spatial serving is ROADMAP queue A, item 7"),
 )
 
 
@@ -300,6 +300,10 @@ def main(argv=None, device=None):
     if args.adaptive_iters:
         raise SystemExit("serve_adaptive serves MADNet2, which has no refinement iterations: "
                          "--adaptive_iters is a RAFT-Stereo serving knob (evaluate, demo)")
+    if args.spatial_threshold is not None:
+        raise SystemExit("serve_adaptive's served model is MADNet2 (no spatial tier): "
+                         "--spatial_threshold is a RAFT-Stereo serving knob (evaluate builds "
+                         "the pixel-routed spatial tier)")
     if args.telemetry_dir is None:
         args.telemetry_dir = f"runs/{args.name}"
     if args.snapshot_dir is None:

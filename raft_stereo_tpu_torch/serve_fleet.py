@@ -70,7 +70,6 @@ FACTORY = "raft_stereo_tpu_torch.serve_fleet:build_engine"
 _LEFT_OUT = (
     ("aot_dir", "persisting compiled forwards across processes is ROADMAP queue A, item 3b: "
                 "the workers share no compiled forwards, each replica captures its own graphs"),
-    ("spatial_threshold", "spatial serving is ROADMAP queue A, item 7"),
 )
 
 
@@ -245,6 +244,10 @@ def refuse(args) -> None:
     for name, why in _LEFT_OUT:
         if getattr(args, name) is not None:
             raise SystemExit(f"serve_fleet --{name}: {why}; the port does not have it yet")
+    if args.spatial_threshold is not None:
+        raise SystemExit("serve_fleet's workers serve MADNet2 (no spatial tier): "
+                         "--spatial_threshold is a RAFT-Stereo serving knob (evaluate builds "
+                         "the pixel-routed spatial tier)")
 
 
 def main(argv=None, device=None):

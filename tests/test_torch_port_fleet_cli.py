@@ -72,7 +72,7 @@ def _router(tmp_path, n_hosts=2, factory_kw=None, **kw):
     (["--adaptive_iters"], "--adaptive_iters composes inside a worker"),
     (["--tier", "fast"], "--tier composes inside a worker"),
     (["--aot_dir", "aot"], "item 3b"),
-    (["--spatial_threshold", "5000"], "item 7"),
+    (["--spatial_threshold", "5000"], r"workers serve MADNet2 \(no spatial tier\)"),
 ], ids=["cascade", "adaptive_iters", "tier", "aot_dir", "spatial_threshold"])
 def test_cli_refusals(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
