@@ -180,8 +180,22 @@ Phases, each printing one JSON line:
      a shard), a ``SpatialServer`` stream routing the 992x1440 pairs past a
      1,000,000-pixel bar (each output bitwise its tier's engine's),
      ``evaluate --spatial_threshold``, and the 1024x1440 pair's device ms
-     and peak memory at k = 1, 2, 4. ``python3 chip_smoke.py spatial`` runs
+     and peak memory at k = 1, 2, 4; the packed encoder stage per slab
+     (raftstereo-realtime, K3 4·k launches a forward) against the unsharded
+     packed forward (bf16 at one iteration, fp32 at two), which K3 on slabs
+     with no halo row must exceed. ``python3 chip_smoke.py spatial`` runs
      the device, build, K1 check and this phase alone.
+ 17. the graph store (``runtime/aot_store.py``, ``--aot_dir``), after the
+     spatial tier (``aot_path``): ``evaluate --dataset eth3d``
+     (raftstereo-middlebury, K1), ``serve_adaptive --cascade`` (MADNet2 and
+     the 8-iteration raftstereo at 375x1242) and ``serve_fleet`` (2 MADNet2
+     workers), each run twice as a child process (``python3 chip_smoke.py
+     aot-child CLI OUT ARGV...``) on one fresh store: each second run
+     prewarms every key the first committed (``aot_store_hit``, zero
+     ``bucket_compile``) and its result and every output are bitwise the
+     first run's; engine build seconds, first-request latency cold and
+     warm, the fleet's launch-to-healthy seconds and the evaluate
+     children's K1 launches recorded.
 Then the run's total seconds, the ``kernels`` line, the ``nvidia-smi`` name/power line and, last,
 ``{"ok": true, "device": ...}``. Any failure raises and exits non-zero.
 """
@@ -5453,7 +5467,8 @@ def phase_controller_path(tmp: Path):
         """One batch straight through the quality tier's engine, on this
         (the consumer's) thread before the first chunk is served: its
         graph is captured, and its results observed, before any traffic.
-        Its wall ms is what a first escalation would wait (ROADMAP queue C)."""
+        Its wall ms is what a first escalation would wait on a first start
+        with an empty graph store (``aot_path`` measures a prewarmed one)."""
         quality = serve_adaptive.last_cascade().tiers.engine("quality")
         pair = serve_adaptive.synthetic_frame(SEED, *args.synthetic_size)
         warm = [InferRequest(payload=f"warm{k}", inputs=pair) for k in range(args.infer_batch)]
@@ -6036,6 +6051,12 @@ def phase_spatial_path(tmp: Path):
         output bitwise the spatial engine's for the same input and each
         other the quality engine's), and ``evaluate --spatial_threshold``
         on the synthetic ETH3D tree (one shard on one card);
+      * the packed encoder stage per slab (K3, ``_ENABLE_PACKED``) with the
+        raftstereo-realtime preset at 544x960: bf16 at one iteration within
+        ENGINE_PER_IMAGE_TOL of the unsharded packed forward, fp32 at two
+        within PARITY_ATOL_*, which K3 on slabs with no halo row
+        (``K3_HALO_ROWS`` 0) must exceed; on the path, the sharded packed
+        forward at 7 iterations at k = 2 and 4 (K3 4·k launches a forward);
       * reported only: the 1024x1440 pair at k = 1, 2 and 4, 32 iterations:
         device ms of its captured forward (CUDA events around replays), ms
         eager (host launches included) and the eager run's peak memory."""
@@ -6047,7 +6068,8 @@ def phase_spatial_path(tmp: Path):
     from raft_stereo_tpu_torch import evaluate
     from raft_stereo_tpu_torch.config import PRESETS
     from raft_stereo_tpu_torch.evaluate import load_model
-    from raft_stereo_tpu_torch.models import raft_stereo_spatial
+    from raft_stereo_tpu_torch.experiments import packed_conv
+    from raft_stereo_tpu_torch.models import extractor, raft_stereo_spatial
     from raft_stereo_tpu_torch.models.raft_stereo_spatial import SpatialRAFTStereo
     from raft_stereo_tpu_torch.ops import alt_corr, fused_update
     from raft_stereo_tpu_torch.ops.pad import InputPadder
@@ -6108,6 +6130,35 @@ def phase_spatial_path(tmp: Path):
                     raft_stereo_spatial.K2_HALO_ROWS = saved_rows
             del m32, want32
 
+    # the packed stage per slab, on the realtime preset
+    rt_cfg = PRESETS["raftstereo-realtime"]
+    rt_model = load_model(rt_cfg, device=dev, seed=SEED)
+    saved_packed = extractor._ENABLE_PACKED
+    extractor._ENABLE_PACKED = True
+    packed_fp32 = {}
+    try:
+        with _launches_kept(), torch.no_grad():
+            rt_ref = rt_model(a, b, iters=1)[1]
+            packed_parity = {f"k{k}": diff(SpatialRAFTStereo(rt_model, [dev] * k)(
+                a, b, iters=1)[1], rt_ref) for k in SPATIAL_K}
+        with _fp32_checks(), torch.no_grad():
+            m32 = load_model(dataclasses.replace(rt_cfg, mixed_precision=False), device=dev,
+                             seed=SEED)
+            want32 = m32(a, b, iters=2)
+            for k in SPATIAL_K:
+                packed_fp32[f"k{k}"] = fp32_errors(
+                    SpatialRAFTStereo(m32, [dev] * k)(a, b, iters=2), want32)
+            saved_rows = raft_stereo_spatial.K3_HALO_ROWS
+            raft_stereo_spatial.K3_HALO_ROWS = 0
+            try:
+                packed_fp32["k3_planted_no_halo_k2"] = fp32_errors(
+                    SpatialRAFTStereo(m32, [dev] * 2)(a, b, iters=2), want32)
+            finally:
+                raft_stereo_spatial.K3_HALO_ROWS = saved_rows
+            del m32, want32
+    finally:
+        extractor._ENABLE_PACKED = saved_packed
+
     _zero_launches()
     k2_before = fused_update.LAUNCHES
     fused_out = SpatialRAFTStereo(fused_model, [dev] * 2)(a, b, iters=2)[1]
@@ -6119,6 +6170,16 @@ def phase_spatial_path(tmp: Path):
         out = SpatialRAFTStereo(model, [dev] * k)(a, b, iters=32)[1]
         k1_a_pair[f"k{k}"] = alt_corr.LAUNCHES - before
         finite = finite and bool(torch.isfinite(out).all())
+    k3_a_forward = {}
+    extractor._ENABLE_PACKED = True
+    try:
+        for k in SPATIAL_K:
+            before = packed_conv.LAUNCHES
+            out = SpatialRAFTStereo(rt_model, [dev] * k)(a, b, iters=7)[1]
+            k3_a_forward[f"k{k}"] = packed_conv.LAUNCHES - before
+            finite = finite and bool(torch.isfinite(out).all())
+    finally:
+        extractor._ENABLE_PACKED = saved_packed
 
     ts = tiers_mod.TierSet(
         [tiers_mod.raft_stereo_tier(model, 32),
@@ -6193,7 +6254,10 @@ def phase_spatial_path(tmp: Path):
            "planted_short_halo_1_iter": planted, "tol": ENGINE_PER_IMAGE_TOL,
            "fp32_2_iter_of_limit": fp32,
            "fused_bf16_2_iter": {"k": 2, "k2_launches": fused_k2, "parity": fused_parity},
-           "k1_launches_a_pair_32_iters": k1_a_pair, "routing": routing,
+           "k1_launches_a_pair_32_iters": k1_a_pair,
+           "packed_realtime": {"bf16_1_iter": packed_parity, "fp32_2_iter_of_limit": packed_fp32,
+                               "k3_launches_a_forward_7_iters": k3_a_forward},
+           "routing": routing,
            "evaluate_cli": {"argv": argv, "metrics": cli_metrics, "spatial_routed": cli_routed},
            "timing_1024x1440_32_iters": {"megapixels": mp, **timing},
            "k1_slab_check": "kernel_check spatial_slab_k2_544x960",
@@ -6217,9 +6281,249 @@ def phase_spatial_path(tmp: Path):
         fails.append("routing")
     if cli_routed != 4 or not all(math.isfinite(v) for v in cli_metrics.values()):
         fails.append("evaluate --spatial_threshold")
+    if not all(within(st) for st in packed_parity.values()):
+        fails.append("the packed stage's parity at 1 iteration")
+    if any(v > 1 for n, v in packed_fp32.items() if "planted" not in n):
+        fails.append("the packed stage's fp32 parity at 2 iterations")
+    if packed_fp32["k3_planted_no_halo_k2"] <= 1:
+        fails.append("K3 on slabs with no halo row passes the limit")
+    if any(n != 4 * int(k[1:]) for k, n in k3_a_forward.items()):
+        fails.append("K3 launches a forward")
     if fails:
         raise AssertionError(f"spatial_path: {fails}")
     return res
+
+
+# ------------------------------------------------------------ the graph store
+
+AOT_CHILD_TIMEOUT_S = 300.0
+# each CLI twice on one fresh --aot_dir: (name, cwd from tmp, argv)
+AOT_EVAL_ARGV = ["--dataset", "eth3d", "--preset", "raftstereo-middlebury",
+                 "--valid_iters", "32"]
+# controller_path's configuration without the controller and the scheduler
+# (whose timing-driven groups are not the store's to hold), and frozen
+# weights: every escalation is served and every output compared
+AOT_CASCADE_ARGV = ["--source", "synthetic", "--synthetic_size", "375", "1242",
+                    "--infer_batch", "2", "--cascade", "--cascade_threshold", "0.99",
+                    "--quality_iters", "8", "--no_adapt", "--num_requests", "8"]
+AOT_FLEET_ARGV = FLEET_CLI_ARGV + ["--num_requests", "16"]
+
+
+def aot_child_main(cli: str, out: str, argv) -> int:
+    """``python3 chip_smoke.py aot-child CLI OUT ARGV...``: one run of
+    ``raft_stereo_tpu_torch.<CLI>.main(ARGV)`` in this process (an
+    ``aot_path`` child), which writes to OUT and prints one JSON line: the
+    result (metrics or summary), every served output's sha256 by engine
+    tier and payload (the fleet's router: by payload), each engine's build
+    seconds (its prewarm included), prewarmed keys, captures and first
+    request's end-to-end seconds, and the kernel launches (the counters:
+    warm-ups, captures, eager; plus each graph's launches x replays)."""
+    import hashlib
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from raft_stereo_tpu_torch.runtime import infer
+    from raft_stereo_tpu_torch.runtime.fleet import FleetRouter
+
+    mod = importlib.import_module(f"raft_stereo_tpu_torch.{cli}")
+    engines, digests, first_e2e, snaps = [], {}, {}, []
+
+    def digest(x):
+        return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()[:16]
+
+    init = infer.InferenceEngine.__init__
+
+    def timed_init(self, *a, **kw):
+        t0 = time.perf_counter()
+        init(self, *a, **kw)
+        engines.append((self, time.perf_counter() - t0))
+
+    finalize = infer.InferenceEngine._finalize
+
+    def recorded_finalize(self, dispatched):
+        for r in finalize(self, dispatched):
+            if r.ok:
+                digests[f"{self.tier_label}:{r.payload}"] = digest(r.output)
+            yield r
+
+    observe = infer.InferStats.observe_latency
+
+    def first_observed(self, component, label, seconds):
+        if component == "e2e":
+            first_e2e.setdefault(id(self), seconds)
+        observe(self, component, label, seconds)
+
+    serve = FleetRouter.serve
+
+    def recorded_serve(self, requests):
+        for r in serve(self, requests):
+            if r.ok:
+                digests[f"fleet:{r.payload}"] = digest(r.output)
+            yield r
+        snaps.append(self.snapshot())
+
+    infer.InferenceEngine.__init__ = timed_init
+    infer.InferenceEngine._finalize = recorded_finalize
+    infer.InferStats.observe_latency = first_observed
+    FleetRouter.serve = recorded_serve
+    t0 = time.perf_counter()
+    result = mod.main(list(argv))
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replayed = {k: 0 for k in infer.kernel_launches()}
+    for eng, _ in engines:
+        for k, n in eng.graphs.replayed_launches.items():
+            replayed[k] += n
+    doc = {"cli": cli, "argv": list(argv), "wall_s": wall,
+           "result": result if isinstance(result, dict) else None,
+           "digests": digests,
+           "engines": [{"tier": e.tier_label, "build_s": dt, "prewarmed": e.stats.prewarmed,
+                        "compiles": e.stats.compiles, "captures": e.graphs.captures,
+                        "first_e2e_s": first_e2e.get(id(e.stats)),
+                        "store": e.snapshot()["aot_store"]} for e, dt in engines],
+           "launches": infer.kernel_launches(), "replayed_launches": replayed,
+           "fleet_hosts": snaps[-1]["hosts"] if snaps else None}
+    line = json.dumps(doc, default=str)
+    Path(out).write_text(line)
+    print("aot-child " + line, flush=True)
+    return 0
+
+
+def _aot_child(cli: str, root: Path, out: Path, argv) -> dict:
+    """One ``aot-child`` process in ``root`` (the process group killed on a
+    timeout); its JSON document."""
+    import os
+    import signal
+
+    env = dict(os.environ)
+    repo = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, str(Path(__file__).resolve()), "aot-child", cli, str(out), *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=AOT_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, err = proc.communicate()
+        raise AssertionError(f"aot_path: {cli} ran past {AOT_CHILD_TIMEOUT_S:.0f}s: "
+                             f"{err[-4000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"aot_path: {cli} exit {proc.returncode}: {err[-4000:]}")
+    doc = json.loads(out.read_text())
+    doc["process_s"] = time.perf_counter() - t0
+    return doc
+
+
+def _store_events(run_dirs) -> dict:
+    """Counts of the store's and the compiles' events over run directories
+    (every ``events.jsonl`` under each)."""
+    counts = {}
+    for d in run_dirs:
+        for p in Path(d).rglob("events.jsonl"):
+            for e in _events_of(p.parent):
+                if e["event"].startswith("aot_store") or e["event"] == "bucket_compile":
+                    counts[e["event"]] = counts.get(e["event"], 0) + 1
+    return counts
+
+
+def phase_aot_path(tmp: Path):
+    """The persistent graph store (``runtime/aot_store.py``, ``--aot_dir``):
+    three CLIs, each run twice as a child process on one fresh store:
+    ``evaluate --dataset eth3d`` (raftstereo-middlebury, bf16, alt: K1) on
+    the synthetic ETH3D tree, ``serve_adaptive --cascade`` (the
+    controller_path's model configuration: MADNet2 and the 8-iteration
+    raftstereo at 375x1242, batch 2) and ``serve_fleet`` (2 MADNet2 workers,
+    16 requests). On each second run: an ``aot_store_hit`` for every key
+    the first committed (the fleet: in each worker), zero
+    ``bucket_compile``, and the result and every output bitwise the first
+    run's. Recorded: each engine's build seconds with its prewarm, the
+    first request's end-to-end seconds cold and warm (the cascade's: the
+    quality tier's first escalated batch), the fleet's launch-to-healthy
+    seconds, and K1's launches in the evaluate children (their logs)."""
+    t_phase = time.perf_counter()
+    base = tmp / "aot"
+    base.mkdir()
+    eth3d = _eth3d_tree(tmp)
+    runs, fails = {}, []
+    for cli, cwd, argv, tel_flag in (
+            ("evaluate", eth3d, AOT_EVAL_ARGV, True),
+            ("serve_adaptive", base, AOT_CASCADE_ARGV, False),
+            ("serve_fleet", base, AOT_FLEET_ARGV, False)):
+        store = base / f"store_{cli}"
+        pair = []
+        for turn in ("cold", "warm"):
+            tel = base / f"{cli}_{turn}"
+            extra = ["--aot_dir", str(store), "--telemetry_dir", str(tel)]
+            if not tel_flag:
+                extra += ["--name", f"{cli}_{turn}"]
+            doc = _aot_child(cli, cwd, base / f"{cli}_{turn}.json", argv + extra)
+            doc["events"] = _store_events([tel])
+            doc["store_entries"] = sum(1 for p in store.iterdir()
+                                       if p.name.endswith(".manifest.json"))
+            pair.append(doc)
+        cold, warm = pair
+        keys = cold["store_entries"]
+        by_host = None
+        if cli == "serve_fleet":
+            by_host = {h.name: _store_events([h]) for h in
+                       sorted((base / f"{cli}_warm" / "fleet").glob("host*")) if h.is_dir()}
+            hits_ok = len(by_host) == 2 and all(
+                ev.get("aot_store_hit", 0) == keys for ev in by_host.values())
+        else:
+            hits_ok = warm["events"].get("aot_store_hit", 0) == keys
+        same_result = cold["result"] == warm["result"] if cli != "serve_fleet" else (
+            (cold["result"]["served"], cold["result"]["failed"])
+            == (warm["result"]["served"], warm["result"]["failed"]))
+        report = {
+            "keys_committed": keys, "events": {"cold": cold["events"], "warm": warm["events"]},
+            "warm_hits_by_host": by_host, "hits_every_key": hits_ok,
+            "result_equal": same_result,
+            "outputs": {"compared": len(cold["digests"]),
+                        "bitwise_equal": sum(warm["digests"].get(k) == v
+                                             for k, v in cold["digests"].items()),
+                        "keys_match": sorted(cold["digests"]) == sorted(warm["digests"])},
+            "engines": {"cold": cold["engines"], "warm": warm["engines"]},
+            "process_s": {"cold": cold["process_s"], "warm": warm["process_s"]},
+            "wall_s": {"cold": cold["wall_s"], "warm": warm["wall_s"]},
+        }
+        if cli == "evaluate":
+            report["metrics"] = warm["result"]
+            report["k1_launches"] = {t: {"counted": d["launches"]["alt_corr"],
+                                         "replayed": d["replayed_launches"]["alt_corr"]}
+                                     for t, d in (("cold", cold), ("warm", warm))}
+        if cli == "serve_fleet":
+            report["ready_s"] = {t: {h: v.get("ready_s") for h, v in d["fleet_hosts"].items()}
+                                 for t, d in (("cold", cold), ("warm", warm))}
+            report["summary_served"] = warm["result"]["served"]
+        runs[cli] = report
+        if keys < 1 or not hits_ok or warm["events"].get("bucket_compile", 0) \
+                or not same_result or report["outputs"]["bitwise_equal"] != len(cold["digests"]) \
+                or not report["outputs"]["keys_match"] or not cold["digests"]:
+            fails.append(cli)
+    ev = runs["evaluate"]
+    warm_eval = _aot_child_launches(base / "evaluate_warm.json")
+    res = {"phase": "aot_path", "entry": "--aot_dir of evaluate, serve_adaptive, serve_fleet",
+           "argv": {"evaluate": AOT_EVAL_ARGV, "serve_adaptive": AOT_CASCADE_ARGV,
+                    "serve_fleet": AOT_FLEET_ARGV},
+           "runs": runs, "k1_launches_evaluate": ev["k1_launches"],
+           "launches": warm_eval, "seconds": time.perf_counter() - t_phase,
+           "card": smi_line()}
+    emit(res)
+    if fails:
+        raise AssertionError(f"aot_path: {fails}")
+    return res
+
+
+def _aot_child_launches(path: Path) -> dict:
+    """A child's launches: the counters plus each graph's launches x
+    replays."""
+    doc = json.loads(path.read_text())
+    return {k: n + doc["replayed_launches"][k] for k, n in doc["launches"].items()}
 
 
 # The kernels each main path must launch.
@@ -6256,8 +6560,11 @@ PATH_KERNELS = {
     # the fleet's workers are other processes: their counters are not read
     # here (MADNet2 runs none of K1-K3)
     "fleet_path": (),
-    # K1 on every lookup of every shard, K2 a shard in the fused variant
-    "spatial_path": ("alt_corr", "fused_update"),
+    # K1 on every lookup of every shard, K2 a shard in the fused variant,
+    # K3 on every slab of the packed stage
+    "spatial_path": ("alt_corr", "fused_update", "packed_conv"),
+    # the evaluate child's second (prewarmed) run, read from its log
+    "aot_path": ("alt_corr",),
 }
 
 
@@ -6327,6 +6634,7 @@ def main() -> int:
                   phase_controller_path(Path(tmp))]
         emit({"phase": "composition_total", "seconds": time.perf_counter() - t_comp})
         paths.append(phase_spatial_path(Path(tmp)))
+        paths.append(phase_aot_path(Path(tmp)))
         paths.append(phase_fleet_path(Path(tmp)))
     # every phase's counters were read here but the fleet's (its workers')
     uncounted = [r["phase"] for r in paths if not isinstance(r["launches"], dict)]
@@ -6450,6 +6758,8 @@ def spatial_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["ddp-rank"]:
         sys.exit(ddp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["aot-child"]:
+        sys.exit(aot_child_main(sys.argv[2], sys.argv[3], sys.argv[4:]))
     if sys.argv[1:2] == ["spatial"]:
         sys.exit(spatial_main())
     sys.exit(main())

@@ -165,7 +165,9 @@ def make_engine(model: RAFTStereo, iters: int, infer: InferOptions) -> Inference
         capture=model.config.converge_eps == 0,
         # what a graph bakes in besides its shapes: the model (its weights'
         # addresses) and the iteration count
-        graph_key=(id(model), repr(model.config), int(iters)), module=model)
+        graph_key=(id(model), repr(model.config), int(iters)), module=model,
+        # the store key's: the same, stable across processes (no id())
+        aot_dir=infer.aot_dir, aot_key_extra={"model": repr(model.config), "iters": int(iters)})
 
 
 def make_adaptive_forward(model: RAFTStereo, iters: int, video: bool = False) -> Callable:
@@ -244,7 +246,8 @@ def _adaptive_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=
             graph_key=(id(model), repr(model.config), counts[0], video),
             # frame t+1 cannot exist before result t: the held dispatch must
             # finalise on an empty stager queue, or the session deadlocks
-            eager_finalize=video, module=model)
+            eager_finalize=video, module=model, aot_dir=infer.aot_dir,
+            aot_key_extra={"model": repr(model.config), "iters": counts[0], "video": video})
         sched = make_scheduler(engine, infer)
         stream = make_stream(engine, infer, scheduler=sched)
         if drain is not None:
@@ -256,7 +259,10 @@ def _adaptive_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=
                 name=tiers_mod.iter_tier_name(it), model=model,
                 make_forward=lambda m, it=it: make_adaptive_forward(m, it, video),
                 capture=capture,
-                graph_key=(id(model), repr(model.config), int(it), video))
+                graph_key=(id(model), repr(model.config), int(it), video),
+                # with the tier's name, iteration tiers sharing one
+                # --aot_dir get disjoint store keys
+                aot_extra={"model": repr(model.config), "iters": int(it), "video": video})
              for it in counts], infer)
         if drain is not None:
             drain.attach(ts)

@@ -90,7 +90,10 @@ def make_mad_engine(model: torch.nn.Module, fusion: bool = False,
         # addresses) and the variant
         graph_key=(id(model), "model", type(model).__name__,
                    model.mixed_precision, "fusion", bool(fusion)),
-        module=model)
+        module=model, aot_dir=infer.aot_dir,
+        # the store key's: the same, stable across processes (no id())
+        aot_key_extra={"model": type(model).__name__,
+                       "mixed_precision": bool(model.mixed_precision), "fusion": bool(fusion)})
 
 
 def validate_things_mad(model: torch.nn.Module, fusion: bool = False, log_dir: str = "runs",

@@ -35,10 +35,15 @@ PACKED_NORMS = ("batch", "instance", "none")
 
 def packable(x: torch.Tensor, norm_fn: str, stem_stride: int) -> bool:
     """The JAX package's gate (``models/extractor.py:69-85``) for an NCHW
-    trunk input: a norm with a packed variant, H and W divisible by twice
-    the stem stride, and layer1's geometry within the crossover and the
-    TPU kernel's band rule."""
-    H, W = x.shape[-2:]
+    trunk input: ``packable_hw`` at its H and W."""
+    return packable_hw(*x.shape[-2:], norm_fn, stem_stride)
+
+
+def packable_hw(H: int, W: int, norm_fn: str, stem_stride: int) -> bool:
+    """The gate at an H x W trunk input: a norm with a packed variant, H and
+    W divisible by twice the stem stride, and layer1's geometry within the
+    crossover and the TPU kernel's band rule. The spatial tier asks it at
+    the whole image's H, as the JAX gate sees the global array."""
     h1 = H // stem_stride
     w2 = W // (2 * stem_stride)
     return (
@@ -50,7 +55,7 @@ def packable(x: torch.Tensor, norm_fn: str, stem_stride: int) -> bool:
     )
 
 
-def _conv(conv, x: torch.Tensor) -> torch.Tensor:
+def conv3x3(conv, x: torch.Tensor) -> torch.Tensor:
     """``conv`` (3x3, 64 → 64) on channels-last NCHW-shaped ``x`` through
     K3, then the bias added in x's dtype, as the JAX package's
     ``PackedConv3x3`` adds it (a second rounding in bf16). Each conv runs
@@ -65,8 +70,8 @@ def _conv(conv, x: torch.Tensor) -> torch.Tensor:
 def _block(block, x: torch.Tensor) -> torch.Tensor:
     """A stride-1 64 → 64 ``ResidualBlock`` (no shortcut conv) on the
     packed stage's layout."""
-    y = block.relu(block.norm1(_conv(block.conv1, x)))
-    y = block.relu(block.norm2(_conv(block.conv2, y)))
+    y = block.relu(block.norm1(conv3x3(block.conv1, x)))
+    y = block.relu(block.norm2(conv3x3(block.conv2, y)))
     return block.relu(x + y)
 
 

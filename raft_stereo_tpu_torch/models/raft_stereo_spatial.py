@@ -17,6 +17,16 @@ since correlation never mixes rows.
 With ``fused_update`` each slab runs K2 (``ops.fused_update.
 fused_refine_step``) on itself extended by ``K2_HALO_ROWS`` rows of every
 input taken from its neighbours, and keeps its own rows of the result.
+
+With the packed encoder stage on (``models.extractor._ENABLE_PACKED``) a
+trunk whose whole-image geometry passes ``packed_encoder.packable_hw`` (the
+gate sees the global H, as the JAX gate sees the global array, so sharded
+and unsharded forwards take the same path) runs its stem through the
+sharded stock conv, its norms with global moments, and each of layer1's
+four 3x3 convs as K3 (``packed_encoder.conv3x3``) on each slab extended by
+``K3_HALO_ROWS`` rows above and below (zeros at the global ends), the
+extension cropped away: 4·k K3 launches a trunk on k active shards. A slab
+geometry K3 refuses raises, naming the slab.
 With ``converge_eps`` the loop stops on the largest per-sample mean
 |delta| over the whole image, summed across the shards.
 
@@ -34,6 +44,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from raft_stereo_tpu_torch.experiments import packed_encoder
 from raft_stereo_tpu_torch.models import extractor
 from raft_stereo_tpu_torch.models.layers import GroupNorm, InstanceNorm
 from raft_stereo_tpu_torch.models.raft_stereo import TWO_CALL_FNET_PIXELS, RAFTStereo
@@ -55,6 +66,11 @@ from raft_stereo_tpu_torch.parallel.mesh import indexed_device
 # and the kernel's zero padding is the image's.
 K2_HALO_ROWS = 9
 
+# Rows of its input a 3x3 SAME conv's output rows depend on, on either side:
+# K3 on a slab extended by one row above and below gets the slab's own rows
+# exactly, and its zero padding corrupts only the extension's rows.
+K3_HALO_ROWS = 1
+
 
 def _each(fn, *sharded) -> List[torch.Tensor]:
     """``fn`` slab by slab."""
@@ -71,9 +87,12 @@ def _cat(parts, dim: int = 1):
 
 class SpatialRAFTStereo:
     """A RAFT-Stereo model's test-mode forward over row slabs on
-    ``devices`` (see the module docstring). The copies on devices other
-    than the model's are made here: weights changed in the model later
-    reach them only through a new ``SpatialRAFTStereo``."""
+    ``devices`` (see the module docstring), with every option of the
+    model's forward: both correlation backends (K1 per slab for ``alt``),
+    the fused step (K2 per slab), the packed encoder stage (K3 per slab)
+    and the convergence exit. The copies on devices other than the model's
+    are made here: weights changed in the model later reach them only
+    through a new ``SpatialRAFTStereo``."""
 
     def __init__(self, model: RAFTStereo, devices: Sequence):
         if not devices:
@@ -130,10 +149,35 @@ class SpatialRAFTStereo:
         return x
 
     def _trunk(self, x, enc):
+        H, W = sum(t.shape[2] for t in x), x[0].shape[3]
         x = _relu(self._norm(self._conv(x, enc.conv1), enc.norm1))
-        for layer in (enc.layer1, enc.layer2, enc.layer3):
+        if extractor._ENABLE_PACKED and packed_encoder.packable_hw(H, W, enc.norm_fn,
+                                                                   enc.conv1.stride[0]):
+            for blk in enc.layer1:  # stride 1, 64 -> 64, no shortcut conv
+                y = _relu(self._norm(self._k3(x, blk.conv1), blk.norm1))
+                y = _relu(self._norm(self._k3(y, blk.conv2), blk.norm2))
+                x = _relu(_each(torch.add, x, y))
+        else:
+            x = self._layer(x, enc.layer1)
+        for layer in (enc.layer2, enc.layer3):
             x = self._layer(x, layer)
         return x
+
+    def _k3(self, x, m):
+        """One of layer1's 3x3 convs as K3 on each slab extended by
+        ``K3_HALO_ROWS`` rows above and below, cropped back to the slab's
+        rows (``spatial.conv2d``'s rule with ``packed_encoder.conv3x3`` in
+        place of the stock conv)."""
+        R = K3_HALO_ROWS
+        out = []
+        for t, ext, mod in zip(x, spatial.halo(x, R, R), self._local(m)):
+            try:
+                y = packed_encoder.conv3x3(mod, ext.contiguous(memory_format=torch.channels_last))
+            except (ValueError, TypeError) as e:
+                raise ValueError(f"K3 cannot take the slab {tuple(ext.shape)} (NCHW, its "
+                                 f"{R}-row halo included): {e}") from e
+            out.append(y[:, :, R:R + t.shape[2]])
+        return out
 
     def _head(self, x, head):
         """``Sequential(ResidualBlock, conv)``."""
@@ -333,9 +377,6 @@ class SpatialRAFTStereo:
             model = self._copies[dev0]
             return model(image1.to(dev0), image2.to(dev0), iters=iters,
                          flow_init=None if flow_init is None else flow_init.to(dev0))
-        if extractor._ENABLE_PACKED:
-            raise ValueError("the packed encoder stage (K3) does not run under spatial "
-                             "sharding; it is ROADMAP queue A, item 11")
         self._active = self.devices[:n_active]
         cfg = self.config
         dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32

@@ -14,8 +14,11 @@ spawns N *worker* processes (``python -m raft_stereo_tpu_torch.runtime.fleet
 stack: engine built from a declared factory (``"module:function"``),
 ``ContinuousBatchingScheduler``, optional ``SessionServer``, a
 ``DebugServer`` on an ephemeral port, and its own telemetry directory.
-Several workers may share one card; each captures its own CUDA graphs on
-first use (the port has no graph store to share them, ROADMAP A.3b).
+Several workers may share one card, each capturing its own CUDA graphs.
+All workers share one ``--aot_dir``: the graph store's recipes
+(``runtime/aot_store.py``) that one worker commits, every worker of a
+later fleet captures while its engine is built, and a worker reports
+healthy only once its engine is built.
 Requests and results move over a loopback TCP connection per host
 (length-prefixed pickle frames carrying numpy arrays on the host, never
 torch tensors, so the JAX package's frames read the same); health moves

@@ -65,6 +65,21 @@ the JAX engine pads a spatial mesh's buckets; with one shard that is
 one device the forward is captured as any other; with shards on several
 cards it runs eagerly, since one CUDA graph holds one device's work.
 
+**The graph store** (``aot_dir``, ``runtime/aot_store.py``; the JAX
+engine's persistent executable store). After each new key's ``_compile``
+on the serving path the engine commits the key's capture recipe
+(store-through, best-effort). An engine built on a populated store lists
+the entries of its own identity (``store_identity``) and, newest first and
+at most ``max_executables`` of them, captures each on zero-filled static
+inputs through the same path as a first batch, before the constructor
+returns (``_prewarm``): a prewarmed key emits ``aot_store_hit``, no
+``bucket_compile``, and counts in ``stats.prewarmed``, never in
+``stats.compiles``. A prewarm that raises leaves the entry on disk and the
+key to compile on first use. The store key holds only process-stable
+fields: never ``graph_key``, which holds ``id(model)``, and never a repr
+with an address (``_forward_signature`` walks bytecode). A key that an OOM
+halving captures (``_run_degraded``) is not stored.
+
 **Serving hooks.** ``eager_finalize`` finalises the held dispatch as soon
 as the stager queue is empty (a video session's next frame depends on this
 result); ``idle_watchdog=False`` keeps the deadline on device waits but lets
@@ -536,6 +551,7 @@ class InferStats:
     stream_s: float = 0.0       # wall time inside stream(), captures included
     compile_s: float = 0.0      # new keys: warm-up and capture (CPU: first use)
     compiles: int = 0
+    prewarmed: int = 0       # keys captured from the graph store at construction
     underruns: int = 0
     retries: int = 0         # compile and dispatch retry attempts
     degraded: int = 0        # batches served by halving or the per-image path
@@ -704,7 +720,10 @@ class InferenceEngine:
     ``module`` is the ``nn.Module`` whose weights ``forward_fn`` reads,
     which ``update_variables`` swaps. ``spatial`` is the spatial tier's
     device list (see the module docstring), the first of which is
-    ``device``.
+    ``device``. ``aot_dir`` is the graph store's directory and
+    ``aot_key_extra`` what else its keys must tell apart (the model's
+    architecture and iterations: process-stable values only; see the
+    module docstring).
     """
 
     def __init__(self, forward_fn: Callable[..., torch.Tensor], *, device,
@@ -713,7 +732,8 @@ class InferenceEngine:
                  graph_key: Tuple = (), retries: int = 2, retry_backoff_s: float = 0.05,
                  eager_finalize: bool = False, idle_watchdog: bool = True,
                  tier: str = "serving", module: Optional[torch.nn.Module] = None,
-                 divis_by: int = 32, spatial: Optional[List[torch.device]] = None):
+                 divis_by: int = 32, spatial: Optional[List[torch.device]] = None,
+                 aot_dir: Optional[str] = None, aot_key_extra: Optional[Dict[str, Any]] = None):
         if batch < 1:
             raise ValueError("InferenceEngine batch must be >= 1")
         if prefetch_depth < 1:
@@ -754,12 +774,25 @@ class InferenceEngine:
         self.idle_watchdog = bool(idle_watchdog)
         self.tier_label = str(tier)
         self.module = module
+        # the graph store: ``is not None`` below, since an empty store is
+        # falsy (it has __len__)
+        self.aot_store = None
+        self._aot_extra = dict(aot_key_extra or {})
+        self._var_sig: Optional[str] = None
+        self._fn_sig: Optional[str] = None
+        if aot_dir:
+            from raft_stereo_tpu_torch.runtime.aot_store import AOTStore
+
+            self.aot_store = AOTStore(aot_dir)
         blackbox.register_provider(f"engine:{self.tier_label}", self.snapshot)
+        if self.aot_store is not None:
+            self._prewarm()
 
     def snapshot(self) -> Dict[str, Any]:
         """An introspection view (the blackbox provider): the degradation
         memory and the counts, read best-effort from the dump thread."""
         s = self.stats
+        store = self.aot_store
         active = getattr(self.forward_fn, "active_shards", None)
         return {
             "tier": self.tier_label, "batch": self.batch, "deadline_s": self.deadline_s,
@@ -774,10 +807,14 @@ class InferenceEngine:
             "bucket_caps": {f"{b[0]}x{b[1]}": c for b, c in dict(self._bucket_cap).items()},
             "stats": {"images": s.images, "batches": s.batches,
                       "padded_slots": s.padded_slots, "compiles": s.compiles,
+                      "prewarmed": s.prewarmed,
                       "failed": s.failed, "retries": s.retries, "degraded": s.degraded,
                       "watchdog_trips": s.watchdog_trips, "circuits_open": s.circuits_open,
                       "underruns": s.underruns},
             "buckets": {f"{b[0]}x{b[1]}": n for b, n in dict(s.buckets).items()},
+            "aot_store": None if store is None else {
+                "root": store.root, "hits": store.hits, "misses": store.misses,
+                "rejects": store.rejects, "stores": store.stores},
         }
 
     def update_variables(self, state_dict: Dict[str, Any]) -> None:
@@ -814,18 +851,23 @@ class InferenceEngine:
     def _is_compiled(self, key) -> bool:
         return key in self.graphs if self.capture else key in self._compiled
 
+    def _build(self, key, arrays) -> None:
+        """A new key's "compile": on the card, its warm-up and capture into
+        the ``GraphCache``; eagerly, the mark that its first use is past.
+        Raises what it raises."""
+        if self.capture:
+            self.graphs.get(key, self.forward_fn,
+                            tuple(torch.from_numpy(a).pin_memory() for a in arrays))
+        else:
+            faultinject.infer_compile_point(key)
+            self._compiled.add(key)
+
     def _compile(self, key, arrays, trace_ids=None) -> None:
-        """Compile a new key: on the card, its warm-up and capture into the
-        ``GraphCache``; eagerly, its first use. Raises what the compile
-        raises."""
+        """Compile a new key (``_build``) and account for it
+        (``bucket_compile``). Raises what the compile raises."""
         t0 = time.perf_counter()
         with telemetry.span("bucket_compile", trace_ids=_span_ids(trace_ids)):
-            if self.capture:
-                self.graphs.get(key, self.forward_fn,
-                                tuple(torch.from_numpy(a).pin_memory() for a in arrays))
-            else:
-                faultinject.infer_compile_point(key)
-                self._compiled.add(key)
+            self._build(key, arrays)
         dt = time.perf_counter() - t0
         self.stats.compile_s += dt
         self.stats.compiles += 1
@@ -841,6 +883,9 @@ class InferenceEngine:
         retry budget opens the bucket's circuit and returns None."""
         key = self._key(staged.bucket, staged.arrays)
         if not self._is_compiled(key):
+            if self.aot_store is not None:
+                # not prewarmed: compiled here and stored through below
+                self.aot_store.note_miss(self._store_key(staged.bucket, staged.arrays))
             last: Optional[BaseException] = None
             for attempt in range(self.retries + 1):
                 if attempt:
@@ -857,7 +902,123 @@ class InferenceEngine:
             else:
                 self._open_circuit(staged.bucket, "compile", last, staged.trace_ids)
                 return None
+            if self.aot_store is not None:
+                self._aot_save(staged.bucket, staged.arrays)
         return lambda arrays: self._launch(key, arrays, captured=self.capture)
+
+    # ------------------------------------------------------ graph store
+
+    def _variables_signature(self) -> str:
+        """sha256[:16] of the module's state-dict names, shapes and dtypes:
+        two models whose parameters differ in structure never share an
+        entry. Values are left out, since ``update_variables`` swaps them
+        under the same graphs."""
+        if self._var_sig is None:
+            import hashlib
+
+            sig = "none" if self.module is None else ";".join(
+                f"{k}:{tuple(t.shape)}:{t.dtype}" for k, t in self.module.state_dict().items())
+            self._var_sig = hashlib.sha256(sig.encode()).hexdigest()[:16]
+        return self._var_sig
+
+    def _forward_signature(self) -> str:
+        """sha256[:16] of the forward's code (bytecode, names, constants,
+        nested code objects; the JAX engine's walk): an edited forward
+        misses the store instead of serving the old math. A forward without
+        ``__code__`` is walked through what it wraps (a ``functools.partial``'s
+        function, a bound method's function, a module's ``forward``, an
+        object's ``__call__``); never through a repr, which may hold an
+        address. Model architecture and iterations are the caller's to key
+        (``aot_key_extra``)."""
+        if self._fn_sig is None:
+            import functools
+            import hashlib
+
+            def walk(c) -> List[str]:
+                consts = [x for x in c.co_consts if not hasattr(x, "co_code")]
+                parts = [c.co_code.hex(), repr(c.co_names), repr(consts)]
+                for x in c.co_consts:
+                    if hasattr(x, "co_code"):
+                        parts.extend(walk(x))
+                return parts
+
+            fn = self.forward_fn
+            for _ in range(8):
+                if getattr(fn, "__code__", None) is not None:
+                    break
+                if isinstance(fn, functools.partial):
+                    fn = fn.func
+                elif hasattr(fn, "__func__"):
+                    fn = fn.__func__
+                elif isinstance(fn, torch.nn.Module):
+                    fn = type(fn).forward
+                else:
+                    fn = type(fn).__call__
+            code = getattr(fn, "__code__", None)
+            sig = ("|".join(walk(code)) if code is not None
+                   else f"{type(fn).__module__}.{type(fn).__qualname__}")
+            self._fn_sig = hashlib.sha256(sig.encode()).hexdigest()[:16]
+        return self._fn_sig
+
+    def store_identity(self) -> Dict[str, Any]:
+        """The graph store's key less its entry fields (bucket, batch,
+        inputs): the JAX ``_store_key``'s fields in the port's terms, the
+        tier and ``aot_key_extra``. Every value is stable across processes;
+        ``graph_key`` is not among them."""
+        identity: Dict[str, Any] = {
+            "kind": "infer_forward", "divis_by": self.divis_by, "divis_h": self.divis_h,
+            "num_spatial": self.num_spatial, "backend": self.device.type,
+            "devices": len(set(self.spatial or [self.device])), "capture": self.capture,
+            "variables": self._variables_signature(), "forward": self._forward_signature(),
+            "tier": self.tier_label,
+        }
+        identity.update(self._aot_extra)
+        return identity
+
+    def _store_key(self, bucket, arrays) -> Dict[str, Any]:
+        """The store key (and recipe) of one (bucket, batch) key."""
+        return {"bucket": [int(v) for v in bucket], "batch": int(arrays[0].shape[0]),
+                "inputs": [[[int(v) for v in a.shape], str(a.dtype)] for a in arrays],
+                **self.store_identity()}
+
+    def _aot_save(self, bucket, arrays) -> None:
+        """Store-through of a key just compiled on the serving path.
+        Best-effort: a failure logs, and the key captures on first use after
+        a restart."""
+        from raft_stereo_tpu_torch.runtime.aot_store import export_recipe
+
+        try:
+            t0 = time.perf_counter()
+            key = self._store_key(bucket, arrays)
+            blob = export_recipe(key)
+            self.aot_store.store(key, blob,
+                                 export_ms=round((time.perf_counter() - t0) * 1e3, 1))
+        except Exception as e:  # noqa: BLE001 — persistence is best-effort
+            logger.warning("graph store-through for bucket %s failed (%s); serving goes on",
+                           bucket, _errstr(e))
+
+    def _prewarm(self) -> None:
+        """Capture the stored keys of this engine's identity, newest first
+        and at most ``max_executables``, on zero-filled static inputs through
+        ``_build`` (the path of a first batch: the ``GraphCache``'s warm-up
+        and capture under ``CAPTURE_LOCK``; eagerly, the compiled mark). A
+        hit's ``load_ms`` covers the read, the validation and the capture. A
+        prewarm that raises leaves the entry on disk and the key uncompiled:
+        it compiles on first use through the retry ladder."""
+        for key in self.aot_store.entries(self.store_identity())[:self.graphs.max_entries]:
+            bucket = key.get("bucket")
+            try:
+                arrays = tuple(np.zeros(shape, dtype=np.dtype(dtype))
+                               for shape, dtype in key["inputs"])
+                cache_key = self._key(tuple(bucket), arrays)
+                if self._is_compiled(cache_key):
+                    continue
+                if self.aot_store.load(self._store_key(bucket, arrays),
+                                       realize=lambda _r: self._build(cache_key, arrays)):
+                    self.stats.prewarmed += 1
+            except Exception as e:  # noqa: BLE001 — a failed prewarm compiles on first use
+                logger.warning("graph store: prewarm of bucket %s batch %s failed (%s); it "
+                               "compiles on first use", bucket, key.get("batch"), _errstr(e))
 
     def _note_retry(self, kind: str, attempt: int, bucket, error: Optional[BaseException],
                     trace_ids: Optional[List[str]] = None) -> None:
@@ -959,6 +1120,8 @@ class InferenceEngine:
             try:
                 key = self._key(staged.bucket, rows)
                 if halving and not self._is_compiled(key):
+                    # not stored through: a halved key is the card's memory
+                    # state, not the engine's serving plan
                     self._compile(key, rows, ids)
                 host = self._wait_device(self._launch(key, rows, self.capture and halving), b,
                                          ids)
@@ -1360,6 +1523,8 @@ class InferOptions:
     max_executables: int = 16
     deadline_s: Optional[float] = 300.0
     retries: int = 2
+    # the persistent graph store's directory (runtime/aot_store.py)
+    aot_dir: Optional[str] = None
     sched: bool = False
     sched_max_wait: float = 2.0
     # None keeps the scheduler's blocking backpressure; an int sheds
@@ -1431,6 +1596,13 @@ def add_infer_args(parser, default_batch: int = 4) -> None:
         help="compile (warm-up and capture) and dispatch retry budget per micro-batch, "
         "with exponential backoff; past it the shape bucket is circuit-broken and served "
         "one pair at a time by the degraded path")
+    parser.add_argument(
+        "--aot_dir", default=None, metavar="DIR",
+        help="persistent graph store: the capture recipe of every (bucket, batch) graph the "
+        "engine captures is committed to DIR (CRC-manifested, atomically), and an engine "
+        "built on a populated store captures every stored key before it admits a request, so "
+        "a warm restart performs zero bucket compiles; corrupt or version-skewed entries are "
+        "rejected (aot_store_reject) and compile on first use, never served")
     parser.add_argument(
         "--sched", action="store_true",
         help="route requests through the continuous-batching scheduler: an admission "
@@ -1608,6 +1780,7 @@ def options_from_args(args) -> Optional[InferOptions]:
         batch=args.infer_batch, prefetch=args.infer_prefetch,
         deadline_s=None if timeout is None or timeout <= 0 else timeout,
         retries=args.infer_retries,
+        aot_dir=getattr(args, "aot_dir", None),
         sched=getattr(args, "sched", False),
         sched_max_wait=getattr(args, "sched_max_wait", 2.0),
         max_pending=getattr(args, "max_pending", None),

@@ -93,7 +93,9 @@ class ModelTier:
     weights are the model's own (``update_variables`` copies into them).
     ``capture`` is False for a forward that reads a scalar back (the
     convergence exit), which runs eagerly; ``graph_key`` names what a graph
-    bakes in besides its shapes.
+    bakes in besides its shapes, and ``aot_extra`` the same with values
+    stable across processes (the graph store's key; ``TierSet`` adds the
+    tier's name to it, so tiers sharing one ``--aot_dir`` are disjoint).
 
     ``num_spatial`` other than 1, or a ``devices`` list, makes a spatial
     tier: its engine serves on ``spatial_mesh(num_spatial, devices)`` (0:
@@ -106,6 +108,7 @@ class ModelTier:
     divis_by: int = 32
     capture: bool = True
     graph_key: Tuple = ()
+    aot_extra: Dict[str, Any] = field(default_factory=dict)
     num_spatial: int = 1
     devices: Optional[Sequence[Any]] = None
 
@@ -122,7 +125,8 @@ def raft_stereo_tier(model, iters: int, *, name: str = "quality") -> ModelTier:
 
     return ModelTier(name=name, model=model, make_forward=make_forward, divis_by=32,
                      capture=model.config.converge_eps == 0,
-                     graph_key=(id(model), repr(model.config), int(iters)))
+                     graph_key=(id(model), repr(model.config), int(iters)),
+                     aot_extra={"model": repr(model.config), "iters": int(iters)})
 
 
 def spatial_tier(model, iters: int, *, name: str = "spatial", num_spatial: int = 0,
@@ -146,6 +150,7 @@ def spatial_tier(model, iters: int, *, name: str = "spatial", num_spatial: int =
     return ModelTier(name=name, model=model, make_forward=make_forward, divis_by=32,
                      capture=model.config.converge_eps == 0,
                      graph_key=(id(model), repr(model.config), int(iters)),
+                     aot_extra={"model": repr(model.config), "iters": int(iters)},
                      num_spatial=int(num_spatial),
                      devices=None if devices is None else list(devices))
 
@@ -165,7 +170,9 @@ def madnet2_tier(model, *, name: str = "fast") -> ModelTier:
         return fwd
 
     return ModelTier(name=name, model=model, make_forward=make_forward, divis_by=DIVIS_BY,
-                     graph_key=(id(model), type(model).__name__, model.mixed_precision))
+                     graph_key=(id(model), type(model).__name__, model.mixed_precision),
+                     aot_extra={"model": type(model).__name__,
+                                "mixed_precision": bool(model.mixed_precision)})
 
 
 def _model_device(model) -> torch.device:
@@ -180,7 +187,10 @@ class TierSet:
     divisor, capture mode and graph key), labelled with the tier's name
     (its SLO series, quality sketches and ``engine:<tier>`` blackbox
     provider), plus a continuous-batching scheduler per tier when
-    ``infer.sched`` asks for one. ``device`` is the first tier's model's;
+    ``infer.sched`` asks for one. With ``infer.aot_dir`` every engine
+    shares that graph store, its keys carrying the tier's name and
+    ``aot_extra``; every engine is built (and prewarmed) here, before any
+    server starts. ``device`` is the first tier's model's;
     every tier's model must live there, but a spatial tier's, whose engine
     serves on its own device list. ``stream_fn(name)`` is the
     tier's serving callable (the scheduler's ``serve`` or the engine's
@@ -223,7 +233,7 @@ class TierSet:
                 # a video frame whose successor depends on its result must
                 # not be held by the one-deep dispatch pipeline
                 eager_finalize=bool(infer.video), tier=t.name,
-                module=t.model)
+                module=t.model, aot_dir=infer.aot_dir, aot_key_extra=dict(t.aot_extra))
             self.engines[t.name] = engine
             sched = make_scheduler(engine, infer)
             self.schedulers[t.name] = sched
@@ -260,8 +270,8 @@ class TierSet:
             s = engine.stats
             for name in ("images", "failed", "batches", "padded_slots", "decode_wait_s",
                          "h2d_stage_s", "device_batch_s", "stream_s", "compile_s",
-                         "compiles", "underruns", "retries", "degraded", "watchdog_trips",
-                         "circuits_open"):
+                         "compiles", "prewarmed", "underruns", "retries", "degraded",
+                         "watchdog_trips", "circuits_open"):
                 setattr(out, name, getattr(out, name) + getattr(s, name))
             out.batch_ms.extend(s.batch_ms)
             out.batch_valid.extend(s.batch_valid)

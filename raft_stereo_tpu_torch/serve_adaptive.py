@@ -185,24 +185,9 @@ def request_stream(args) -> Iterator[InferRequest]:
 
 # ----------------------------------------------------------- refused flags
 
-# The JAX CLI's flags whose serving layers the port does not have yet, each
-# with the ROADMAP item that brings it.
-_LEFT_OUT = (
-    ("aot_dir", "persisting compiled forwards across processes is ROADMAP queue A, item 3b"),
-)
 
-
-def add_left_out_args(parser: argparse.ArgumentParser) -> None:
-    """The JAX CLI's flags the port refuses (``refuse_left_out``)."""
-    for name, why in _LEFT_OUT:
-        parser.add_argument(f"--{name}", nargs="?", const=True, default=None,
-                            help=f"refused: {why}")
-
-
-def refuse_left_out(args) -> None:
-    for name, why in _LEFT_OUT:
-        if getattr(args, name, None) is not None:
-            raise SystemExit(f"serve_adaptive --{name}: {why}; the port does not have it yet")
+def refuse(args) -> None:
+    """The JAX CLI's refusal of a tier other than the fast one."""
     if args.tier not in (None, "fast"):
         raise SystemExit("serve_adaptive serves the adapted MADNet2 fast tier; --tier accepts "
                          "only 'fast' here: use --cascade for two-tier serving")
@@ -269,7 +254,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the RAFT-Stereo quality tier of --cascade: a reference .pth or "
                         "a port checkpoint (default: seeded weights)")
     add_infer_args(parser, default_batch=2)
-    add_left_out_args(parser)
     return parser
 
 
@@ -296,7 +280,7 @@ def main(argv=None, device=None):
     global _last_server, _last_cascade
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_left_out(args)
+    refuse(args)
     if args.adaptive_iters:
         raise SystemExit("serve_adaptive serves MADNet2, which has no refinement iterations: "
                          "--adaptive_iters is a RAFT-Stereo serving knob (evaluate, demo)")

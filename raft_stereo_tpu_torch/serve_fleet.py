@@ -10,8 +10,11 @@ the routing, circuit-breaker and exactly-once failover contracts):
         --num_requests 64 --infer_batch 2
 
 Every worker builds its engine on the CUDA card (several workers share
-one card), each capturing its own graphs on first use; the router process
-holds no model and never initialises CUDA.
+one card), each capturing its own graphs; the router process holds no
+model and never initialises CUDA. The workers share one ``--aot_dir``
+(the graph store, ``runtime/aot_store.py``): a key one worker captured is
+captured by every worker of a later fleet while its engine is built,
+before the worker reports healthy.
 
 Sources:
 
@@ -65,14 +68,6 @@ logger = logging.getLogger(__name__)
 
 FACTORY = "raft_stereo_tpu_torch.serve_fleet:build_engine"
 
-# The JAX CLI's flags whose layers the port does not have yet, each with
-# the ROADMAP item that brings it.
-_LEFT_OUT = (
-    ("aot_dir", "persisting compiled forwards across processes is ROADMAP queue A, item 3b: "
-                "the workers share no compiled forwards, each replica captures its own graphs"),
-)
-
-
 # ------------------------------------------------- worker engine factory
 
 
@@ -114,6 +109,7 @@ def build_engine(kw):
             deadline_s=float(kw.get("infer_timeout", 30.0)),
             retries=int(kw.get("retries", 1)),
             eager_finalize=True, idle_watchdog=False,
+            aot_dir=kw.get("aot_dir"),
         )
 
     import torch
@@ -135,6 +131,7 @@ def build_engine(kw):
             batch=int(kw.get("batch", 2)),
             deadline_s=float(kw.get("infer_timeout", 300.0)),
             retries=int(kw.get("retries", 2)),
+            aot_dir=kw.get("aot_dir"),
         ),
     )
     engine.eager_finalize = True
@@ -226,14 +223,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="re-dispatch attempts per request before it resolves as a "
                         "typed FleetHostError")
     add_infer_args(parser, default_batch=2)
-    for name, why in _LEFT_OUT:
-        parser.add_argument(f"--{name}", nargs="?", const=True, default=None,
-                            help=f"refused: {why}")
     return parser
 
 
 def refuse(args) -> None:
-    """The JAX CLI's refusals, and the flags the port does not have yet."""
+    """The JAX CLI's refusals, and a spatial tier the workers do not have."""
     for flag, val in (("--cascade", args.cascade),
                       ("--adaptive_iters", args.adaptive_iters),
                       ("--tier", args.tier)):
@@ -241,9 +235,6 @@ def refuse(args) -> None:
             raise SystemExit(
                 f"serve_fleet replicates ONE single-host serving configuration across "
                 f"hosts — {flag} composes inside a worker, not across the fleet")
-    for name, why in _LEFT_OUT:
-        if getattr(args, name) is not None:
-            raise SystemExit(f"serve_fleet --{name}: {why}; the port does not have it yet")
     if args.spatial_threshold is not None:
         raise SystemExit("serve_fleet's workers serve MADNet2 (no spatial tier): "
                          "--spatial_threshold is a RAFT-Stereo serving knob (evaluate builds "
@@ -276,6 +267,7 @@ def main(argv=None, device=None):
         "retries": args.infer_retries,
         "mixed_precision": args.mixed_precision,
         "restore_ckpt": args.restore_ckpt,
+        "aot_dir": args.aot_dir,
     }
     # Worker-side SessionServer (warm slots + the typed cold-start reset
     # on migration) needs a warm-aware forward: the toy engine has one;

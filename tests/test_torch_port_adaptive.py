@@ -210,15 +210,43 @@ def test_adaptive_rejects_per_image():
         load_model(args, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--tier", "quality"], ["--cascade"], ["--aot_dir", "d"]])
+@pytest.mark.parametrize("flag", [["--tier", "quality"], ["--cascade"]])
 def test_adaptive_rejects_tier_cascade_combo(flag):
     """Iteration tiers of one model and the multi-model --tier/--cascade are
     two routers with no defined policy in series: refused, as the JAX CLI
-    refuses them; the port's CLI has no executable store (--aot_dir)."""
+    refuses them."""
     with pytest.raises(SystemExit):
         evaluate.main(["--dataset", "eth3d", "--adaptive_iters", *flag], device="cpu")
     with pytest.raises(SystemExit, match="mutually exclusive"):
         make_serving(_model(), 4, InferOptions(adaptive_iters=True, tier="quality"))
+
+
+def test_adaptive_iters_serves_aot_dir(tmp_path, monkeypatch):
+    """``evaluate --adaptive_iters --iter_tiers 1,2 --aot_dir`` is served, as
+    the JAX CLI serves it: run twice on one store, the second run's default
+    tier (``iters2``, every request's: none carries a deadline) is
+    prewarmed from the first run's entry, with zero ``bucket_compile`` and
+    the same metrics bitwise; the store holds that tier's key alone, with
+    its iterations, so the ``iters1`` engine took nothing from it."""
+    import os
+
+    import fixture_trees as ft
+
+    ft.build_eth3d(str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset", "eth3d", "--hidden_dims", "32", "32", "32", "--n_gru_layers", "1",
+            "--corr_levels", "2", "--corr_radius", "2", "--corr_implementation", "alt",
+            "--valid_iters", "2", "--infer_batch", "2", "--adaptive_iters",
+            "--iter_tiers", "1,2", "--aot_dir", "aot", "--infer_timeout", str(WAIT_S)]
+    first = evaluate.main(argv + ["--telemetry_dir", "tel1"], device="cpu")
+    second = evaluate.main(argv + ["--telemetry_dir", "tel2"], device="cpu")
+    assert second == first
+    cold, warm = ([e["event"] for e in _events(t)] for t in ("tel1", "tel2"))
+    assert cold.count("bucket_compile") == 1 and cold.count("aot_store_commit") == 1
+    assert warm.count("bucket_compile") == 0 and warm.count("aot_store_hit") == 1
+    keys = [json.loads(json.load(open(os.path.join("aot", n)))["key"])
+            for n in os.listdir("aot") if n.endswith(".manifest.json")]
+    assert [(k["tier"], k["iters"]) for k in keys] == [("iters2", 2)]
 
 
 def test_adaptive_serving_rejects_config_mismatch():

@@ -71,14 +71,36 @@ def _router(tmp_path, n_hosts=2, factory_kw=None, **kw):
     (["--cascade"], "--cascade composes inside a worker"),
     (["--adaptive_iters"], "--adaptive_iters composes inside a worker"),
     (["--tier", "fast"], "--tier composes inside a worker"),
-    (["--aot_dir", "aot"], "item 3b"),
     (["--spatial_threshold", "5000"], r"workers serve MADNet2 \(no spatial tier\)"),
-], ids=["cascade", "adaptive_iters", "tier", "aot_dir", "spatial_threshold"])
+], ids=["cascade", "adaptive_iters", "tier", "spatial_threshold"])
 def test_cli_refusals(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=match):
         serve_fleet.main(["--model", "toy"] + argv, device="cpu")
     assert not (tmp_path / "runs").exists()  # refused before anything starts
+
+
+def test_cli_aot_dir_second_fleet_prewarms_every_worker(tmp_path, monkeypatch):
+    """``serve_fleet --aot_dir`` with two CPU workers, run twice on one
+    store: the first fleet compiles and commits its key; each worker of the
+    second logs ``aot_store_hit`` for it (while its engine is built, before
+    it reports healthy) and no ``bucket_compile``; both runs serve every
+    request."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(FleetRouter, "__init__", _with_test_spawn(FleetRouter.__init__))
+    argv = ["--model", "toy", "--num_requests", "8", "--synthetic_size", "32", "64",
+            "--sched_max_wait", "0.1", "--aot_dir", "aot"]
+    events = {}
+    for name in ("cold", "warm"):
+        summary = serve_fleet.main(argv + ["--name", name], device="cpu")
+        assert summary["served"] == 8 and summary["failed"] == 0
+        events[name] = {
+            p.parent.name: [json.loads(x)["event"] for x in p.read_text().splitlines()]
+            for p in (tmp_path / "runs" / name / "fleet").glob("host*/events.jsonl")}
+    assert sorted(events["warm"]) == ["host0", "host1"]
+    assert sum(ev.count("bucket_compile") for ev in events["cold"].values()) >= 1
+    for host, ev in events["warm"].items():
+        assert ev.count("aot_store_hit") == 1 and "bucket_compile" not in ev, (host, ev)
 
 
 def test_cli_serves_video_sessions_pinned(tmp_path, monkeypatch):

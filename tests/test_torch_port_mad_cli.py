@@ -272,7 +272,6 @@ def test_serve_adaptive_main_summary(extra, tmp_path, monkeypatch, capsys):
 
 
 LEFT_OUT = [
-    (["--aot_dir", "aot"], "ROADMAP queue A, item 3b"),
     (["--spatial_threshold", "5000"], r"served model is MADNet2 \(no spatial tier\)"),
     (["--multihost"], None),
 ]
@@ -281,9 +280,8 @@ LEFT_OUT = [
 @pytest.mark.parametrize("flag,item", LEFT_OUT, ids=[f[0][0] for f in LEFT_OUT])
 def test_serve_adaptive_refuses_what_the_port_does_not_have(flag, item, monkeypatch,
                                                             tmp_path, capsys):
-    """A flag the port has not ported yet is refused naming its ROADMAP
-    item; ``--spatial_threshold`` with the JAX CLI's own reason (MADNet2
-    has no spatial tier); one the JAX CLI does not have either
+    """``--spatial_threshold`` is refused with the JAX CLI's own reason
+    (MADNet2 has no spatial tier); a flag the JAX CLI does not have either
     (``--multihost``: only the JAX ``train.py`` defines it) is an argparse
     error, exit code 2."""
     monkeypatch.chdir(tmp_path)
@@ -296,6 +294,25 @@ def test_serve_adaptive_refuses_what_the_port_does_not_have(flag, item, monkeypa
         with pytest.raises(SystemExit, match=item):
             serve_adaptive.main(["--source", "synthetic"] + flag, device="cpu")
     assert not os.listdir(tmp_path)  # refused before anything was built
+
+
+def test_serve_adaptive_aot_dir_warm_restart(tmp_path, monkeypatch):
+    """``serve_adaptive --aot_dir`` run twice on one store: the second run's
+    served MADNet2 engine is prewarmed from the first run's entry
+    (``aot_store_hit``, no ``bucket_compile``) and serves the same summary,
+    adaptation included."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--source", "synthetic", "--synthetic_size", "64", "96", "--num_requests", "4",
+            "--adapt_every", "2", "--infer_batch", "2", "--aot_dir", "aot"]
+    summaries, events = [], []
+    for name in ("cold", "warm"):
+        summary = serve_adaptive.main(argv + ["--name", name], device="cpu")
+        summaries.append({k: v for k, v in summary.items() if k != "quality"})
+        events.append([json.loads(x)["event"] for x in open(f"runs/{name}/events.jsonl")])
+    assert summaries[0] == summaries[1] and summaries[1]["served"] == 4
+    assert events[0].count("bucket_compile") == 1 and events[0].count("aot_store_commit") == 1
+    assert events[1].count("bucket_compile") == 0 and events[1].count("aot_store_hit") == 1
+    assert serve_adaptive.last_server().engine.stats.prewarmed == 1
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,13 @@ controller's spatial parts and ``evaluate --spatial_threshold``).
   * Planted faults the parity limit must catch: a conv halo one row short,
     a per-slab (local) resize, per-slab norm moments, K2 with one halo row
     too few.
+  * The packed encoder stage (K3, ``models.extractor._ENABLE_PACKED``) per
+    slab: the realtime preset (fp32, the file's widths) at k = 2, 3 and 4
+    against the unsharded JAX packed forward (its K3 through the Pallas
+    interpreter), within the same limit, with 4·k K3 calls a forward (one
+    trunk: the shared backbone's, on the stacked pair); k = 1 bitwise the
+    port's unsharded packed forward; K3 per slab with no halo row fails the
+    limit; a slab geometry K3 refuses raises, naming the slab.
   * The 20 cases of ``tests/test_spatial_tier.py`` under their names, on
     the port's engine, scheduler, tiers and controller with the toy
     elementwise forward (its spatial twin sharded over ``[cpu] * 8``), and
@@ -35,12 +42,16 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+import raft_stereo_tpu.experiments.pallas_packed_conv as ppc
+import raft_stereo_tpu.models.extractor as jext
+from raft_stereo_tpu.config import PRESETS as JAX_PRESETS
 from raft_stereo_tpu.config import RAFTStereoConfig as JaxConfig
 from raft_stereo_tpu.models import RAFTStereo as JaxRAFTStereo
 from raft_stereo_tpu_torch import evaluate
-from raft_stereo_tpu_torch.config import RAFTStereoConfig
+from raft_stereo_tpu_torch.config import PRESETS, RAFTStereoConfig
 from raft_stereo_tpu_torch.data import frame_io
 from raft_stereo_tpu_torch.evaluate import load_model
+from raft_stereo_tpu_torch.experiments import packed_conv, packed_encoder
 from raft_stereo_tpu_torch.models import extractor
 from raft_stereo_tpu_torch.models import raft_stereo_spatial as rss
 from raft_stereo_tpu_torch.models.layers import GroupNorm, InstanceNorm, conv
@@ -198,11 +209,104 @@ def test_converge_eps_exit_reads_every_shard():
     np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=ATOL, rtol=RTOL)
 
 
-def test_packed_stage_is_refused(monkeypatch):
-    model, (a, b), _ = _case("gru1")
+# ------------------------------------------------- the packed stage (K3)
+
+
+# The packed cases run 2 refinement iterations, not ITERS: with the
+# realtime preset's alt lookup at 3 iterations the random network amplifies
+# fp32 noise to the limit itself (over image seeds 11-21 the unsharded port
+# reaches 1.7x it against JAX, and the stock sharded forward, no K3, 2.1x),
+# while at 2 the worst of k = 2-4 over those seeds is 0.41 of it and K3
+# without its halo rows over 1000x.
+PACKED_ITERS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_case():
+    """(port model, images, JAX (lowres, disp_up)) of the realtime preset in
+    fp32 at the file's widths, 64x96 (four 16-row units), the JAX forward
+    with its packed stage on and K3 through the Pallas interpreter."""
+    kw = dict(mixed_precision=False, **BASE)
+    jcfg = dataclasses.replace(JAX_PRESETS["raftstereo-realtime"], **kw)
+    variables = _seeded_variables(jcfg)
+    img1, img2 = _images(64, 96, seed=11)
+    jmodel = JaxRAFTStereo(jcfg)
+    saved = jext._ENABLE_PACKED, ppc._INTERPRET
+    jext._ENABLE_PACKED, ppc._INTERPRET = True, True
+    try:
+        apply = jax.jit(lambda v, a, b: jmodel.apply(v, a, b, iters=PACKED_ITERS,
+                                                     test_mode=True))
+        low, up = apply(variables, jnp.asarray(img1), jnp.asarray(img2))
+        low, up = np.asarray(low), np.asarray(up)
+    finally:
+        jext._ENABLE_PACKED, ppc._INTERPRET = saved
+    model = load_model(dataclasses.replace(PRESETS["raftstereo-realtime"], **kw), device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    return model, (torch.from_numpy(img1), torch.from_numpy(img2)), (low, up)
+
+
+@pytest.fixture
+def k3_calls(monkeypatch):
+    """The port's packed stage on; the shapes its K3 wrapper is called at
+    (on the CPU it runs the plain version and launches nothing)."""
     monkeypatch.setattr(extractor, "_ENABLE_PACKED", True)
-    with pytest.raises(ValueError, match="item 11"):
+    calls = []
+    wrapped = packed_conv.packed_conv3x3
+
+    def count(*args, **kwargs):
+        calls.append(tuple(args[0].shape))
+        return wrapped(*args, **kwargs)
+
+    monkeypatch.setattr(packed_conv, "packed_conv3x3", count)
+    return calls
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_packed_sharded_forward_matches_jax(k, k3_calls):
+    """Layer1's four convs as K3 on every slab, each slab extended by one
+    halo row a side: 4·k calls a forward, the packed rows [2, 16/k + 2,
+    24, 128] at stem stride 2, within the parity limit of the unsharded
+    JAX packed forward."""
+    model, (a, b), want = _packed_case()
+    got = SpatialRAFTStereo(model, [CPU] * k)(a, b, iters=PACKED_ITERS)
+    assert len(k3_calls) == 4 * k
+    rows = [r1 - r0 for r0, r1 in spatial.row_split(32, 8, k)]
+    assert sorted(set(k3_calls)) == sorted({(2, n + 2, 24, 128) for n in rows})
+    assert got[1].shape == (1, 64, 96, 1) and torch.isfinite(got[1]).all()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=RTOL, err_msg=f"k={k}")
+
+
+def test_packed_one_shard_is_the_packed_forward_bitwise(k3_calls):
+    model, (a, b), _ = _packed_case()
+    want = model(a, b, iters=PACKED_ITERS)
+    assert len(k3_calls) == 4
+    got = SpatialRAFTStereo(model, [CPU])(a, b, iters=PACKED_ITERS)
+    assert len(k3_calls) == 8
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_packed_k3_without_halo_rows_fails_the_parity_limit(k3_calls, monkeypatch):
+    """The planted fault: K3 on each slab alone, its zero padding in place
+    of the neighbours' rows."""
+    model, (a, b), want = _packed_case()
+    assert _within(SpatialRAFTStereo(model, [CPU] * 2)(a, b, iters=PACKED_ITERS), want)
+    monkeypatch.setattr(rss, "K3_HALO_ROWS", 0)
+    assert not _within(SpatialRAFTStereo(model, [CPU] * 2)(a, b, iters=PACKED_ITERS), want)
+    assert set(k3_calls[8:]) == {(2, 16, 24, 128)}
+
+
+def test_packed_slab_geometry_k3_refuses_names_the_slab(k3_calls, monkeypatch):
+    """With the gate forced open at a width K3 cannot pack (51 columns
+    after the stride-2 stem), the forward raises naming the slab; it
+    does not fall back to the stock conv."""
+    model, _, _ = _packed_case()
+    monkeypatch.setattr(packed_encoder, "packable_hw", lambda *args: True)
+    a, b = (torch.from_numpy(x) for x in _images(64, 102, seed=3))
+    with pytest.raises(ValueError, match=r"K3 cannot take the slab \(2, 64, 18, 51\)"):
         SpatialRAFTStereo(model, [CPU] * 2)(a, b, iters=1)
+    assert k3_calls == []
 
 
 # ------------------------------------------------------------ planted faults
