@@ -210,6 +210,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -6526,6 +6527,145 @@ def _aot_child_launches(path: Path) -> dict:
     return {k: n + doc["replayed_launches"][k] for k, n in doc["launches"].items()}
 
 
+# The chaos campaign (``chaos_path``): one seed of each mode at the default
+# cadences, the planted violation, and two sched seeds whose forward is the
+# realtime preset's packed forward (neither arms ``oom``: a halved batch
+# takes other cuDNN algorithms, queue C). The trials run in two lanes at
+# once, each trial a child process: the timing-bound invariants held wide
+# margins in the CPU campaign (ctrl's p95 off/on 1.8-7.5x, the quality
+# swap's latch 5 user results against a budget of 16).
+CHAOS_MODE_SEEDS = (0, 4, 6, 8, 9, 10, 12)
+CHAOS_VIOLATE_SEED = 1
+CHAOS_PACKED_SEEDS = (1, 2)
+CHAOS_PACKED_FORWARD = "raft_stereo_tpu_torch.tools.chaos:realtime_packed_forward"
+CHAOS_LANES = 2
+
+_emit_lock = threading.Lock()
+
+
+def _chaos_trial(out: Path, spec: dict, label: str, violate: bool = False) -> dict:
+    """One chaos trial on the card (``tools/chaos.py::run_trial``, its child
+    a process of its own; with ``violate`` a one-seed ``run_campaign`` of
+    the spec's seed with the planted drop, not minimized): its line, report
+    and violations."""
+    from raft_stereo_tpu_torch.tools import chaos
+
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    if violate:
+        summary = chaos.run_campaign([spec["seed"]], str(out), violate=True, minimize=False,
+                                     device="cuda")
+        violations, rc = summary["trials"][0]["violations"], None
+        spec = chaos.make_spec(spec["seed"], violate=True)
+    else:
+        violations, rc = chaos.run_trial(spec, str(out), device="cuda")
+    wall = time.perf_counter() - t0
+    reports = sorted(out.glob("report_*.json"))
+    report = json.loads(reports[-1].read_text()) if reports else {}
+    if violate:
+        # this trial passes when the campaign fails it on the planted drop
+        ok = any(v.startswith("resolve_exactly_once") for v in violations)
+    else:
+        ok = not violations
+    line = {"phase": "chaos_trial", "label": label, "seed": spec["seed"], "mode": spec["mode"],
+            "faults": [e["kind"] for e in spec["schedule"]], "pass": ok,
+            "rc": rc, "wall_s": wall, "violations": [v[:300] for v in violations]}
+    with _emit_lock:
+        emit(line)
+    return {"line": line, "report": report, "violations": violations, "pass": ok}
+
+
+def _chaos_bitwise(report: dict) -> dict:
+    """A trial's completed outputs against its fault-free pass, by sha."""
+    done = {p: r for p, r in (report.get("faulted") or {}).get("results", {}).items()
+            if r.get("ok")}
+    base = (report.get("baseline") or {}).get("results", {})
+    both = [p for p in done if base.get(p, {}).get("ok")]
+    return {"compared": len(both),
+            "bitwise_equal": sum(done[p]["sha"] == base[p]["sha"] for p in both)}
+
+
+def phase_chaos_path(tmp: Path):
+    """The port's seeded chaos campaign (``raft_stereo_tpu_torch/tools/
+    chaos.py``) on the card, every trial a child process serving on
+    ``cuda`` (captured graphs, replays, the fleet's workers), the trials in
+    ``CHAOS_LANES`` lanes at once:
+    (a) one seed of each mode (``CHAOS_MODE_SEEDS``: sched, cascade, video,
+        ctrl, adaptive, quality, fleet), every invariant green;
+    (b) seed 1 with the planted violation: ``resolve_exactly_once`` must
+        catch it;
+    (c) seeds 1 (sigterm, compile_fail) and 2 (decode_fail) with the
+        ``raftstereo-realtime`` preset's packed forward (bf16, 7 iterations)
+        at the chaos shapes, whose buckets K3's gate takes: green, every
+        completed output bitwise its fault-free pass, K1 and K3 launched
+        (read from the children's reports: counters plus replays).
+    One line a trial, then the phase's line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raft_stereo_tpu_torch.config import PRESETS
+    from raft_stereo_tpu_torch.evaluate import load_model
+    from raft_stereo_tpu_torch.experiments import packed_encoder
+    from raft_stereo_tpu_torch.tools import chaos
+
+    t_phase = time.perf_counter()
+    base = tmp / "chaos"
+    fails = []
+    # K3's gate at the chaos buckets (the realtime preset's trunks)
+    trunk = [m for m in load_model(PRESETS["raftstereo-realtime"], device="cpu").modules()
+             if hasattr(m, "norm_fn") and hasattr(getattr(m, "conv1", None), "stride")]
+    buckets = sorted({(-(-h // 32) * 32, -(-w // 32) * 32) for h, w in chaos.SHAPES})
+    gate = {f"{h}x{w}": [packed_encoder.packable_hw(h, w, m.norm_fn, m.conv1.stride[0])
+                         for m in trunk] for h, w in buckets}
+    if not all(all(v) for v in gate.values()):
+        fails.append(f"(c) K3's gate refuses a chaos bucket: {gate}")
+    jobs = [("mode", chaos.make_spec(s), f"mode_{s}", False) for s in CHAOS_MODE_SEEDS]
+    jobs.append(("violate", chaos.make_spec(CHAOS_VIOLATE_SEED), "violate", True))
+    for seed in CHAOS_PACKED_SEEDS:
+        spec = dict(chaos.make_spec(seed), forward=CHAOS_PACKED_FORWARD)
+        if any(e["kind"] == "oom" for e in spec["schedule"]):
+            raise AssertionError(f"chaos_path: seed {seed} arms oom")
+        jobs.append(("realtime_packed", spec, f"packed_{seed}", False))
+    with ThreadPoolExecutor(max_workers=CHAOS_LANES) as pool:
+        runs = [pool.submit(_chaos_trial, base / d, spec, label, violate)
+                for label, spec, d, violate in jobs]
+        results = [f.result() for f in runs]
+    modes, packed, violate = [], [], None
+    launches = {"alt_corr": 0, "fused_update": 0, "packed_conv": 0}
+    for (label, spec, _, _), r in zip(jobs, results):
+        if label == "mode":
+            modes.append(r["line"])
+            if not r["pass"]:
+                fails.append(f"(a) seed {spec['seed']} ({spec['mode']})")
+        elif label == "violate":
+            violate = r["line"]
+            if not r["pass"]:
+                fails.append("(b) the planted violation was not caught")
+        else:
+            child = r["report"].get("launches") or {}
+            got = {k: child.get("counted", {}).get(k, 0) + child.get("replayed", {}).get(k, 0)
+                   for k in launches}
+            for k, n in got.items():
+                launches[k] += n
+            bits = _chaos_bitwise(r["report"])
+            detail = {"phase": "chaos_packed", "seed": spec["seed"], "launches": got,
+                      "outputs": bits, "engines": r["report"].get("engines") or []}
+            emit(detail)
+            packed.append({**r["line"], **detail})
+            if not r["pass"] or got["alt_corr"] < 1 or got["packed_conv"] < 1 \
+                    or not bits["compared"] or bits["bitwise_equal"] != bits["compared"]:
+                fails.append(f"(c) seed {spec['seed']}")
+    res = {"phase": "chaos_path", "entry": "raft_stereo_tpu_torch.tools.chaos.run_trial",
+           "lanes": CHAOS_LANES, "modes": modes, "violate": violate, "packed": packed,
+           "packed_forward": CHAOS_PACKED_FORWARD, "packed_shapes": chaos.SHAPES,
+           "k3_gate": gate, "launches": launches,
+           "trial_s_sum": sum(r["line"]["wall_s"] for r in results),
+           "seconds": time.perf_counter() - t_phase, "card": smi_line()}
+    emit({k: v for k, v in res.items() if k not in ("modes", "packed")})
+    if fails:
+        raise AssertionError(f"chaos_path: {fails}")
+    return res
+
+
 # The kernels each main path must launch.
 PATH_KERNELS = {
     "main_path": ("alt_corr",),
@@ -6565,6 +6705,8 @@ PATH_KERNELS = {
     "spatial_path": ("alt_corr", "fused_update", "packed_conv"),
     # the evaluate child's second (prewarmed) run, read from its log
     "aot_path": ("alt_corr",),
+    # the realtime packed trials' children (their reports)
+    "chaos_path": ("alt_corr", "packed_conv"),
 }
 
 
@@ -6636,6 +6778,7 @@ def main() -> int:
         paths.append(phase_spatial_path(Path(tmp)))
         paths.append(phase_aot_path(Path(tmp)))
         paths.append(phase_fleet_path(Path(tmp)))
+        paths.append(phase_chaos_path(Path(tmp)))
     # every phase's counters were read here but the fleet's (its workers')
     uncounted = [r["phase"] for r in paths if not isinstance(r["launches"], dict)]
     if uncounted != ["fleet_path"]:
@@ -6755,7 +6898,27 @@ def spatial_main() -> int:
     return 0
 
 
+def chaos_main() -> int:
+    """``python3 chip_smoke.py chaos``: the device, the build and
+    ``chaos_path`` alone (a quick check of the campaign; no ``ok`` line)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    import raft_stereo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        res = phase_chaos_path(Path(tmp))
+    if any(res["launches"][k] < 1 for k in PATH_KERNELS["chaos_path"]):
+        raise AssertionError(f"chaos_path: a kernel of the path never launched: {res}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["chaos"]:
+        sys.exit(chaos_main())
     if sys.argv[1:2] == ["ddp-rank"]:
         sys.exit(ddp_rank_main(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["aot-child"]:

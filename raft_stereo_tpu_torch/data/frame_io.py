@@ -1,8 +1,10 @@
-"""Image and disparity file IO on the host, in numpy (the port's own copy of
-the readers of ``raft_stereo_tpu/data/frame_io.py`` that the evaluation and
-training sets use, and the writers its tests and smoke run need).
+"""Image, disparity and flow file IO on the host, in numpy (the port's own
+copy of the readers of ``raft_stereo_tpu/data/frame_io.py`` that the
+evaluation and training sets use, Middlebury's ``.flo`` flow, and the
+writers its tests and smoke run need).
 
-Disparities come back as float32 [H, W], valid masks as bool [H, W]. PNGs,
+Disparities come back as float32 [H, W], valid masks as bool [H, W], flow as
+float32 [H, W, 2]. PNGs,
 16-bit ones included, go through Pillow. A transient storage error (an
 ``OSError``) is retried ``RAFT_IO_RETRIES`` times (default ``IO_RETRIES``)
 after ``RAFT_IO_BACKOFF`` seconds (default ``IO_BACKOFF_S``), doubled at
@@ -26,6 +28,9 @@ from PIL import Image, UnidentifiedImageError
 from raft_stereo_tpu_torch.runtime import faultinject, telemetry
 
 logger = logging.getLogger(__name__)
+
+# A Middlebury .flo file's first four bytes, as a little-endian float32.
+FLO_MAGIC = 202021.25
 
 # The defaults of RAFT_IO_RETRIES and RAFT_IO_BACKOFF.
 IO_RETRIES = 2
@@ -65,6 +70,31 @@ def with_io_retry(fn):
                 time.sleep(delay)
 
     return wrapper
+
+
+@with_io_retry
+def read_flo(path: str) -> np.ndarray:
+    """Middlebury .flo optical flow → [H, W, 2] float32 (little-endian); a
+    file without the magic raises ``ValueError``."""
+    with open(path, "rb") as f:
+        magic = np.fromfile(f, np.float32, count=1)
+        if magic.size == 0 or magic[0] != np.float32(FLO_MAGIC):
+            raise ValueError(f"{path}: bad .flo magic {magic!r}")
+        w = int(np.fromfile(f, np.int32, count=1)[0])
+        h = int(np.fromfile(f, np.int32, count=1)[0])
+        data = np.fromfile(f, np.float32, count=2 * w * h)
+    return data.reshape(h, w, 2)
+
+
+def write_flo(path: str, flow: np.ndarray) -> None:
+    """[H, W, 2] flow as a Middlebury .flo file."""
+    if flow.ndim != 3 or flow.shape[2] != 2:
+        raise ValueError(f"write_flo writes [H, W, 2] flow, got {flow.shape}")
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        np.array([FLO_MAGIC], np.float32).tofile(f)
+        np.array([w, h], np.int32).tofile(f)
+        flow.astype(np.float32).tofile(f)
 
 
 @with_io_retry
@@ -155,12 +185,15 @@ def read_disp_middlebury(path: str) -> Tuple[np.ndarray, np.ndarray]:
 @with_io_retry
 def read_gen(path: str):
     """Reader by extension: images as PIL images, ``.npy``/``.bin``/``.raw``
-    as arrays, PFM as float32 (the first two channels of a colour one)."""
+    as arrays, ``.flo`` as float32 [H, W, 2], PFM as float32 (the first two
+    channels of a colour one)."""
     ext = os.path.splitext(path)[-1].lower()
     if ext in (".png", ".jpeg", ".ppm", ".jpg"):
         return Image.open(path)
     if ext in (".bin", ".raw", ".npy"):
         return np.load(path)
+    if ext == ".flo":
+        return read_flo.__wrapped__(path).astype(np.float32)
     if ext == ".pfm":
         data = read_pfm.__wrapped__(path).astype(np.float32)
         return data if data.ndim == 2 else data[:, :, :-1]

@@ -183,7 +183,8 @@ def main(argv=None, device=None) -> DemoRun:
     parser.add_argument("--output_directory", default="demo_output")
     parser.add_argument("--fast_ckpt", default=None, metavar="CKPT",
                         help="the MADNet2 fast tier of --tier fast / --cascade: a reference "
-                        ".pth or a port checkpoint (default: seeded weights)")
+                        ".pth, a JAX npz variables checkpoint or a port checkpoint "
+                        "(default: seeded weights)")
     apply_preset_defaults(parser, argv)
     args = parser.parse_args(argv)
     if args.serve_video and (not args.adaptive_iters or args.per_image):

@@ -78,7 +78,7 @@ from raft_stereo_tpu_torch.runtime.infer import (
 )
 from raft_stereo_tpu_torch.runtime.preemption import GracefulShutdown, ServeDrain
 from raft_stereo_tpu_torch.runtime.scheduler import SessionServer, make_scheduler, make_stream
-from raft_stereo_tpu_torch.utils.weights import load_reference_pth
+from raft_stereo_tpu_torch.utils.checkpoints import restore_weights
 
 logger = logging.getLogger(__name__)
 
@@ -97,7 +97,8 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
 def load_model(args_or_config, device=None, seed: int = 0,
                restore_ckpt: Optional[str] = None) -> RAFTStereo:
     """Build the model from a config or CLI args, initialised from a seeded
-    ``torch.Generator``, optionally loading a reference ``.pth``, in eval
+    ``torch.Generator``, optionally restoring a checkpoint (a reference
+    ``.pth``, a JAX npz variables checkpoint or a port checkpoint), in eval
     mode on ``device``."""
     dev = resolve_device(device)
     if isinstance(args_or_config, RAFTStereoConfig):
@@ -113,7 +114,7 @@ def load_model(args_or_config, device=None, seed: int = 0,
     model = RAFTStereo(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     if restore_ckpt:
-        load_reference_pth(model, restore_ckpt)
+        restore_weights(model, restore_ckpt)
     logger.info("Parameter Count: %d", sum(p.numel() for p in model.parameters()))
     return model.to(dev).eval()
 
@@ -338,8 +339,8 @@ def _spatial_serving(model: RAFTStereo, iters: int, infer: InferOptions, drain=N
 
 def _load_fast_tier(infer: InferOptions, mixed_precision: bool = False, device=None):
     """The MADNet2 fast tier of ``--tier fast`` / ``--cascade``: seeded, or
-    restored from ``--fast_ckpt`` (a reference ``.pth`` or a port
-    checkpoint), on ``device``."""
+    restored from ``--fast_ckpt`` (a reference ``.pth``, a JAX npz
+    variables checkpoint or a port checkpoint), on ``device``."""
     from raft_stereo_tpu_torch.evaluate_mad import load_mad_weights
     from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
     from raft_stereo_tpu_torch.runtime.tiers import madnet2_tier
@@ -663,7 +664,8 @@ def add_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The architecture flags of the JAX package's ``add_model_args``."""
     parser.add_argument("--preset", choices=list(PRESET_FLAGS), default=None,
                         help="named model preset; explicit flags override")
-    parser.add_argument("--restore_ckpt", default=None, help="reference checkpoint (.pth)")
+    parser.add_argument("--restore_ckpt", default=None, help="a reference .pth, a JAX npz variables checkpoint or a port "
+                        "checkpoint")
     parser.add_argument("--mixed_precision", action="store_true")
     parser.add_argument("--valid_iters", type=int, default=32)
     parser.add_argument("--hidden_dims", nargs="+", type=int, default=[128] * 3)
@@ -695,7 +697,8 @@ def main(argv=None, device=None) -> Dict[str, float]:
                         help="validation set")
     parser.add_argument("--fast_ckpt", default=None, metavar="CKPT",
                         help="the MADNet2 fast tier of --tier fast / --cascade: a reference "
-                        ".pth or a port checkpoint (default: seeded weights)")
+                        ".pth, a JAX npz variables checkpoint or a port checkpoint "
+                        "(default: seeded weights)")
     apply_preset_defaults(parser, argv)
     args = parser.parse_args(argv)
     # The reference eval autocasts iff the corr implementation is spelled

@@ -16,8 +16,8 @@ The forward, post-processing included, runs through the shared
 (bucket, batch). ``--per_image`` streams one pair at a time through an
 engine at batch 1 (the reference's per-pair timing, decode outside the
 timed window); ``--sched`` puts the continuous-batching scheduler in front
-of the batched engine. ``--restore_ckpt`` loads a reference ``.pth`` or a
-port checkpoint (``train_mad``'s). Everything runs on the CUDA card unless
+of the batched engine. ``--restore_ckpt`` loads a reference ``.pth``, a JAX
+npz variables checkpoint or a port checkpoint (``train_mad``'s). Everything runs on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
 
@@ -46,8 +46,7 @@ from raft_stereo_tpu_torch.runtime.infer import (
     options_from_args,
 )
 from raft_stereo_tpu_torch.runtime.scheduler import make_stream
-from raft_stereo_tpu_torch.utils.checkpoints import load_payload
-from raft_stereo_tpu_torch.utils.weights import load_reference_pth
+from raft_stereo_tpu_torch.utils.checkpoints import restore_weights
 
 logger = logging.getLogger(__name__)
 
@@ -61,13 +60,10 @@ def last_engine() -> Optional[InferenceEngine]:
 
 def load_mad_weights(model: torch.nn.Module, path: str) -> None:
     """Load ``path`` into ``model``, strictly: a reference ``.pth`` (its
-    ``module.`` prefix stripped), or a port checkpoint, whose state is a
-    train state (its ``model``) or a bare state dict."""
-    if path.endswith(".pth"):
-        load_reference_pth(model, path)
-        return
-    tree = load_payload(path)["state"]
-    model.load_state_dict(tree.get("model", tree), strict=True)
+    ``module.`` prefix stripped), a JAX npz variables checkpoint, or a port
+    checkpoint, whose state is a train state (its ``model``) or a bare state
+    dict (``utils/checkpoints.py::restore_weights``)."""
+    restore_weights(model, path)
 
 
 def make_mad_engine(model: torch.nn.Module, fusion: bool = False,
@@ -178,7 +174,8 @@ def validate_things_mad(model: torch.nn.Module, fusion: bool = False, log_dir: s
 def main(argv=None, device=None) -> Dict[str, float]:
     parser = argparse.ArgumentParser()
     parser.add_argument("--restore_ckpt", default=None,
-                        help="a reference .pth or a port checkpoint")
+                        help="a reference .pth, a JAX npz variables checkpoint or a "
+                        "port checkpoint")
     parser.add_argument("--fusion", action="store_true")
     parser.add_argument("--mixed_precision", action="store_true")
     parser.add_argument("--max_images", type=int, default=None)

@@ -876,6 +876,25 @@ class InferenceEngine:
                        cache_size=len(self.graphs) if self.capture else len(self._compiled),
                        trace_ids=trace_ids)
 
+    def _compile_retrying(self, key, bucket, arrays, trace_ids=None) -> Optional[BaseException]:
+        """Compile ``key`` within the retry budget, backing off between
+        attempts: None once it compiled, else the last failure. An OOM is
+        raised at once (the caller halves the batch)."""
+        last: Optional[BaseException] = None
+        for attempt in range(self.retries + 1):
+            if attempt:
+                self._note_retry("compile", attempt, bucket, last, trace_ids)
+            try:
+                self._compile(key, arrays, trace_ids)
+                return None
+            except Exception as e:  # noqa: BLE001 — a compile failure retries
+                if _is_oom(e):
+                    raise
+                last = _released(e)
+                logger.warning("bucket %s compile attempt %d failed: %s", bucket,
+                               attempt + 1, _errstr(e))
+        return last
+
     def _executable(self, staged: _StagedBatch) -> Optional[Callable]:
         """A launcher of the batch's key, ``run(arrays) -> _Launch``,
         compiling the key first with retry and backoff. An OOM is raised at
@@ -886,20 +905,8 @@ class InferenceEngine:
             if self.aot_store is not None:
                 # not prewarmed: compiled here and stored through below
                 self.aot_store.note_miss(self._store_key(staged.bucket, staged.arrays))
-            last: Optional[BaseException] = None
-            for attempt in range(self.retries + 1):
-                if attempt:
-                    self._note_retry("compile", attempt, staged.bucket, last, staged.trace_ids)
-                try:
-                    self._compile(key, staged.arrays, staged.trace_ids)
-                    break
-                except Exception as e:  # noqa: BLE001 — a compile failure retries
-                    if _is_oom(e):
-                        raise
-                    last = _released(e)
-                    logger.warning("bucket %s compile attempt %d failed: %s", staged.bucket,
-                                   attempt + 1, _errstr(e))
-            else:
+            last = self._compile_retrying(key, staged.bucket, staged.arrays, staged.trace_ids)
+            if last is not None:
                 self._open_circuit(staged.bucket, "compile", last, staged.trace_ids)
                 return None
             if self.aot_store is not None:
@@ -1121,8 +1128,11 @@ class InferenceEngine:
                 key = self._key(staged.bucket, rows)
                 if halving and not self._is_compiled(key):
                     # not stored through: a halved key is the card's memory
-                    # state, not the engine's serving plan
-                    self._compile(key, rows, ids)
+                    # state, not the engine's serving plan. Its capture
+                    # retries as the serving plan's does
+                    failed = self._compile_retrying(key, staged.bucket, rows, ids)
+                    if failed is not None:
+                        raise failed
                 host = self._wait_device(self._launch(key, rows, self.capture and halving), b,
                                          ids)
             except _WatchdogTimeout:
@@ -1152,6 +1162,11 @@ class InferenceEngine:
         and the per-image path; deadline → ``_WatchdogTimeout`` (the caller
         fails the batch). Returns ``(host rows, the launch that served them
         or None when a degraded path did)``."""
+        # each degraded path runs after its ``except`` block: an error it
+        # raises must not carry the OOM as its context (``_is_oom`` reads
+        # the chain, so a failed capture of the halved key would pass for
+        # an OOM and skip its retries)
+        oom: Optional[BaseException] = None
         try:
             if isinstance(launch, _DispatchFailure):
                 raise launch.error
@@ -1159,10 +1174,12 @@ class InferenceEngine:
         except _WatchdogTimeout:
             raise
         except Exception as e:  # noqa: BLE001 — classified below
-            if _is_oom(e):
-                return self._run_degraded(staged, self.batch // 2, "oom", _released(e)), None
             last = _released(e)
+            if _is_oom(e):
+                oom = last
         for attempt in range(1, self.retries + 1):
+            if oom is not None:
+                break
             self._note_retry("dispatch", attempt, staged.bucket, last, staged.trace_ids)
             try:
                 launch = run(staged.arrays)
@@ -1170,10 +1187,11 @@ class InferenceEngine:
             except _WatchdogTimeout:
                 raise
             except Exception as e:  # noqa: BLE001
-                if _is_oom(e):
-                    return self._run_degraded(staged, self.batch // 2, "oom",
-                                              _released(e)), None
                 last = _released(e)
+                if _is_oom(e):
+                    oom = last
+        if oom is not None:
+            return self._run_degraded(staged, self.batch // 2, "oom", oom), None
         self._open_circuit(staged.bucket, "dispatch", last, staged.trace_ids)
         return self._run_degraded(staged, 1, "circuit"), None
 

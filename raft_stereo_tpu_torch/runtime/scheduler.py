@@ -955,6 +955,13 @@ class ContinuousBatchingScheduler:
                 return
             for item in group:
                 yield item
+            if not isinstance(group[-1], FlushRequest):
+                # a full group one of whose requests fails its decode in the
+                # engine leaves the others short of a batch, with no flush
+                # to follow: a request whose successor waits on its result
+                # (a session frame) would strand. The token stages them now
+                # and is a no-op when the group staged whole
+                yield FlushRequest()
 
     # -------------------------------------------------------------- serve
 
@@ -1158,6 +1165,12 @@ class SessionServer:
                         "resets": 0}
         # crash forensics: self-register the session-map hook
         blackbox.register_provider("sessions", self.snapshot)
+        if self.warm_start and warm_fn is None:
+            # the default fill's first call would otherwise import scipy
+            # on the decode thread (seconds) while the source runs ahead
+            from raft_stereo_tpu_torch.utils.warm_start import preload
+
+            preload()
 
     def snapshot(self) -> Dict[str, Any]:
         """Introspection view for blackbox dumps / ``/debug/queues``:

@@ -1027,6 +1027,12 @@ class CascadeServer:
     def _run_quality(self, esc_q: "queue.Queue", out_q: "queue.Queue",
                      fast_done: threading.Event) -> None:
         error: Optional[BaseException] = None
+        # the escalation feed idles whenever the fast leg has nothing to
+        # escalate (a hung fast batch holds it for the fast tier's whole
+        # deadline): an idle feed is no stall of this leg, whose device
+        # waits keep their deadline
+        engine = self.tiers.engine(self.quality)
+        idle_watchdog, engine.idle_watchdog = engine.idle_watchdog, False
         try:
             stream = self.tiers.stream_fn(self.quality)
             for qres in stream(self._escalation_feed(esc_q)):
@@ -1046,6 +1052,7 @@ class CascadeServer:
         except BaseException as e:  # noqa: BLE001 — re-raised by serve
             error = e
         finally:
+            engine.idle_watchdog = idle_watchdog
             # the quality stream may end (drain bound, death) while the fast
             # leg still escalates: once it is done, fall the rest back
             try:

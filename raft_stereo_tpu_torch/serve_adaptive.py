@@ -201,7 +201,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve stereo pairs with online MAD adaptation (behind rails).")
     parser.add_argument("--name", default="serve-mad")
     parser.add_argument("--restore_ckpt", default=None,
-                        help="a reference .pth or a port checkpoint")
+                        help="a reference .pth, a JAX npz variables checkpoint or a "
+                        "port checkpoint")
     parser.add_argument("--mixed_precision", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--source", default="dataset", choices=["dataset", "synthetic", "video"],
@@ -251,8 +252,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="refinement iterations of the RAFT-Stereo quality tier built by "
                         "--cascade")
     parser.add_argument("--quality_ckpt", default=None,
-                        help="the RAFT-Stereo quality tier of --cascade: a reference .pth or "
-                        "a port checkpoint (default: seeded weights)")
+                        help="the RAFT-Stereo quality tier of --cascade: a reference .pth, a "
+                        "JAX npz variables checkpoint or a port checkpoint (default: "
+                        "seeded weights)")
     add_infer_args(parser, default_batch=2)
     return parser
 
@@ -270,7 +272,7 @@ def _cascade_tiers(args, served, infer: InferOptions, dev):
     qmodel = load_model(RAFTStereoConfig(mixed_precision=args.mixed_precision), device=dev,
                         seed=0)
     if args.quality_ckpt:
-        load_mad_weights(qmodel, args.quality_ckpt)  # a .pth or a port checkpoint
+        load_mad_weights(qmodel, args.quality_ckpt)  # .pth, JAX npz or port checkpoint
     return tiers_mod.TierSet([tiers_mod.madnet2_tier(served),
                               tiers_mod.raft_stereo_tier(qmodel, args.quality_iters)], infer)
 

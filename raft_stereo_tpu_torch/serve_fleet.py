@@ -124,7 +124,7 @@ def build_engine(kw):
     # seed 0, as the JAX factory's PRNGKey(0): --seed seeds the stream only
     model = make_madnet2(mixed_precision=bool(kw.get("mixed_precision")), seed=0, device=dev)
     if kw.get("restore_ckpt"):
-        load_mad_weights(model, str(kw["restore_ckpt"]))  # a .pth or a port checkpoint
+        load_mad_weights(model, str(kw["restore_ckpt"]))  # .pth, JAX npz or port
     engine = make_mad_engine(
         model, fusion=False,
         infer=InferOptions(
@@ -191,8 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="worker engine: the MADNet2 serving forward, or the toy "
                         "arithmetic engine (CPU smokes: same router/worker/wire path)")
     parser.add_argument("--restore_ckpt", default=None,
-                        help="a reference .pth or a port checkpoint (every replica restores "
-                        "the same weights)")
+                        help="a reference .pth, a JAX npz variables checkpoint or a port "
+                        "checkpoint (every replica restores the same weights)")
     parser.add_argument("--mixed_precision", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--source", default="synthetic", choices=["synthetic", "video"],

@@ -14,8 +14,10 @@ layer (``runtime/checkpoint.py``) records a CRC32 of every leaf of the
 tree, keyed as :func:`keyed_leaves` flattens it.
 
 ``restore_train_state`` also reads the JAX package's npz train state
-(``utils/weights.py::train_state_tree_from_jax_npz``). A JAX orbax
-directory is refused: reading it needs orbax, which imports JAX.
+(``utils/weights.py::train_state_tree_from_jax_npz``), and
+``restore_weights`` (the inference CLIs' checkpoints) its npz variables
+(``utils/weights.py::state_dict_from_jax_npz``). A JAX orbax directory is
+refused: reading it needs orbax, which imports JAX.
 """
 
 from __future__ import annotations
@@ -148,6 +150,17 @@ def restore_train_state(path: str, target):
     if path.endswith(".pth"):
         weights.load_reference_pth(target.model if hasattr(target, "model") else target, path)
         return target
+    npz = _jax_npz(path)
+    if npz is not None:
+        target.load_state_dict(weights.train_state_tree_from_jax_npz(npz, target))
+        return target
+    return apply_tree(target, load_payload(path)["state"])
+
+
+def _jax_npz(path: str) -> Optional[str]:
+    """The JAX npz payload ``path`` names (``path`` ending in ``.npz``, or
+    ``path.npz`` when there is no ``path.pt``), else None; an orbax
+    directory raises."""
     if os.path.isdir(path):
         raise ValueError(f"{path!r} is a directory, a JAX orbax checkpoint: the port cannot "
                          "read it (orbax imports JAX). Save the JAX train state with "
@@ -155,6 +168,28 @@ def restore_train_state(path: str, target):
                          "the .npz")
     npz = path if path.endswith(".npz") else path + ".npz"
     if path.endswith(".npz") or (not checkpoint_exists(path) and os.path.isfile(npz)):
-        target.load_state_dict(weights.train_state_tree_from_jax_npz(npz, target))
-        return target
-    return apply_tree(target, load_payload(path)["state"])
+        return npz
+    return None
+
+
+def restore_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a model's weights from ``path``, strictly, as the JAX package's
+    inference CLIs restore theirs: a released reference ``.pth``
+    (``utils.weights.load_reference_pth``), a JAX npz variables checkpoint
+    (what ``save_train_state_npz(path, variables)`` writes; through
+    ``utils.weights.state_dict_from_jax_npz``, which raises on a key it
+    cannot place), or a port checkpoint (a train state's model, or a bare
+    state dict). An orbax directory is refused."""
+    from raft_stereo_tpu_torch.utils import weights
+
+    if path.endswith(".pth"):
+        weights.load_reference_pth(model, path)
+        return model
+    npz = _jax_npz(path)
+    if npz is not None:
+        model.load_state_dict(weights.for_model(model, weights.state_dict_from_jax_npz(npz)),
+                              strict=True)
+        return model
+    tree = load_payload(path)["state"]
+    model.load_state_dict(tree.get("model", tree), strict=True)
+    return model

@@ -14,6 +14,13 @@ from __future__ import annotations
 import numpy as np
 
 
+def preload() -> None:
+    """Import what ``forward_interpolate`` needs (scipy's interpolation,
+    1.5-2 s on a first import), so that a server that warm-starts pays it
+    when it is built and not on its first warm frame."""
+    from scipy import interpolate  # noqa: F401
+
+
 def forward_interpolate(flow: np.ndarray) -> np.ndarray:
     """flow: [H, W, 2] (x, y) numpy → forward-warped [H, W, 2] float32.
 

@@ -15,6 +15,9 @@ Sequential's index ``decoder.{2(j-1)}.0``, ``conv_{k}`` is
 kernel [in, out] becomes a Linear weight [out, in], a LayerNorm ``scale``
 its ``weight``.
 
+``state_dict_from_jax_npz`` reads the variables the JAX package saves as
+an npz (``save_train_state_npz(path, variables)``), keyed by tree path, for
+the inference CLIs' checkpoints (``utils/checkpoints.py::restore_weights``).
 ``train_state_tree_from_jax_npz`` reads a JAX train state that
 ``raft_stereo_tpu/utils/checkpoints.py::save_train_state_npz`` wrote (the
 step, the parameters, the frozen batch-norm statistics and optax's AdamW
@@ -87,6 +90,15 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 UNUSED_BELOW_3_LEVELS = ("cnet.layer5.", "cnet.outputs32.", "update_block.gru32.")
 
 
+def for_model(model, sd: Dict[str, Any]) -> Dict[str, Any]:
+    """``sd`` less the modules ``model`` does not build: below three GRU
+    levels, ``UNUSED_BELOW_3_LEVELS``."""
+    config = getattr(model, "config", None)  # RAFTStereo's; MADNet2 keeps every key
+    if config is not None and config.n_gru_layers < 3:
+        return {k: v for k, v in sd.items() if not k.startswith(UNUSED_BELOW_3_LEVELS)}
+    return sd
+
+
 def load_reference_pth(model, path: str) -> None:
     """Load a released reference checkpoint (``.pth``) into ``model``:
     strict, once ``module.`` is stripped (and, below three GRU levels, the
@@ -94,10 +106,7 @@ def load_reference_pth(model, path: str) -> None:
     sd = torch.load(path, map_location="cpu")
     sd = sd.get("state_dict", sd)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    config = getattr(model, "config", None)  # RAFTStereo's; MADNet2 keeps every key
-    if config is not None and config.n_gru_layers < 3:
-        sd = {k: v for k, v in sd.items() if not k.startswith(UNUSED_BELOW_3_LEVELS)}
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(for_model(model, sd), strict=True)
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -167,6 +176,24 @@ def _nest(flat: Dict[Tuple[str, ...], np.ndarray]) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = arr
     return tree
+
+
+def state_dict_from_jax_npz(path: str) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from a JAX npz variables checkpoint at
+    ``path`` (``save_train_state_npz(path, variables)``: ``params`` and
+    ``batch_stats`` leaves keyed by tree path), read with numpy alone.
+    Raises on a key it cannot place (a train state's step or optimizer
+    state, a positional archive)."""
+    with np.load(path) as data:
+        arrays = {_key_path(k): np.asarray(data[k]) for k in data.files}
+    trees: Dict[str, Dict[Tuple[str, ...], np.ndarray]] = {"params": {}, "batch_stats": {}}
+    for p, arr in arrays.items():
+        if len(p) < 2 or p[0] not in trees:
+            raise ValueError(f"{path}: no place in the model's variables for "
+                             f"{'/'.join(map(str, p))} (a JAX npz variables checkpoint holds "
+                             "params and batch_stats)")
+        trees[p[0]][p[1:]] = arr
+    return state_dict_from_jax({k: _nest(v) for k, v in trees.items()})
 
 
 def train_state_tree_from_jax_npz(path: str, target) -> dict:

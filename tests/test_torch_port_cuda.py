@@ -9,7 +9,8 @@ captured engine: a weight update replayed without a new capture, the
 scheduler on a FIFO stream, the video forward's three-input graph; and
 several engines in one process: one capturing while another replays on
 its own thread, and the cascade's held fast result outliving the fast
-engine's later replays; and two fleet worker processes sharing the card.
+engine's later replays; and two fleet worker processes sharing the card;
+and one seed of the port's chaos campaign served on the card.
 
 Marked ``gpu``; each test skips when no CUDA card is present (decided
 inside the test, so every worker collects the same tests). This file
@@ -828,3 +829,14 @@ def test_fleet_workers_capture_on_one_card_bitwise_one_host(tmp_path):
         assert snap["hosts"]["0"]["state"] == ("down" if kill else "up")
         if not kill:
             assert snap["failovers"] == 0
+
+
+def test_chaos_seed_green_on_the_card(tmp_path):
+    """Seed 0 of the port's chaos campaign (``tools/chaos.py``: a sched
+    trial with a stalled dispatch pass) served on the card, its child
+    process capturing the toy forward: every invariant green."""
+    _cuda()
+    from raft_stereo_tpu_torch.tools import chaos
+
+    violations, rc = chaos.run_trial(chaos.make_spec(0), str(tmp_path), device="cuda")
+    assert rc == 0 and violations == [], violations
