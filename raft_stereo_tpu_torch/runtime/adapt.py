@@ -357,7 +357,7 @@ class AdaptiveServer:
             pair = self._last_pair
         if pair is None:
             return None
-        return {k: torch.as_tensor(np.asarray(a), dtype=torch.float32)[None].to(self._device)
+        return {k: torch.as_tensor(a, dtype=torch.float32)[None].to(self._device)
                 for k, a in zip(("img1", "img2"), pair)}
 
     # ---------------------------------------------------------- adaptation
@@ -405,7 +405,8 @@ class AdaptiveServer:
 
     def _record_eval(self, batch) -> Optional[float]:
         """A frozen proxy observation (no update)."""
-        proxy = float(self._proxy(self.state.model, batch))
+        # one host read, as in _adapt_once (the JAX server's device_get)
+        proxy = self._proxy(self.state.model, batch).float().tolist()
         if np.isfinite(proxy):
             self.proxy_history.append(proxy)
             self.monitor.update(proxy)
@@ -467,7 +468,7 @@ class AdaptiveServer:
     def _commit_snapshot(self) -> None:
         """Commit the current (rails-passed) state as a manifested, CRC'd
         checkpoint, the rollback target; rotation keeps ``keep_snapshots``."""
-        step = int(self.state.step)
+        step = self.state.step  # a host int (TrainState)
         info = ckpt.commit_checkpoint(
             os.path.join(self.snapshot_dir, f"{step}_{self.name}"), self.state, step=step,
             tag="periodic", extra={"kind": "adapt_good", "proxy_ema": self.monitor.ema_fast,

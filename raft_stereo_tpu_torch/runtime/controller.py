@@ -342,7 +342,9 @@ class OverloadController:
         """Start the control thread (idempotent)."""
         if self._thread is None or not self._thread.is_alive():
             self._stop.clear()
-            self._thread = threading.Thread(target=self._run, name=self.THREAD_NAME,
+            # the literal name is what blackbox dumps and the graftcheck
+            # concurrency model key the thread's role on
+            self._thread = threading.Thread(target=self._run, name="overload-ctrl",
                                             daemon=True)
             self._thread.start()
             logger.info("overload controller armed: %d-rung ladder [%s], interval %.2fs, "

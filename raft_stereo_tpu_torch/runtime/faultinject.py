@@ -142,19 +142,22 @@ def reset() -> None:
     global _infer_wait_attempts, _sched_dispatch_attempts, _sched_dispatch_by_label
     global _warm_reuse_attempts, _armed_adapt_nan, _armed_adapt_regress
     global _adapt_attempts, _adapt_regress_checks
-    _armed_nan_step = _armed_sigterm_step = _armed_crash = None
-    _armed_io_fail_reads = _armed_infer_decode_fail = _armed_infer_compile_fail = None
-    _armed_infer_oom_batch = _armed_infer_hang = None
-    _armed_sched_stall = _armed_sched_stall_ms = _armed_sched_stall_scope = None
-    _armed_warm_poison = _armed_warm_poison_fill = None
-    _armed_adapt_nan = _armed_adapt_regress = None
-    _sigterm_fired = False
-    _io_read_attempts = _infer_decode_attempts = _infer_compile_attempts = 0
-    _infer_wait_attempts = _sched_dispatch_attempts = _warm_reuse_attempts = 0
-    _adapt_attempts = _adapt_regress_checks = 0
-    _sched_dispatch_by_label = {}
-    _hang_release.set()
-    _hang_release = threading.Event()
+    # under the counters' lock: a dispatch thread still bumping a counter
+    # must not interleave with its reset
+    with _lock:
+        _armed_nan_step = _armed_sigterm_step = _armed_crash = None
+        _armed_io_fail_reads = _armed_infer_decode_fail = _armed_infer_compile_fail = None
+        _armed_infer_oom_batch = _armed_infer_hang = None
+        _armed_sched_stall = _armed_sched_stall_ms = _armed_sched_stall_scope = None
+        _armed_warm_poison = _armed_warm_poison_fill = None
+        _armed_adapt_nan = _armed_adapt_regress = None
+        _sigterm_fired = False
+        _io_read_attempts = _infer_decode_attempts = _infer_compile_attempts = 0
+        _infer_wait_attempts = _sched_dispatch_attempts = _warm_reuse_attempts = 0
+        _adapt_attempts = _adapt_regress_checks = 0
+        _sched_dispatch_by_label = {}
+        _hang_release.set()
+        _hang_release = threading.Event()
 
 
 def arm(nan_step: Optional[int] = None, sigterm_step: Optional[int] = None,
@@ -345,7 +348,8 @@ def infer_wait_point(batch_size: int) -> None:
 
 def sched_dispatch_attempts() -> int:
     """Scheduler dispatch-loop passes observed (for test assertions)."""
-    return _sched_dispatch_attempts
+    with _lock:
+        return _sched_dispatch_attempts
 
 
 def _parse_sched_stall(raw: str):

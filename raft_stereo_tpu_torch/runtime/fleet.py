@@ -407,7 +407,9 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
 # ----------------------------------------------------------------- router
 
 
-def _log_tail(path: str, n_bytes: int = 4000) -> str:
+# GC10: reached under the router's _restart_lock only through
+# FleetRouter._spawn_host, a cold control plane (see there)
+def _log_tail(path: str, n_bytes: int = 4000) -> str:  # graftcheck: disable=GC10
     """The end of a worker's log, for a spawn failure's message."""
     try:
         with open(path, "rb") as f:
@@ -605,14 +607,16 @@ class FleetRouter:
         for host in self._hosts:
             self._retire_io(host)
 
-    # GC10: the spawn's file/subprocess I/O runs under _restart_lock by
-    # design — that lock exists only to serialize rolling restarts (a
-    # cold control plane); no request-path thread ever takes it, so the
-    # blocking cannot convoy serving
-    def _spawn_host(self, host: _Host) -> None:  # graftcheck: disable=GC10
+    # GC10: the spawn's file/subprocess I/O (in _launch_host, _connect_host
+    # and _log_tail) runs under _restart_lock by design — that lock exists
+    # only to serialize rolling restarts (a cold control plane); no
+    # request-path thread ever takes it, so the blocking cannot convoy
+    # serving. _lock, the request path's, is never held across it.
+    def _spawn_host(self, host: _Host) -> None:
         self._connect_host(host, *self._launch_host(host))
 
-    def _launch_host(self, host: _Host
+    # GC10: under _restart_lock only through _spawn_host (see there)
+    def _launch_host(self, host: _Host  # graftcheck: disable=GC10
                      ) -> Tuple[subprocess.Popen, str, str]:
         """Write one worker's spec and start its process; returns the
         process, its portfile and its log."""
@@ -662,8 +666,9 @@ class FleetRouter:
             )
         return proc, portfile, log_path
 
-    def _connect_host(self, host: _Host, proc: subprocess.Popen,
-                      portfile: str, log_path: str) -> None:
+    # GC10: under _restart_lock only through _spawn_host (see there)
+    def _connect_host(self, host: _Host,  # graftcheck: disable=GC10
+                      proc: subprocess.Popen, portfile: str, log_path: str) -> None:
         """Wait for a launched worker's portfile, connect its data socket
         and start its tx/rx threads."""
         deadline = host.t_launch + self._spawn_timeout_s

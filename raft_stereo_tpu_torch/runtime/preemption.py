@@ -194,7 +194,8 @@ class ServeDrain:
             return self._finished
         payload = {"duration_ms": round((time.monotonic() - self._began) * 1e3, 1),
                    "resolved": self._resolved, "drained": self._drained, "label": self.label}
-        telemetry.emit("drain_complete", **payload)
+        telemetry.emit("drain_complete", duration_ms=payload["duration_ms"],
+                       resolved=self._resolved, drained=self._drained, label=self.label)
         logger.warning("[%s] drain complete in %.0f ms: %d result(s) resolved (%d drained)",
                        self.label, payload["duration_ms"], self._resolved, self._drained)
         self._finished = payload

@@ -243,6 +243,20 @@ class TierSet:
     def names(self) -> List[str]:
         return list(self.tiers)
 
+    def snapshot(self) -> Dict[str, Any]:
+        """Introspection view: every tier's engine and scheduler snapshot
+        under the tier's name (each engine and scheduler also registers
+        itself with the blackbox dumper; this is the grouped view for
+        direct callers)."""
+        out: Dict[str, Any] = {}
+        for name in self.names:
+            sched = self.schedulers.get(name)
+            out[name] = {
+                "engine": self.engines[name].snapshot(),
+                "scheduler": None if sched is None else sched.snapshot(),
+            }
+        return out
+
     def engine(self, name: str) -> InferenceEngine:
         return self.engines[name]
 
@@ -945,7 +959,9 @@ class CascadeServer:
 
     def _confidence(self, pair, output) -> float:
         try:
-            return float(self._conf(pair[0], pair[1], output))
+            # host math on a host result: ``output`` is the engine's
+            # already-materialized np window, never a device value
+            return float(self._conf(pair[0], pair[1], output))  # graftcheck: disable=GC02
         except Exception as e:  # noqa: BLE001 — a broken gate escalates
             logger.warning("cascade confidence function failed (%s: %s): the pair "
                            "escalates", type(e).__name__, str(e)[:200])

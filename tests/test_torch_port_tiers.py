@@ -222,6 +222,35 @@ class TestTierPolicy:
             TieredServer(ts, TierPolicy(fast="bogus"))
 
 
+def _jax_tier(name, scale):
+    def make_forward(model):
+        return lambda v, a, b: (a * v["scale"] - b).sum(-1, keepdims=True)
+
+    return jtiers.ModelTier(name=name, model=f"toy-{name}",
+                            variables={"scale": np.float32(scale)}, make_forward=make_forward)
+
+
+@pytest.mark.parametrize("sched", [False, True], ids=["engine", "sched"])
+def test_tierset_snapshot_nests_as_the_jax_snapshot(sched):
+    """``TierSet.snapshot``: each tier's engine and scheduler snapshot under
+    the tier's name, keyed and nested as the JAX ``TierSet.snapshot``; the
+    scheduler is None for a tier without one."""
+    jts = jtiers.TierSet([_jax_tier("fast", FAST_SCALE), _jax_tier("quality", QUALITY_SCALE)],
+                         jinfer.InferOptions(batch=2, sched=sched))
+    ts = TierSet([_tier("fast", FAST_SCALE), _tier("quality", QUALITY_SCALE)],
+                 InferOptions(batch=2, sched=sched))
+    snap, jsnap = ts.snapshot(), jts.snapshot()
+    assert list(snap) == list(jsnap) == ["fast", "quality"]
+    for name in snap:
+        assert set(snap[name]) == set(jsnap[name]) == {"engine", "scheduler"}
+        assert snap[name]["engine"] == ts.engines[name].snapshot()
+        assert (snap[name]["scheduler"] is None) == (jsnap[name]["scheduler"] is None) \
+            == (not sched)
+        if sched:
+            assert snap[name]["scheduler"] == ts.schedulers[name].snapshot()
+            assert set(snap[name]["scheduler"]) == set(jsnap[name]["scheduler"])
+
+
 def _contexts(n=64, seed=5):
     """A seeded stream of scheduling contexts: (deadline, priority, tier,
     iters), each None or a value on either side of the cutoffs."""
