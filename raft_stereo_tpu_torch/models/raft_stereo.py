@@ -24,6 +24,7 @@ from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
 from raft_stereo_tpu_torch.ops import fused_update
 from raft_stereo_tpu_torch.ops.corr import make_corr_fn
 from raft_stereo_tpu_torch.ops.sampling import convex_upsample, coords_grid, interp_bilinear
+from raft_stereo_tpu_torch.runtime import telemetry
 
 # Above this many input pixels the fnet runs one image at a time: the
 # batched pair would hold both images' full-resolution activations at once.
@@ -40,7 +41,13 @@ class RAFTStereo(nn.Module):
     ``test_mode=False`` is the train-mode forward: the stack
     [iters, B, f·H, f·W, 1] of every iteration's upsampled x-flow, with
     gradients. The port's default is test mode (the JAX package's is
-    train mode)."""
+    train mode).
+
+    Test mode marks four points on the stream (``telemetry.mark``): its
+    start, ``encode`` (encoders, context gates and the correlation state
+    ready), ``refine`` (the iters-1 unmasked iterations done) and ``final``
+    (the masked iteration, convex upsampling and the outputs). They record
+    only inside a ``telemetry.stage_marks`` block, which a sink arms."""
 
     def __init__(self, config: RAFTStereoConfig = RAFTStereoConfig()):
         super().__init__()
@@ -122,11 +129,13 @@ class RAFTStereo(nn.Module):
     def _test_forward(self, image1, image2, iters, flow_init):
         cfg = self.config
         dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
+        telemetry.mark("start")
         # The fused step recomputes correlation from the alt state, and the
         # masked final step then looks up through the same alt backend, so
         # with fused_update the corr state is alt whatever corr_backend says.
         net, inp, corr_fn, coords0_x, flow_x = self._encode(
             image1, image2, flow_init, "alt" if cfg.fused_update else cfg.corr_backend)
+        telemetry.mark("encode")
 
         fused = None
         if cfg.fused_update:
@@ -154,8 +163,10 @@ class RAFTStereo(nn.Module):
             ran += 1
             if converged:
                 break
+        telemetry.mark("refine")
         net, flow_x, up_mask = step(net, flow_x, with_mask=True)
         outputs = self._outputs(flow_x, up_mask)
+        telemetry.mark("final")
         return (*outputs, ran + 1) if cfg.converge_eps > 0 else outputs
 
     def _train_forward(self, image1, image2, iters, flow_init, remat):

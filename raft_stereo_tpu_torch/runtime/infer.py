@@ -98,6 +98,16 @@ fresh one), which rides its spans and every event on its path
 holds per-bucket ``LogHistogram``s of queue wait, decode, h2d, device and end
 to end, fed to the installed telemetry registry too; ``publish_summary``
 prints the completed/failed/degraded line and emits ``stream_summary``.
+Spans, on the profiler's clock (``runtime/telemetry.py``): the stager's
+``request_source`` (the caller's iterator), ``request_decode`` and
+``h2d_stage``; the consumer's ``decode_wait``, ``dispatch`` (with
+``bucket_compile`` and its ``graph.warmup`` and ``graph.capture`` the
+first time, and ``dispatch.pin``, counted in ``InferStats.pin_s``),
+``device_batch`` and ``device_wait``. Each span of a batch carries its
+number (``batch``), so one batch's spans join across the two threads. With
+a sink installed the forward's stage marks are armed: each full batch's
+device ms by model stage lands in ``InferStats.stage_ms`` and the
+``infer_stage_device_seconds{stage,bucket}`` histogram.
 
 Results stream in micro-batch completion order: buckets interleave, and
 within a batch the request order is kept. Each result carries its request's
@@ -112,6 +122,9 @@ launches the card ran (``replayed_launches``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 import logging
 import queue
 import threading
@@ -149,14 +162,6 @@ class _WatchdogTimeout(RuntimeError):
 
 def _errstr(e: BaseException) -> str:
     return f"{type(e).__name__}: {str(e)[:200]}"
-
-
-def _span_ids(trace_ids: Optional[List[str]], cap: int = 8):
-    """A bounded view of a batch's trace ids for span arguments (spans stay
-    in memory until flushed; events carry the full list)."""
-    if not trace_ids or len(trace_ids) <= cap:
-        return trace_ids
-    return trace_ids[:cap] + [f"+{len(trace_ids) - cap} more"]
 
 
 def _is_oom(e: BaseException) -> bool:
@@ -200,13 +205,114 @@ CAPTURE_LOCK = threading.Lock()
 @dataclass
 class CapturedForward:
     """One forward captured at fixed input shapes: the graph, its static
-    input and output buffers, and the kernel launches it holds."""
+    input and output buffers, the kernel launches it holds, and the
+    event-record nodes its stage marks became (None: captured with no sink,
+    or a forward that marks nothing)."""
 
     graph: Any  # torch.cuda.CUDAGraph
     inputs: Tuple[torch.Tensor, ...]
     output: torch.Tensor
     launches: Dict[str, int]
     replays: int = 0
+    marks: Optional["_MarkNodes"] = None
+
+
+def _graph_event():
+    """A stage mark under capture: an event-record node of the graph."""
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+def _timing_event():
+    """A stage mark of an eager forward on the card."""
+    return torch.cuda.Event(enable_timing=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda():
+    """The CUDA driver, for the graph-node calls PyTorch does not wrap."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    vp, st = ctypes.c_void_p, ctypes.c_size_t
+    for name, args in (("cuGraphGetNodes", [vp, ctypes.POINTER(vp), ctypes.POINTER(st)]),
+                       ("cuGraphNodeGetType", [vp, ctypes.POINTER(ctypes.c_int)]),
+                       ("cuGraphEventRecordNodeGetEvent", [vp, ctypes.POINTER(vp)]),
+                       ("cuGraphExecEventRecordNodeSetEvent", [vp, vp, vp])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
+_CU_GRAPH_NODE_TYPE_EVENT_RECORD = 7
+
+
+class _MarkNodes:
+    """The event-record nodes a capture's stage marks became, in mark order.
+
+    A graph's nodes record into the same events on every replay, and the
+    engine replays batch N+1 before it reads batch N's times: so before each
+    replay ``arm`` points the nodes of the instantiated graph at fresh
+    events (``cuGraphExecEventRecordNodeSetEvent``; the change holds for
+    later launches only), which are that launch's marks. The graph keeps its
+    template (``keep_graph``) to name the nodes, and this object keeps alive
+    every event a node names (``current``): CUDA refuses to re-point
+    a node whose event was destroyed. A node that cannot be re-pointed ends
+    the entry's marks, with a warning; its replays go on unmarked."""
+
+    def __init__(self, graph, marks: List[Tuple[str, Any]]):
+        cu, vp = _libcuda(), ctypes.c_void_p
+        n = ctypes.c_size_t(0)
+        template = vp(int(graph.raw_cuda_graph()))
+        if cu.cuGraphGetNodes(template, None, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (vp * n.value)()
+        if cu.cuGraphGetNodes(template, nodes, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        by_event = {}
+        for node in nodes:
+            kind, ev = ctypes.c_int(-1), vp()
+            cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind))
+            if (kind.value == _CU_GRAPH_NODE_TYPE_EVENT_RECORD
+                    and not cu.cuGraphEventRecordNodeGetEvent(vp(node), ctypes.byref(ev))):
+                by_event[ev.value] = node
+        self.stages = [stage for stage, _ in marks]
+        self.nodes = [by_event[int(ev.cuda_event)] for _, ev in marks]
+        self.captured = marks  # what the template's nodes name, for the graph's life
+        self.current = [ev for _, ev in marks]  # what each node of the exec names
+        self.exec = int(graph.raw_cuda_graph_exec())
+        self.failed = False
+
+    @classmethod
+    def of(cls, graph, marks) -> Optional["_MarkNodes"]:
+        if not marks:
+            return None
+        try:
+            return cls(graph, marks)
+        except (OSError, AttributeError, KeyError, RuntimeError) as e:
+            logger.warning("GraphCache: the capture's stage marks cannot be re-pointed "
+                           "(%s); its batches report no stage times", _errstr(e))
+            return None
+
+    def arm(self) -> Optional[List[Tuple[str, Any]]]:
+        """Fresh events for the next replay's marks, in mark order; None once
+        a node could not be re-pointed."""
+        if self.failed:
+            return None
+        cu, vp = _libcuda(), ctypes.c_void_p
+        fresh = []
+        for i, (stage, node) in enumerate(zip(self.stages, self.nodes)):
+            ev = torch.cuda.Event(enable_timing=True)
+            # torch times only events it recorded; the node records it again
+            # later on the stream, and the later record is the one read
+            ev.record()
+            rc = cu.cuGraphExecEventRecordNodeSetEvent(vp(self.exec), vp(node),
+                                                       vp(ev.cuda_event))
+            if rc:
+                self.failed = True
+                logger.warning("GraphCache: re-pointing the %s mark failed (CUresult %d); "
+                               "this graph's replays report no stage times", stage, rc)
+                return None
+            self.current[i] = ev
+            fresh.append((stage, ev))
+        return fresh
 
 
 class GraphCache:
@@ -241,7 +347,13 @@ class GraphCache:
     compile: ``faultinject.infer_compile_point`` fires there); a warm-up or
     capture that raises leaves no entry, resets its graph and, with no
     graph left, releases the pool. ``replay`` runs a captured forward.
-    Counters: ``captures``, ``capture_s`` (warm-up included), ``hits`` and
+    With a sink installed at capture, the forward's ``telemetry.mark``
+    points become event-record nodes of the graph, and ``arm_marks`` gives
+    each replay its own events for them. Spans: ``graph.warmup`` (the eager
+    forward, to the end of its device work) and ``graph.capture``, children
+    of the engine's ``bucket_compile``.
+    Counters: ``captures``, ``capture_s`` (warm-up included; the capture
+    alone is ``capture_s - warmup_s``), ``warmup_s``, ``hits`` and
     ``misses`` (a ``get`` that found its key, or not, failed captures
     included), ``replays``, ``evictions``, ``captures_by_key`` (a key
     captured twice was evicted while in use), and ``replayed_launches``:
@@ -256,6 +368,7 @@ class GraphCache:
         self._pool = None
         self.captures = 0
         self.capture_s = 0.0
+        self.warmup_s = 0.0
         self.hits = 0
         self.misses = 0
         self.replays = 0
@@ -314,46 +427,79 @@ class GraphCache:
         """``fn(*inputs)`` through the key's graph (``get``, then ``replay``)."""
         return self.replay(self.get(key, fn, inputs), inputs)
 
+    def arm_marks(self, entry: CapturedForward) -> Optional[List[Tuple[str, Any]]]:
+        """The marks of the entry's next replay, taken before it: fresh
+        events that the graph's mark nodes now record into; None for an
+        entry without marks."""
+        return None if entry.marks is None else entry.marks.arm()
+
     def _capture(self, fn, inputs) -> CapturedForward:
         """Warm up eagerly on a side stream, then capture on the pool, under
-        ``CAPTURE_LOCK``. The warm-up builds the kernels' libraries, sets
-        their shared-memory attributes and settles cuDNN's choices, so the
-        capture itself builds, allocates outside the pool and reads back
-        nothing."""
+        ``CAPTURE_LOCK``."""
         with CAPTURE_LOCK:
             return self._capture_locked(fn, inputs)
 
     def _capture_locked(self, fn, inputs) -> CapturedForward:
         t0 = time.perf_counter()
-        dev = torch.device("cuda", torch.cuda.current_device())
-        stream = torch.cuda.current_stream(dev)
-        graph = None
         try:
-            static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs)
-            for dst, src in zip(static, inputs):
-                dst.copy_(src, non_blocking=True)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                fn(*static)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            before = kernel_launches()
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                output = fn(*static)
+            with telemetry.span("graph.warmup"):
+                static = self._warm_up(fn, inputs)
+            t_warm = time.perf_counter()
+            with telemetry.span("graph.capture"), \
+                    telemetry.stage_marks(_graph_event) as marks:
+                entry = self._record(fn, static, marks)
         except BaseException:
-            if graph is not None:
-                self._end_broken_capture(dev, stream)
-                graph.reset()
             if not self._entries:
                 self._pool = None
             raise
-        launches = {k: n - before[k] for k, n in kernel_launches().items()}
         self.captures += 1
+        self.warmup_s += t_warm - t0
         self.capture_s += time.perf_counter() - t0
-        return CapturedForward(graph, static, output, launches)
+        return entry
+
+    def _warm_up(self, fn, inputs) -> Tuple[torch.Tensor, ...]:
+        """Static inputs on the card, and one eager forward on them on a side
+        stream, waited for. It builds the kernels' libraries, sets their
+        shared-memory attributes and settles cuDNN's choices, so the capture
+        itself builds, allocates outside the pool and reads back nothing."""
+        dev = torch.device("cuda", torch.cuda.current_device())
+        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs)
+        for dst, src in zip(static, inputs):
+            dst.copy_(src, non_blocking=True)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*static)
+        # the capture synchronises the device as it begins: waiting here
+        # costs nothing, and ends the warm-up where its device work ends
+        side.synchronize()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return static
+
+    def _record(self, fn, static, marks) -> CapturedForward:
+        """Capture ``fn(*static)`` on the pool. ``marks`` (a ``stage_marks``
+        list, or None with no sink) gathers the forward's marks, which
+        become event-record nodes of the graph; such a graph keeps its
+        template, to name them."""
+        dev = static[0].device
+        stream = torch.cuda.current_stream(dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = (torch.cuda.CUDAGraph() if marks is None
+                 else torch.cuda.CUDAGraph(keep_graph=True))
+        before = kernel_launches()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                output = fn(*static)
+            if marks is not None:
+                graph.instantiate()
+        except BaseException:
+            self._end_broken_capture(dev, stream)
+            graph.reset()
+            raise
+        launches = {k: n - before[k] for k, n in kernel_launches().items()}
+        return CapturedForward(graph, static, output, launches,
+                               marks=_MarkNodes.of(graph, marks))
 
     def _end_broken_capture(self, dev: torch.device, stream) -> None:
         """Finish what a failed capture leaves behind. One that CUDA
@@ -473,10 +619,11 @@ class _StagedBatch:
     t_starts: List[float] = field(default_factory=list)
     decode_s: List[float] = field(default_factory=list)
     t_got: float = 0.0  # perf_counter when the consumer took it
+    seq: int = 0  # the engine's count of staged batches: spans' ``batch``
+    label: str = field(init=False)  # "HxW", for spans and histograms
 
-    @property
-    def label(self) -> str:
-        return f"{self.bucket[0]}x{self.bucket[1]}"
+    def __post_init__(self):
+        self.label = f"{self.bucket[0]}x{self.bucket[1]}"
 
 
 @dataclass
@@ -488,6 +635,11 @@ class _Launch:
     done: Any = None   # torch.cuda.Event recorded after the output copy
     start: Any = None  # torch.cuda.Event recorded before the input copy
     ms: Optional[float] = None  # start → done, once waited on
+    # the forward's stage marks (``telemetry.stage_marks``; None with no
+    # sink) and, once waited on, the ms of each stage
+    marks: Optional[List[Tuple[str, Any]]] = None
+    stage_ms: Optional[Dict[str, float]] = None
+    batch: Optional[int] = None  # the staged batch's number, for spans
 
 
 @dataclass
@@ -547,6 +699,7 @@ class InferStats:
     padded_slots: int = 0
     decode_wait_s: float = 0.0  # consumer blocked on the stager queue
     h2d_stage_s: float = 0.0    # stager: pad + stack (host)
+    pin_s: float = 0.0          # consumer: the inputs' copy into pinned memory (CUDA)
     device_batch_s: float = 0.0  # consumer blocked on device results
     stream_s: float = 0.0       # wall time inside stream(), captures included
     compile_s: float = 0.0      # new keys: warm-up and capture (CPU: first use)
@@ -562,6 +715,10 @@ class InferStats:
     # input copy to the end of the output copy) and its valid items
     batch_ms: List[float] = field(default_factory=list)
     batch_valid: List[int] = field(default_factory=list)
+    # aligned with batch_ms: each batch's device ms by model stage, from the
+    # forward's stage marks ({} for a batch without: no sink at capture, or
+    # a forward that marks nothing)
+    stage_ms: List[Dict[str, float]] = field(default_factory=list)
     # (component, bucket label) → histogram: queue_wait, decode and e2e a
     # request, h2d and device a batch (consumer thread only)
     latency: Dict[Tuple[str, str], telemetry.LogHistogram] = field(default_factory=dict)
@@ -769,6 +926,7 @@ class InferenceEngine:
         self._broken: Dict[Tuple[int, int], str] = {}
         self._bucket_cap: Dict[Tuple[int, int], int] = {}
         self._compiled: set = set()  # eager keys past their first use
+        self._batch_seq = itertools.count()  # numbers staged batches (stager)
         self._wait_worker: Optional[_WaitWorker] = None
         self.eager_finalize = bool(eager_finalize)
         self.idle_watchdog = bool(idle_watchdog)
@@ -862,11 +1020,11 @@ class InferenceEngine:
             faultinject.infer_compile_point(key)
             self._compiled.add(key)
 
-    def _compile(self, key, arrays, trace_ids=None) -> None:
+    def _compile(self, key, arrays, trace_ids=None, batch: Optional[int] = None) -> None:
         """Compile a new key (``_build``) and account for it
         (``bucket_compile``). Raises what the compile raises."""
         t0 = time.perf_counter()
-        with telemetry.span("bucket_compile", trace_ids=_span_ids(trace_ids)):
+        with telemetry.span("bucket_compile", batch=batch, trace_ids=trace_ids):
             self._build(key, arrays)
         dt = time.perf_counter() - t0
         self.stats.compile_s += dt
@@ -876,7 +1034,8 @@ class InferenceEngine:
                        cache_size=len(self.graphs) if self.capture else len(self._compiled),
                        trace_ids=trace_ids)
 
-    def _compile_retrying(self, key, bucket, arrays, trace_ids=None) -> Optional[BaseException]:
+    def _compile_retrying(self, key, bucket, arrays, trace_ids=None,
+                          batch: Optional[int] = None) -> Optional[BaseException]:
         """Compile ``key`` within the retry budget, backing off between
         attempts: None once it compiled, else the last failure. An OOM is
         raised at once (the caller halves the batch)."""
@@ -885,7 +1044,7 @@ class InferenceEngine:
             if attempt:
                 self._note_retry("compile", attempt, bucket, last, trace_ids)
             try:
-                self._compile(key, arrays, trace_ids)
+                self._compile(key, arrays, trace_ids, batch)
                 return None
             except Exception as e:  # noqa: BLE001 — a compile failure retries
                 if _is_oom(e):
@@ -905,13 +1064,14 @@ class InferenceEngine:
             if self.aot_store is not None:
                 # not prewarmed: compiled here and stored through below
                 self.aot_store.note_miss(self._store_key(staged.bucket, staged.arrays))
-            last = self._compile_retrying(key, staged.bucket, staged.arrays, staged.trace_ids)
+            last = self._compile_retrying(key, staged.bucket, staged.arrays, staged.trace_ids,
+                                          staged.seq)
             if last is not None:
                 self._open_circuit(staged.bucket, "compile", last, staged.trace_ids)
                 return None
             if self.aot_store is not None:
                 self._aot_save(staged.bucket, staged.arrays)
-        return lambda arrays: self._launch(key, arrays, captured=self.capture)
+        return lambda arrays: self._launch(key, arrays, captured=self.capture, batch=staged.seq)
 
     # ------------------------------------------------------ graph store
 
@@ -1049,22 +1209,33 @@ class InferenceEngine:
 
     # -------------------------------------------------- launch and wait
 
-    def _launch(self, key, arrays: Tuple[np.ndarray, ...], captured: bool) -> _Launch:
+    def _launch(self, key, arrays: Tuple[np.ndarray, ...], captured: bool,
+                batch: Optional[int] = None) -> _Launch:
         """Launch the forward on host ``arrays`` (one batch, or some rows of
-        one): a replay of ``key``'s graph when ``captured``, else eagerly."""
+        one): a replay of ``key``'s graph when ``captured``, else eagerly.
+        ``batch`` is the staged batch's number, for spans."""
         if self.device.type != "cuda":
             inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                            for a in arrays)
-            return _Launch(host=self.forward_fn(*inputs).detach())
-        pinned = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays)
-        launch = _Launch(start=torch.cuda.Event(enable_timing=True))
+            with telemetry.stage_marks(telemetry.HostMark) as marks:
+                out = self.forward_fn(*inputs).detach()
+            return _Launch(host=out, marks=marks, batch=batch)
+        t0 = time.perf_counter()
+        with telemetry.span("dispatch.pin", batch=batch):
+            pinned = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                           for a in arrays)
+        self.stats.pin_s += time.perf_counter() - t0
+        launch = _Launch(start=torch.cuda.Event(enable_timing=True), batch=batch)
         if captured:
             entry = self.graphs.get(key, self.forward_fn, pinned)
+            launch.marks = self.graphs.arm_marks(entry)
             launch.start.record()
             out = self.graphs.replay(entry, pinned)
         else:
             launch.start.record()
-            out = self.forward_fn(*(x.to(self.device, non_blocking=True) for x in pinned))
+            with telemetry.stage_marks(_timing_event) as marks:
+                out = self.forward_fn(*(x.to(self.device, non_blocking=True) for x in pinned))
+            launch.marks = marks
         # a static output is overwritten by the next replay: copy it out on
         # the stream now
         launch.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -1081,14 +1252,17 @@ class InferenceEngine:
         wait past the deadline raises ``_WatchdogTimeout`` (the batch fails)
         and the wedged worker is abandoned. The injected hang and OOM
         (``faultinject.infer_wait_point``) fire on the same thread, where
-        real device errors surface."""
+        real device errors surface. Once the output is in, the launch's
+        stage marks have all been recorded: their times are read here."""
 
         def wait():
-            with telemetry.span("device_wait", trace_ids=_span_ids(trace_ids)):
+            with telemetry.span("device_wait", batch=launch.batch, trace_ids=trace_ids):
                 faultinject.infer_wait_point(batch_size)
                 if launch.done is not None:
                     launch.done.synchronize()
                     launch.ms = launch.start.elapsed_time(launch.done)
+                if launch.marks:
+                    launch.stage_ms = telemetry.stage_ms(launch.marks)
                 return launch.host.numpy()
 
         if self.deadline_s is None:
@@ -1130,11 +1304,11 @@ class InferenceEngine:
                     # not stored through: a halved key is the card's memory
                     # state, not the engine's serving plan. Its capture
                     # retries as the serving plan's does
-                    failed = self._compile_retrying(key, staged.bucket, rows, ids)
+                    failed = self._compile_retrying(key, staged.bucket, rows, ids, staged.seq)
                     if failed is not None:
                         raise failed
-                host = self._wait_device(self._launch(key, rows, self.capture and halving), b,
-                                         ids)
+                host = self._wait_device(
+                    self._launch(key, rows, self.capture and halving, staged.seq), b, ids)
             except _WatchdogTimeout:
                 raise
             except Exception as e:  # noqa: BLE001 — halve on OOM only
@@ -1198,12 +1372,14 @@ class InferenceEngine:
     # ----------------------------------------------------------- stager
 
     def _stage(self, items: List[_Decoded], bucket) -> _StagedBatch:
-        """Pack one bucket's items into a fixed micro-batch on the host."""
+        """Pack one bucket's items into a fixed micro-batch on the host,
+        numbered by the engine's count of staged batches (stager thread)."""
         valid = len(items)
         items = items + [items[-1]] * (self.batch - valid)  # filler, masked by ``valid``
         trace_ids = [x.trace_id for x in items[:valid]]
+        seq = next(self._batch_seq)
         t0 = time.perf_counter()
-        with telemetry.span("h2d_stage", trace_ids=_span_ids(trace_ids)):
+        with telemetry.span("h2d_stage", batch=seq, trace_ids=trace_ids):
             padder = BatchPadder([x.arrays[0].shape[:2] for x in items],
                                  divis_by=self.divis_by, divis_h=self.divis_h)
             arrays = tuple(padder.pad([x.arrays[k] for x in items])
@@ -1212,7 +1388,7 @@ class InferenceEngine:
                             padder=padder, arrays=arrays, valid=valid,
                             stage_s=time.perf_counter() - t0, trace_ids=trace_ids,
                             t_starts=[x.t_start for x in items[:valid]],
-                            decode_s=[x.decode_s for x in items[:valid]])
+                            decode_s=[x.decode_s for x in items[:valid]], seq=seq)
 
     def _stage_put(self, put, items: List[_Decoded], bucket) -> bool:
         """Stage one micro-batch; a staging failure fails its requests only."""
@@ -1243,7 +1419,8 @@ class InferenceEngine:
             acc: Dict[Tuple[int, int], List[_Decoded]] = {}
             it = iter(requests)
             while not stop.is_set():
-                with telemetry.span("decode"):
+                # the caller's request source: a stall there shows here
+                with telemetry.span("request_source"):
                     try:
                         req = next(it)
                     except StopIteration:
@@ -1358,7 +1535,8 @@ class InferenceEngine:
                     self.stats.underruns += 1
                     telemetry.emit("stager_underrun", wait_ms=round(wait_s * 1e3, 1))
                 item.wait_s, item.t_got = wait_s, t_got
-                dispatched = self._dispatch(item)
+                with telemetry.span("dispatch", batch=item.seq, trace_ids=item.trace_ids):
+                    dispatched = self._dispatch(item)
                 self._account(item)
                 if pending is not None:
                     yield from self._finalize(pending)
@@ -1420,8 +1598,8 @@ class InferenceEngine:
         # from the wait on (not from the dispatch)
         t0 = time.perf_counter()
         try:
-            with telemetry.span("device_batch", bucket=staged.label,
-                                trace_ids=_span_ids(staged.trace_ids)):
+            with telemetry.span("device_batch", batch=staged.seq, bucket=staged.label,
+                                trace_ids=staged.trace_ids):
                 if run is None:
                     host, launch = self._run_degraded(staged, *out), None
                 else:
@@ -1437,6 +1615,11 @@ class InferenceEngine:
         if launch is not None and launch.ms is not None:
             self.stats.batch_ms.append(launch.ms)
             self.stats.batch_valid.append(staged.valid)
+            self.stats.stage_ms.append(launch.stage_ms or {})
+        if launch is not None and launch.stage_ms:
+            for stage, ms in launch.stage_ms.items():
+                telemetry.observe("infer_stage_device_seconds", ms / 1e3, stage=stage,
+                                  bucket=staged.label)
         telemetry.emit("infer_batch_commit", bucket=list(staged.bucket), valid=staged.valid,
                        padded=self.batch - staged.valid, wait_ms=round(staged.wait_s * 1e3, 1),
                        h2d_ms=round(staged.stage_s * 1e3, 1),

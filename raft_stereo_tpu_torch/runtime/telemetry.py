@@ -6,8 +6,17 @@ latency metrics (the port's own copy of ``raft_stereo_tpu/runtime/telemetry.py``
     payload), named in ``EVENT_SCHEMA``; per-event counters are folded into
     ``MetricLogger`` rows as ``event/<name>``.
   * **Host spans** (``span("name")``): a ``perf_counter_ns`` pair and an
-    append; flushed as a Chrome trace (``<run_dir>/trace_host.json``) with
-    named thread lanes.
+    append, with the span's number and its parent's (the innermost span
+    open on its thread); flushed as a Chrome trace
+    (``<run_dir>/trace_host.json``) with named thread lanes, on
+    ``torch.profiler``'s clock: the sink's ``anchor`` (a monotonic and a
+    Unix-epoch reading of one instant, taken at ``install``) converts
+    each span, so the file lines up with a profiler trace of the same run
+    (``spans()``, ``idle_by_span``).
+  * **Stage marks** (``stage_marks``/``mark``): the boundaries a forward
+    marks on the device stream (events: under a CUDA graph capture, the
+    graph's event-record nodes), collected only while a sink is installed;
+    ``stage_ms`` reads the times between them.
   * **Run health** (``<run_dir>/heartbeat.json``): replaced atomically (tmp,
     fsync, rename) with the step, rate, checkpoint, counters, latency
     percentiles and, on the card, ``torch.cuda.memory_stats()`` under the JAX
@@ -33,7 +42,9 @@ the ``heartbeat_write`` crash point between its tmp write and its rename.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
+import itertools
 import json
 import logging
 import math
@@ -42,7 +53,7 @@ import random
 import threading
 import time
 from collections import Counter
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 from raft_stereo_tpu_torch.runtime import faultinject
 
@@ -645,12 +656,47 @@ class SLOTracker:
 # trace must not read as "the run stopped doing work here".
 MAX_SPANS = 200_000
 
+# Trace ids a span keeps of its batch's list (spans stay in memory until
+# flushed; events carry the full list).
+SPAN_TRACE_IDS = 8
+
 # Flight-recorder depth: the last N event records, full payloads,
 # kept in memory independent of file flushing — what a blackbox dump can
 # still produce when events.jsonl was never flushed (or never configured).
 # 512 records is minutes of serving history at typical event rates for
 # well under a megabyte.
 RING_CAPACITY = 512
+
+
+def clock_anchor(tries: int = 5) -> Tuple[int, int]:
+    """(``perf_counter_ns``, ``time_ns``) of one instant. Spans stamp the
+    first (CLOCK_MONOTONIC); ``torch.profiler`` stamps its host and device
+    events in Unix-epoch nanoseconds (CLOCK_REALTIME), the second. The
+    tightest of ``tries`` bracketed reads: the monotonic reading is the
+    middle of the two around the epoch one."""
+    best = None
+    for _ in range(tries):
+        a = time.perf_counter_ns()
+        w = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, w)
+    return best[1], best[2]
+
+
+class Span(NamedTuple):
+    """One recorded span: ``t0`` (``perf_counter_ns``) and ``dur`` in ns;
+    ``sid`` its number in the sink (from 1) and ``parent`` the number of
+    the innermost span open on its thread when it began (0: none)."""
+
+    name: str
+    tid: int
+    thread: str
+    t0: int
+    dur: int
+    args: Optional[dict]
+    sid: int
+    parent: int
 
 
 class Telemetry:
@@ -671,9 +717,14 @@ class Telemetry:
         self._events_path = os.path.join(self.run_dir, EVENTS_NAME)
         self._events_f = open(self._events_path, "a")
         self._counters: Counter = Counter()
-        self._spans: List[Tuple[str, int, str, int, int, Optional[dict]]] = []
+        self._spans: List[Span] = []
         self._max_spans = max_spans
         self._spans_dropped = 0
+        self._span_ids = itertools.count(1)
+        self._open = threading.local()  # per thread: the numbers of its open spans
+        # (monotonic ns, profiler-clock ns) of one instant; ``install`` takes
+        # it again
+        self.anchor = clock_anchor()
         self._write_errors = 0
         self._closed = False
         # flight recorder: a bounded ring of the last N full event
@@ -780,21 +831,45 @@ class Telemetry:
 
     @contextlib.contextmanager
     def span(self, name: str, /, **args) -> Iterator[None]:
-        """Time a host-side region into the Chrome trace (near-zero cost)."""
+        """Time a host-side region into the Chrome trace (near-zero cost).
+        A ``trace_ids`` list is kept to its first ``SPAN_TRACE_IDS``."""
+        sid = next(self._span_ids)
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        parent = stack[-1] if stack else 0
+        stack.append(sid)
         t0 = time.perf_counter_ns()
         try:
             yield
         finally:
             dur = time.perf_counter_ns() - t0
+            stack.pop()
+            ids = args.get("trace_ids")
+            if ids and len(ids) > SPAN_TRACE_IDS:
+                args["trace_ids"] = (list(ids[:SPAN_TRACE_IDS])
+                                     + [f"+{len(ids) - SPAN_TRACE_IDS} more"])
             thread = threading.current_thread()
             with self._lock:
                 if len(self._spans) >= self._max_spans:
                     self._spans_dropped += 1
                 else:
-                    self._spans.append(
-                        (name, thread.ident or 0, thread.name, t0, dur,
-                         args or None)
-                    )
+                    self._spans.append(Span(name, thread.ident or 0, thread.name, t0, dur,
+                                            args or None, sid, parent))
+
+    def profiler_ns(self, mono_ns: int) -> int:
+        """A ``perf_counter_ns`` reading on ``torch.profiler``'s clock."""
+        return mono_ns - self.anchor[0] + self.anchor[1]
+
+    def spans(self) -> List[Dict[str, Any]]:
+        """The recorded spans on the profiler's clock: ``name``, ``thread``
+        (its name), ``start_ns``, ``end_ns``, ``id``, ``parent`` and
+        ``args``."""
+        with self._lock:
+            spans = list(self._spans)
+        return [{"name": sp.name, "thread": sp.thread, "start_ns": self.profiler_ns(sp.t0),
+                 "end_ns": self.profiler_ns(sp.t0 + sp.dur), "id": sp.sid, "parent": sp.parent,
+                 "args": sp.args} for sp in spans]
 
     def flush_trace(self) -> None:
         """Atomically (re)write ``trace_host.json`` in Chrome trace format.
@@ -809,20 +884,18 @@ class Telemetry:
             dropped = self._spans_dropped
         events: List[dict] = []
         seen_tids = {}
-        for name, tid, tname, t0, dur, args in spans:
-            if tid not in seen_tids:
-                seen_tids[tid] = tname
-            ev = {
-                "name": name,
+        for sp in spans:
+            if sp.tid not in seen_tids:
+                seen_tids[sp.tid] = sp.thread
+            events.append({
+                "name": sp.name,
                 "ph": "X",
-                "ts": t0 / 1e3,  # perf_counter_ns -> microseconds
-                "dur": dur / 1e3,
+                "ts": self.profiler_ns(sp.t0) / 1e3,  # the profiler's clock, µs
+                "dur": sp.dur / 1e3,
                 "pid": self.host,
-                "tid": tid,
-            }
-            if args:
-                ev["args"] = args
-            events.append(ev)
+                "tid": sp.tid,
+                "args": {**(sp.args or {}), "span_id": sp.sid, "parent_id": sp.parent},
+            })
         meta = [
             {"name": "process_name", "ph": "M", "pid": self.host, "tid": 0,
              "args": {"name": f"host {self.host}"}},
@@ -834,7 +907,10 @@ class Telemetry:
         doc = {
             "traceEvents": meta + events,
             "displayTimeUnit": "ms",
-            "otherData": {"spans": len(events), "spans_dropped": dropped},
+            "otherData": {"spans": len(events), "spans_dropped": dropped,
+                          # ts = perf_counter_ns - anchor[0] + anchor[1], in µs:
+                          # Unix-epoch time, torch.profiler's time base
+                          "clock": "unix_epoch", "anchor_ns": list(self.anchor)},
         }
         path = os.path.join(self.run_dir, TRACE_NAME)
         tmp = path + ".tmp"
@@ -960,8 +1036,11 @@ _current: Optional[Telemetry] = None
 
 
 def install(tel: Optional[Telemetry]) -> Optional[Telemetry]:
-    """Make ``tel`` the process-wide telemetry sink (None to clear)."""
+    """Make ``tel`` the process-wide telemetry sink (None to clear), and take
+    its clock anchor."""
     global _current
+    if tel is not None:
+        tel.anchor = clock_anchor()
     _current = tel
     return tel
 
@@ -990,12 +1069,16 @@ def emit(name: str, /, step: Optional[int] = None, **payload) -> None:
         tel.event(name, step=step, **payload)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def span(name: str, /, **args):
-    """Span on the installed sink; a free nullcontext when none installed."""
+    """Span on the installed sink; a shared nullcontext when none installed.
+    Pass args that cost nothing to build (the sink bounds ``trace_ids``)."""
     tel = _current
     if tel is not None:
         return tel.span(name, **args)
-    return contextlib.nullcontext()
+    return _NO_SPAN
 
 
 def metrics_registry() -> Optional[MetricsRegistry]:
@@ -1034,6 +1117,130 @@ def observe_slo(tier: str, seconds: Optional[float], ok: bool = True) -> None:
     tel = _current
     if tel is not None and tel.slo is not None:
         tel.slo.observe(tier, seconds, ok=ok)
+
+
+# ------------------------------------------------------------ stage marks
+
+# per thread: (event factory, the marks collected) of the open
+# ``stage_marks`` block
+_marks = threading.local()
+
+
+class HostMark:
+    """A stage mark on the host clock, for a forward that runs on the host
+    (the CPU): a device event's ``record`` and ``elapsed_time`` (ms)."""
+
+    __slots__ = ("ns",)
+
+    def __init__(self):
+        self.ns = 0
+
+    def record(self) -> None:
+        self.ns = time.perf_counter_ns()
+
+    def elapsed_time(self, end: "HostMark") -> float:
+        return (end.ns - self.ns) / 1e6
+
+
+@contextlib.contextmanager
+def stage_marks(factory: Callable[[], Any]) -> Iterator[Optional[List[Tuple[str, Any]]]]:
+    """Collect the stage marks (``mark``) that a forward records on this
+    thread inside the block: yields the list of (stage, event) pairs, or
+    None when no sink is installed, and then the forward records nothing.
+    ``factory`` makes one event (``record()``, ``elapsed_time(end)`` in
+    ms): ``torch.cuda.Event(enable_timing=True, external=True)`` under a
+    CUDA graph capture, where each record becomes an event-record node of
+    the graph; a timing event for an eager forward on the card;
+    ``HostMark`` on the host."""
+    if _current is None:
+        yield None
+        return
+    prev = getattr(_marks, "active", None)
+    active = _marks.active = (factory, [])
+    try:
+        yield active[1]
+    finally:
+        _marks.active = prev
+
+
+def mark(stage: str) -> None:
+    """Record the end of ``stage`` on the current stream into this thread's
+    open ``stage_marks`` block; a no-op outside one."""
+    active = getattr(_marks, "active", None)
+    if active is not None:
+        ev = active[0]()
+        ev.record()
+        active[1].append((stage, ev))
+
+
+def stage_ms(marks: Sequence[Tuple[str, Any]]) -> Dict[str, float]:
+    """The ms between consecutive marks, each named by the later one (its
+    stage); {} for fewer than two. Every event must have completed."""
+    return {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
+
+
+# -------------------------------------------- idle device time by span
+
+OUTSIDE = "outside the program"
+
+
+def _innermost(spans) -> List[Tuple[int, int, str]]:
+    """One thread's spans [(start, end, name)], nested, as disjoint
+    segments [(start, end, name)] of the innermost span open."""
+    segs: List[Tuple[int, int, str]] = []
+    stack: List[Tuple[int, str]] = []  # (end, name), innermost last
+    cursor = 0
+    for s, e, n in sorted(spans, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][0] <= s:
+            end, name = stack.pop()
+            segs.append((cursor, end, name))
+            cursor = end
+        if stack:
+            segs.append((cursor, s, stack[-1][1]))
+            e = min(e, stack[-1][0])
+        stack.append((e, n))
+        cursor = s
+    while stack:
+        end, name = stack.pop()
+        segs.append((cursor, end, name))
+        cursor = end
+    return [x for x in segs if x[1] > x[0]]
+
+
+def idle_by_span(busy: Sequence[Tuple[int, int]], window: Tuple[int, int],
+                 lanes: Sequence[Sequence[Tuple[int, int, str]]]
+                 ) -> Dict[Tuple[str, ...], int]:
+    """Every idle nanosecond of ``window`` (the gaps between the ``busy``
+    intervals, e.g. a profiler trace's kernels and copies) attributed once,
+    to the innermost span of each lane (one thread's spans, [(start, end,
+    name)]) open at that instant, ``OUTSIDE`` where none is: {(lane 0's
+    name, lane 1's, ...): ns}. All times on one clock (``spans()`` gives
+    the profiler's); the values sum to the window's idle time."""
+    w0, w1 = window
+    idle, cursor = [], w0
+    for s, e in sorted(busy):
+        s, e = min(max(s, w0), w1), min(e, w1)
+        if e <= cursor:
+            continue
+        if s > cursor:
+            idle.append((cursor, s))
+        cursor = e
+    if cursor < w1:
+        idle.append((cursor, w1))
+    segs = [_innermost(lane) for lane in lanes]
+    starts = [[x[0] for x in sg] for sg in segs]
+    bounds = sorted({t for sg in segs for x in sg for t in x[:2]})
+    out: Dict[Tuple[str, ...], int] = {}
+    for a, b in idle:
+        cuts = [a] + bounds[bisect.bisect_right(bounds, a):bisect.bisect_left(bounds, b)] + [b]
+        for p, q in zip(cuts, cuts[1:]):
+            key = []
+            for sg, st in zip(segs, starts):
+                i = bisect.bisect_right(st, p) - 1
+                key.append(sg[i][2] if i >= 0 and sg[i][1] > p else OUTSIDE)
+            key = tuple(key)
+            out[key] = out.get(key, 0) + (q - p)
+    return out
 
 
 # ------------------------------------------------------- recompile detector
@@ -1167,22 +1374,29 @@ __all__ = [
     "HEARTBEAT_NAME",
     "HIST_GROWTH",
     "HIST_MIN",
+    "HostMark",
     "LogHistogram",
     "MAX_SPANS",
     "METRICS_PROM_NAME",
     "MetricsRegistry",
+    "OUTSIDE",
     "RING_CAPACITY",
     "SLOTracker",
+    "SPAN_TRACE_IDS",
+    "Span",
     "TRACE_NAME",
     "ProfileWindow",
     "RecompileDetector",
     "Telemetry",
+    "clock_anchor",
     "declared_events",
     "device_memory_stats",
     "emit",
     "get",
+    "idle_by_span",
     "inc_metric",
     "install",
+    "mark",
     "metrics_registry",
     "new_trace_id",
     "observe",
@@ -1190,5 +1404,7 @@ __all__ = [
     "parse_profile_steps",
     "set_gauge",
     "span",
+    "stage_marks",
+    "stage_ms",
     "uninstall",
 ]

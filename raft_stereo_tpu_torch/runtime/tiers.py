@@ -283,12 +283,13 @@ class TierSet:
         for engine in self.engines.values():
             s = engine.stats
             for name in ("images", "failed", "batches", "padded_slots", "decode_wait_s",
-                         "h2d_stage_s", "device_batch_s", "stream_s", "compile_s",
+                         "h2d_stage_s", "pin_s", "device_batch_s", "stream_s", "compile_s",
                          "compiles", "prewarmed", "underruns", "retries", "degraded",
                          "watchdog_trips", "circuits_open"):
                 setattr(out, name, getattr(out, name) + getattr(s, name))
             out.batch_ms.extend(s.batch_ms)
             out.batch_valid.extend(s.batch_valid)
+            out.stage_ms.extend(s.stage_ms)
             for bucket, n in s.buckets.items():
                 out.buckets[bucket] = out.buckets.get(bucket, 0) + n
             for key, hist in s.latency.items():

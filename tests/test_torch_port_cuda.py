@@ -840,3 +840,84 @@ def test_chaos_seed_green_on_the_card(tmp_path):
 
     violations, rc = chaos.run_trial(chaos.make_spec(0), str(tmp_path), device="cuda")
     assert rc == 0 and violations == [], violations
+
+
+def test_stage_marks_split_each_replay_of_a_pipelined_stream(tmp_path):
+    """With a sink installed at capture, the graph's stage marks are
+    event-record nodes re-pointed before each replay: every batch of two
+    streams (batch N+1 replayed before batch N is read) gets its own
+    encode/refine/final split, whose sum is within 3% of the batch's CUDA
+    event time (the input and output copies are the rest). The pinned copy
+    and the warm-up are counted."""
+    _cuda()
+    from raft_stereo_tpu_torch.runtime import telemetry
+
+    tel = telemetry.install(telemetry.Telemetry(str(tmp_path)))
+    try:
+        model = load_model(PRESETS["raftstereo-middlebury"], seed=5)
+        engine = make_engine(model, 32, InferOptions(batch=2))
+        reqs = _engine_requests([(384, 640)] * 8, seed=5)
+        # two streams: the second re-points nodes whose last launch is gone
+        assert all(r.ok for r in engine.stream(iter(reqs[:4])))
+        assert all(r.ok for r in engine.stream(iter(reqs[4:])))
+    finally:
+        telemetry.uninstall(tel)
+    s, graphs = engine.stats, engine.graphs
+    assert s.degraded == 0 and s.retries == 0
+    assert len(s.stage_ms) == len(s.batch_ms) == 4
+    for stages, ms in zip(s.stage_ms, s.batch_ms):
+        assert list(stages) == ["encode", "refine", "final"], stages
+        assert all(v > 0 for v in stages.values())
+        assert 0.97 * ms <= sum(stages.values()) <= ms, (s.stage_ms, s.batch_ms)
+    assert s.pin_s > 0
+    assert 0 < graphs.warmup_s < graphs.capture_s
+    names = {sp["name"] for sp in tel.spans()}
+    assert {"graph.warmup", "graph.capture", "dispatch.pin", "dispatch"} <= names
+
+
+def test_no_sink_captures_no_marks():
+    _cuda()
+    model = load_model(PRESETS["raftstereo-realtime"], seed=5)
+    engine = make_engine(model, 3, InferOptions(batch=2))
+    assert all(r.ok for r in engine.stream(iter(_engine_requests([(60, 100)] * 4, seed=5))))
+    (key, entry), = engine.graphs.items()
+    assert entry.marks is None and engine.graphs.arm_marks(entry) is None
+    assert engine.stats.stage_ms == [{}, {}] and len(engine.stats.batch_ms) == 2
+
+
+def test_a_marked_graph_replays_and_evicts_cleanly(tmp_path):
+    """A captured forward with marks: each replay's marks time its own
+    stages; evicting it resets a graph whose nodes were re-pointed."""
+    dev = _cuda()
+    from raft_stereo_tpu_torch.runtime import telemetry
+
+    w = torch.randn(1024, 1024, device=dev)
+
+    def fn(t):
+        telemetry.mark("start")
+        t = t @ w
+        telemetry.mark("encode")
+        for _ in range(4):
+            t = t @ w
+        telemetry.mark("refine")
+        return t
+
+    tel = telemetry.install(telemetry.Telemetry(str(tmp_path)))
+    try:
+        cache = GraphCache(max_entries=1)
+        x = torch.randn(1024, 1024, device=dev)
+        entry = cache.get("a", fn, (x,))
+        armed = []
+        for _ in range(3):
+            armed.append(cache.arm_marks(entry))
+            cache.replay(entry, (x,))
+        torch.cuda.synchronize()
+        for marks in armed:
+            ms = telemetry.stage_ms(marks)
+            assert list(ms) == ["encode", "refine"] and 0 < ms["encode"] < ms["refine"]
+        del armed
+        cache.run("b", lambda t: t * 2, (x,))
+        torch.cuda.synchronize()
+        assert "a" not in cache and cache.evictions == 1
+    finally:
+        telemetry.uninstall(tel)
