@@ -1,10 +1,19 @@
 """RAFT-Stereo, test-mode inference and the train-mode forward (PyTorch
 port of ``raft_stereo_tpu/models/raft_stereo.py:117-479``).
 
-Images enter channel-last [B, H, W, 3] in [0, 255]; inside, the modules run
-NCHW. Under mixed precision the encoders and the GRU cascade compute in
-bf16, while the correlation features, the x-flow state and the upsampling
-stay fp32.
+Images enter channel-last [B, H, W, 3] in [0, 255]. Inside, shapes are
+logical NCHW and memory is channels-last: the permuted image makes every
+encoder activation NHWC. Under mixed precision the refinement iteration
+keeps every tensor it makes or reads dense NHWC too (hidden states,
+context gate biases, the correlation window, the flow input, motion
+features, cats and gate products), so cuDNN's NHWC kernels run with no
+transpose and no op mixes memory formats. In fp32 the flow enters NCHW,
+which takes the finest GRU level, the motion encoder's flow branch and
+the heads to NCHW (see ``_step``).
+
+Under mixed precision the encoders and the GRU cascade compute in bf16,
+while the correlation features, the x-flow state and the upsampling stay
+fp32.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import torch.utils.checkpoint
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models.extractor import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.models.layers import ResidualBlock, conv
-from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.models.update import BasicMultiUpdateBlock, _conv_x
 from raft_stereo_tpu_torch.ops import fused_update
 from raft_stereo_tpu_torch.ops.corr import make_corr_fn
 from raft_stereo_tpu_torch.ops.sampling import convex_upsample, coords_grid, interp_bilinear
@@ -29,6 +38,13 @@ from raft_stereo_tpu_torch.runtime import telemetry
 # Above this many input pixels the fnet runs one image at a time: the
 # batched pair would hold both images' full-resolution activations at once.
 TWO_CALL_FNET_PIXELS = 2_000_000
+
+
+def _gate_biases(zqr: nn.Conv2d, x: torch.Tensor):
+    """(cz, cr, cq) = the three thirds of ``zqr(x)``'s channels, as three
+    convs, each output its own tensor in x's memory format."""
+    n = zqr.out_channels // 3
+    return tuple(_conv_x(zqr, x, out_slice=slice(i * n, (i + 1) * n)) for i in range(3))
 
 
 class RAFTStereo(nn.Module):
@@ -96,11 +112,11 @@ class RAFTStereo(nn.Module):
                 fmap1, fmap2 = self.fnet(torch.cat([image1, image2], dim=0)).chunk(2, dim=0)
 
         net = [torch.tanh(o[0]) for o in cnet_list]
-        # context gate biases (cz, cr, cq), computed once per pair
-        inp = [
-            tuple(zqr(torch.relu(o[1])).chunk(3, dim=1))
-            for zqr, o in zip(self.context_zqr_convs, cnet_list)
-        ]
+        # context gate biases (cz, cr, cq), computed once per pair, one conv
+        # on each third of context_zqr_convs' weights: each comes out dense
+        # channels-last, where chunks of one output would be strided views
+        inp = [_gate_biases(zqr, torch.relu(o[1]))
+               for zqr, o in zip(self.context_zqr_convs, cnet_list)]
 
         corr_fn = make_corr_fn(corr_backend, fmap1.permute(0, 2, 3, 1),
                                fmap2.permute(0, 2, 3, 1), cfg.corr_levels, cfg.corr_radius)
@@ -116,8 +132,15 @@ class RAFTStereo(nn.Module):
         cfg = self.config
         dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         n_layers = cfg.n_gru_layers
+        # NHWC views of [B, H, W, C] tensors: with both, the motion
+        # encoder's cat stays channels-last, as does all that follows. fp32
+        # keeps the flow NCHW: the fp32 gradients are held to the JAX
+        # package's on the CPU, where a channels-last finest level rounds
+        # differently enough to flip relus that lie within rounding of zero
+        # at those tests' inputs.
         corr = corr_fn(coords0_x + flow_x).to(dtype).permute(0, 3, 1, 2)
-        flow = flow_x[:, None].to(dtype)
+        flow = (flow_x[..., None].to(dtype).permute(0, 3, 1, 2) if cfg.mixed_precision
+                else flow_x[:, None])
         net = self._slow_fast(net, inp)
         net, up_mask, delta = self.update_block(
             net, inp, corr, flow, iter32=n_layers == 3, iter16=n_layers >= 2,
@@ -224,8 +247,8 @@ class RAFTStereo(nn.Module):
         inp16 = None
         if n_layers > 1:
             inp16 = interp_bilinear(net[1], net[0].shape[-2:]).permute(0, 2, 3, 1)
-        # h' comes back channel-last; net[0] keeps it as an NCHW view, so
-        # the next step passes it to the kernel without a copy.
+        # h' comes back [B, H, W, C]; net[0] keeps it as a channels-last
+        # view, so the next step passes it to the kernel without a copy.
         h_new, delta = fused_update.fused_refine_step(
             packed, corr_fn.fmap1, corr_fn.fmap2_pyramid, flow_x, net[0].permute(0, 2, 3, 1),
             inp16, ctx, self.config.corr_radius, compute_dtype=dtype,

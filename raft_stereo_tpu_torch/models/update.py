@@ -1,6 +1,9 @@
 """Iterative update block: motion encoder + multi-level ConvGRU cascade
-(PyTorch port of ``raft_stereo_tpu/models/update.py``), NCHW, with the
-reference's module names.
+(PyTorch port of ``raft_stereo_tpu/models/update.py``), with the
+reference's module names. Shapes are logical NCHW; the modules keep their
+inputs' memory format. Under mixed precision the model's refinement
+iteration gives them dense channels-last inputs only (``RAFTStereo._step``),
+so the convs, cats and gate products all run on NHWC memory.
 
 Stereo flow has no y component, so the loop carries only the x-flow
 [B, 1, H, W]. The motion encoder feeds ``convf1`` the x channel alone and

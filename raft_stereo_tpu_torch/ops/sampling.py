@@ -1,8 +1,9 @@
 """Grids, bilinear resize, pooling and convex upsampling (PyTorch port of
 ``raft_stereo_tpu/ops/sampling.py``).
 
-Layouts: ``interp_bilinear`` and ``avg_pool2x`` work on the NCHW tensors
-inside the modules; ``coords_grid``, ``avg_pool_w2``, ``bilinear_sampler``,
+Layouts: ``interp_bilinear`` and ``avg_pool2x`` work on the NCHW-shaped
+tensors inside the modules, in their memory format (channels-last in the
+refinement iteration); ``coords_grid``, ``avg_pool_w2``, ``bilinear_sampler``,
 ``bilinear_upsample``, ``upflow``, ``convex_upsample`` and ``gauss_blur``
 keep the JAX package's channel-last layout, the layout the correlation
 state and the model's outputs use.

@@ -423,3 +423,55 @@ def test_idle_by_span_attributes_every_idle_unit_once(seed):
     assert got == _brute(busy, window, lanes)
     idle = sum(1 for t in range(*window) if not any(s <= t < e for s, e in busy))
     assert sum(got.values()) == idle
+
+
+def _trace_cell():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / "trace_cell.py"
+    spec = importlib.util.spec_from_file_location("trace_cell_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# device operation names as torch.profiler reports them on an H100
+_TRACED_OPS = {
+    "void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast<"
+    "at::native::CUDAFunctor_add<c10::BFloat16> >(at::TensorIteratorBase&, "
+    "at::native::CUDAFunctor_add<c10::BFloat16> const&)::{lambda(int)#1}>(int, "
+    "at::native::gpu_kernel_impl_nocast<at::native::CUDAFunctor_add<c10::BFloat16> >"
+    "(at::TensorIteratorBase&, at::native::CUDAFunctor_add<c10::BFloat16> const&)"
+    "::{lambda(int)#1})": {"count": 10, "seconds": 0.5},
+    "void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl<"
+    "at::native::sigmoid_kernel_cuda(at::TensorIteratorBase&)::{lambda()#2}::operator()"
+    "() const>(int)": {"count": 2, "seconds": 0.25},
+    "void at::native::vectorized_elementwise_kernel<8, at::native::CUDAFunctor_add<"
+    "c10::BFloat16>, std::array<char*, 3ul> >(int, at::native::CUDAFunctor_add<"
+    "c10::BFloat16>, std::array<char*, 3ul>)": {"count": 40, "seconds": 1.0},
+    "void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda("
+    "at::TensorIteratorBase&)::{lambda()#3}>(int)": {"count": 4, "seconds": 0.125},
+    "void at::native::reduce_kernel<128, 4, at::native::ReduceOp<float, "
+    "at::native::MeanOps<float, float, float, float>, unsigned int, float, 4> >"
+    "(at::native::ReduceOp<float>)": {"count": 1, "seconds": 0.75},
+    "void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, __nv_bfloat16, "
+    "float, false, true, (cudnnKernelDataType_t)0>(cudnn::engines_precompiled::"
+    "nchw2nhwc_params_t<float>, __nv_bfloat16 const*, __nv_bfloat16*)":
+        {"count": 8, "seconds": 0.0625},
+    "void cudnn::engines_precompiled::nhwcToNchwKernel<__nv_bfloat16, __nv_bfloat16, "
+    "float, true, false, (cudnnKernelDataType_t)0>(cudnn::engines_precompiled::"
+    "nhwc2nchw_params_t<float>, __nv_bfloat16 const*, __nv_bfloat16*)":
+        {"count": 8, "seconds": 0.03125},
+    "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64"
+    "_warpgroupsize1x1x1_g1_execute_segment_k_off_kernel__5x_cudnn":
+        {"count": 16, "seconds": 2.0},
+}
+
+
+def test_trace_cell_sums_layout_and_strided_kernels_a_pair():
+    got = _trace_cell().kernel_family_ms(_TRACED_OPS, pairs=4)
+    assert got == {"layout_convert_ms_per_pair": 1e3 * 0.09375 / 4,
+                   "strided_elementwise_ms_per_pair": 1e3 * 0.75 / 4}
+    assert _trace_cell().kernel_family_ms({}, pairs=4) == {
+        "layout_convert_ms_per_pair": 0.0, "strided_elementwise_ms_per_pair": 0.0}

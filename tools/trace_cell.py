@@ -11,6 +11,12 @@ and comparison), and its result line comes first. Then one line
   * always: ``pairs_per_s``, ``device_ms_per_pair`` (the engine's CUDA
     events around each full batch) and ``pin_ms_per_pair``
     (``InferStats.pin_s``);
+  * with ``--trace 1``: ``layout_convert_ms_per_pair`` (cuDNN's
+    ``nchwToNhwc`` and ``nhwcToNchw`` transposes around a conv on NCHW
+    memory) and ``strided_elementwise_ms_per_pair`` (PyTorch's
+    non-vectorised ``elementwise_kernel<128, 4>``, which element-wise ops
+    with strided or mixed-format operands fall back to): device time a
+    pair over the traced window, by kernel name;
   * with ``--sink``: ``encode_ms_per_pair`` and ``refine_ms_per_iter``
     (the captured forward's stage marks, ``InferStats.stage_ms``),
     ``stage_sum_pct`` (encode + (iters-1) x refine + final over the batch's
@@ -39,6 +45,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -49,6 +56,12 @@ if str(ROOT) not in sys.path:
 from raft_stereo_tpu_torch.runtime import telemetry  # noqa: E402
 
 CONSUMER, STAGER = "MainThread", "infer-stager"
+
+# kernel-name patterns of the traced window's device time a pair
+KERNEL_FAMILIES = {
+    "layout_convert_ms_per_pair": re.compile(r"nchwToNhwc|nhwcToNchw"),
+    "strided_elementwise_ms_per_pair": re.compile(r"(?<![A-Za-z_])elementwise_kernel<128, 4\b"),
+}
 
 
 def keep_device_intervals(harness, store: dict) -> None:
@@ -130,12 +143,21 @@ def window_report(spans, kept: dict) -> dict:
     return out
 
 
+def kernel_family_ms(ops: dict, pairs: int) -> dict:
+    """Device ms a pair of each ``KERNEL_FAMILIES`` pattern, summed over the
+    traced operations (``{name: {"count", "seconds"}}``) it matches."""
+    return {key: 1e3 * sum(v["seconds"] for n, v in ops.items() if pat.search(n)) / pairs
+            for key, pat in KERNEL_FAMILIES.items()}
+
+
 def tracing_line(run, tel, kept: dict) -> dict:
     stats = run.sources.get("engine_stats")
     out = {"pairs_per_s": run.end_to_end.get("pairs_per_s")}
     pairs = sum(stats.batch_valid) if stats is not None else 0
     if pairs:
         out["device_ms_per_pair"] = sum(stats.batch_ms) / pairs
+        if run.trace_summary is not None:
+            out.update(kernel_family_ms(run.trace_summary["ops"], pairs))
     if stats is not None and stats.images:
         out["pin_ms_per_pair"] = stats.pin_s / stats.images * 1e3
     if tel is None:
