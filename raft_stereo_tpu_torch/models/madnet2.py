@@ -19,6 +19,14 @@ core/madnet2/madnet2.py and submodule.py).
   * The supervised pyramid loss, the 4-mode adaptation loss and the
     host-side ``MADController`` (numpy) that picks which block adapts.
 
+The forward marks its stages on the stream (``telemetry.mark``): ``start``,
+``pyramid`` (both images' features), then at each level k from 6 to 2
+``corr{k}`` (the volume and the window at the warped x), ``xattn{k}`` (the
+Fusion variant's cross-attention with the guidance) and ``decode{k}`` (the
+decoder and the upsampled disparity); the Fusion variant marks
+``guidance`` after its guidance encoder. They record only inside a
+``telemetry.stage_marks`` block, which a sink arms.
+
 Module and parameter names are the reference's torch names (each conv of a
 block or decoder is the ``Sequential(Conv2d)`` of the reference's
 ``conv2d`` helper), NCHW inside; ``MADNet2.forward`` takes and returns the
@@ -41,6 +49,7 @@ import torch.nn.functional as F
 from raft_stereo_tpu_torch import losses as L
 from raft_stereo_tpu_torch.models.layers import Conv2d
 from raft_stereo_tpu_torch.ops.corr import corr_lookup_reg, corr_volume
+from raft_stereo_tpu_torch.runtime import telemetry
 
 LEVELS = (2, 3, 4, 5, 6)  # pyramid levels with a decoder, 1/4 .. 1/64
 DIVIS_BY = 128  # inputs pad to it: six stride-2 levels (reference train_mad.py:232-237)
@@ -157,15 +166,12 @@ class ContextNet(nn.Module):
 
 
 def _level_corr(fmap1: torch.Tensor, fmap2: torch.Tensor, coords_x: torch.Tensor,
-                radius: int = 2, attn=None, guide=None) -> torch.Tensor:
+                radius: int = 2) -> torch.Tensor:
     """One level at radius r on channel-last features → [B, H, W, 2r+1] in
-    fp32, fused with ``guide`` through ``attn`` when given (reference
-    madnet2/corr.py:41-70)."""
+    fp32 (reference madnet2/corr.py:41-70; the Fusion variant then fuses it
+    with the guidance)."""
     vol = corr_volume(fmap1.float(), fmap2.float())
-    win = corr_lookup_reg([vol], coords_x, radius)
-    if attn is not None:
-        win, _ = attn(win, guide)
-    return win
+    return corr_lookup_reg([vol], coords_x, radius)
 
 
 def decoder_cascade(decoders: Dict[int, nn.Module], im2_fea: Sequence[torch.Tensor],
@@ -175,7 +181,9 @@ def decoder_cascade(decoders: Dict[int, nn.Module], im2_fea: Sequence[torch.Tens
     madnet2.py:95-130): at each level correlate at the disparity-warped x,
     decode (features, window, upsampled coarser disparity), upsample
     nearest ×2 scaled by 20/2^(k-1), detached under ``mad``. Features are
-    NCHW; ``guides`` channel-last. Returns (disp2..disp6) channel-last fp32."""
+    NCHW; ``guides`` channel-last. Marks ``corr{k}``, ``xattn{k}`` (with
+    ``attns``) and ``decode{k}`` at each level. Returns (disp2..disp6)
+    channel-last fp32."""
     disp_u = None  # [B, 1, h, w] fp32
     disps = {}
     for k in (6, 5, 4, 3, 2):
@@ -184,10 +192,13 @@ def decoder_cascade(decoders: Dict[int, nn.Module], im2_fea: Sequence[torch.Tens
         coords_x = torch.arange(W, dtype=torch.float32, device=fea.device).expand(B, H, W)
         if disp_u is not None:
             coords_x = coords_x + disp_u[:, 0]
-        corr = _level_corr(
-            fea.permute(0, 2, 3, 1), im3_fea[k].permute(0, 2, 3, 1), coords_x, radius=2,
-            attn=attns[k] if attns else None, guide=guides[k] if guides else None,
-        ).to(dtype).permute(0, 3, 1, 2)
+        win = _level_corr(fea.permute(0, 2, 3, 1), im3_fea[k].permute(0, 2, 3, 1), coords_x,
+                          radius=2)
+        telemetry.mark(f"corr{k}")
+        if attns:
+            win, _ = attns[k](win, guides[k])
+            telemetry.mark(f"xattn{k}")
+        corr = win.to(dtype).permute(0, 3, 1, 2)
         parts = [fea, corr] + ([disp_u.to(dtype)] if disp_u is not None else [])
         disp = decoders[k](torch.cat(parts, dim=1))
         disps[k] = disp
@@ -195,6 +206,7 @@ def decoder_cascade(decoders: Dict[int, nn.Module], im2_fea: Sequence[torch.Tens
             d = disp.detach() if mad else disp
             up = F.interpolate(d, scale_factor=2, mode="nearest")
             disp_u = (up * 20.0 / (2 ** (k - 1))).float()
+        telemetry.mark(f"decode{k}")
     return tuple(disps[k].float().permute(0, 2, 3, 1) for k in LEVELS)
 
 
@@ -229,7 +241,9 @@ class MADNet2(nn.Module):
 
     def forward(self, image2: torch.Tensor, image3: torch.Tensor, mad: bool = False):
         dtype = torch.bfloat16 if self.mixed_precision else torch.float32
+        telemetry.mark("start")
         im2_fea, im3_fea = self._features(image2, image3, mad, dtype)
+        telemetry.mark("pyramid")
         decoders = {k: getattr(self, f"decoder{k}") for k in LEVELS}
         return decoder_cascade(decoders, im2_fea, im3_fea, mad, dtype)
 

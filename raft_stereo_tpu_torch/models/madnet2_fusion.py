@@ -29,6 +29,7 @@ from raft_stereo_tpu_torch.models.madnet2 import (
     decoder_channels,
 )
 from raft_stereo_tpu_torch.ops.sampling import avg_pool2x
+from raft_stereo_tpu_torch.runtime import telemetry
 
 
 def _guide_blocks(module: nn.Module, in_channels: int) -> None:
@@ -87,7 +88,8 @@ class FusionBlock(nn.Module):
 class MADNet2Fusion(nn.Module):
     """``forward(image2, image3, guide)`` → (disp2..disp6) as ``MADNet2``;
     ``guide`` is the [B, H, W, 1] proxy disparity at full resolution
-    (reference madnet2_fusion.py:37-134)."""
+    (reference madnet2_fusion.py:37-134). Marks as ``MADNet2`` does, with
+    ``guidance`` after the pyramid and ``xattn{k}`` at each level."""
 
     def __init__(self, hidden_dim: int = 5, nhead: int = 1, mixed_precision: bool = False):
         super().__init__()
@@ -103,12 +105,15 @@ class MADNet2Fusion(nn.Module):
 
     def forward(self, image2: torch.Tensor, image3: torch.Tensor, guide: torch.Tensor):
         dtype = torch.bfloat16 if self.mixed_precision else torch.float32
+        telemetry.mark("start")
         x = torch.cat([image2, image3], dim=0).to(dtype).permute(0, 3, 1, 2)
         both = self.feature_extraction(x)
         im2_fea = [t.chunk(2, dim=0)[0] for t in both]
         im3_fea = [t.chunk(2, dim=0)[1] for t in both]
+        telemetry.mark("pyramid")
         enc = self.guidance_encoder(guide.to(dtype).permute(0, 3, 1, 2))
         guides = {k: v.float().permute(0, 2, 3, 1) for k, v in enc.items()}
+        telemetry.mark("guidance")
         attns = {k: getattr(self, f"cross_attn_layer_{k}") for k in LEVELS}
         decoders = {k: getattr(self, f"decoder{k}") for k in LEVELS}
         return decoder_cascade(decoders, im2_fea, im3_fea, mad=False, dtype=dtype,

@@ -10,10 +10,17 @@ served at, and ``BatchPadder`` pads a batch of images of possibly different
 original shapes that share one bucket, each with its own offsets, so that
 results unpad per item (slots past ``valid``, the pad-to-batch filler, are
 dropped). All of it is numpy on the host.
+
+``BatchPadder.bands`` writes a batch slot straight into a caller's buffer
+(the engine's page-locked staging buffer), one host copy a pixel:
+``edge_pad_rows`` fills a band of an item's padded rows by slice
+assignment, so the bands of a batch can be written by several threads.
+The bytes are those of ``np.pad(mode="edge")`` followed by ``np.stack``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -47,6 +54,28 @@ def bucket_shape(ht: int, wd: int, divis_by: int = 32,
     the per-image path does. Images of different shapes can share one."""
     l, r, t, b = _pad_amounts(ht, wd, divis_by, "sintel", divis_h=divis_h)
     return ht + t + b, wd + l + r
+
+
+def edge_pad_rows(dst: np.ndarray, x: np.ndarray, pads: Sequence[int],
+                  rows: Optional[Tuple[int, int]] = None) -> None:
+    """Rows ``rows`` (default all) of ``x`` [h, w, C] edge-padded by ``pads``
+    (left, right, top, bottom), written into ``dst`` [h+t+b, w+l+r, C]:
+    the values ``np.pad(x, ((t, b), (l, r), (0, 0)), mode="edge")`` has
+    there, each written once (the columns' pads copy the row's own edge)."""
+    l, r, t, _ = pads
+    h, w = x.shape[:2]
+    r0, r1 = (0, dst.shape[0]) if rows is None else rows
+    i0, i1 = max(r0, t), min(r1, t + h)
+    if i0 < i1:
+        dst[i0:i1, l:l + w] = x[i0 - t:i1 - t]
+    if r0 < min(r1, t):
+        dst[r0:min(r1, t), l:l + w] = x[0]
+    if max(r0, t + h) < r1:
+        dst[max(r0, t + h):r1, l:l + w] = x[h - 1]
+    if l:
+        dst[r0:r1, :l] = dst[r0:r1, l:l + 1]
+    if r:
+        dst[r0:r1, l + w:] = dst[r0:r1, l + w - 1:l + w]
 
 
 class InputPadder:
@@ -105,8 +134,31 @@ class BatchPadder:
         """Stack one input slot: per-item [H, W, C] → host [B, Hb, Wb, C]."""
         if len(items) != len(self._pads):
             raise ValueError(f"expected {len(self._pads)} items, got {len(items)}")
-        return np.stack([np.pad(np.asarray(x), ((t, b), (l, r), (0, 0)), mode="edge")
-                         for x, (l, r, t, b) in zip(items, self._pads)])
+        items = [np.asarray(x) for x in items]
+        for x in items:
+            if x.ndim != 3:
+                raise ValueError(f"expected [H, W, C] items, got shape {x.shape}")
+        out = np.empty(self.slot_shape(items), np.result_type(*items))
+        for band in self.bands(out, items, 1):
+            band()
+        return out
+
+    def slot_shape(self, items: Sequence[np.ndarray]) -> Tuple[int, int, int, int]:
+        """The stacked [B, Hb, Wb, C] shape of one input slot."""
+        return (len(self._pads), *self.bucket, items[0].shape[2])
+
+    def bands(self, out: np.ndarray, items: Sequence[np.ndarray],
+              per_item: int) -> List:
+        """The writes of one slot of [H, W, C] ``items`` into ``out``, a
+        [B, Hb, Wb, C] buffer of ``slot_shape(items)`` (e.g. page-locked),
+        as callables over disjoint bands of rows (``per_item`` a member),
+        for a caller to run on any threads; together they leave ``out``
+        equal to ``pad(items)``, one host copy a pixel."""
+        hb = self.bucket[0]
+        step = -(-hb // max(int(per_item), 1))
+        return [functools.partial(edge_pad_rows, out[i], x, pad, (r0, min(r0 + step, hb)))
+                for i, (x, pad) in enumerate(zip(items, self._pads))
+                for r0 in range(0, hb, step)]
 
     def unpad(self, batch: np.ndarray, i: int) -> np.ndarray:
         """Item ``i``'s original [H, W, C'] window of a batched result."""

@@ -20,13 +20,34 @@ its plain engine, its fault tolerance and its telemetry).
     engine's "compile". On the CPU, or with ``capture=False``, each batch
     runs the forward eagerly and a key's compile is its first use.
   * **A stager thread** decodes (a request's lazy ``inputs`` callable),
-    accounts buckets, pads and stacks batch N+1 on the host while batch N
-    computes, behind a queue of ``prefetch_depth`` batches. It touches no
-    CUDA state: a capture in global mode on the dispatch thread cannot be
-    broken by it. The dispatch thread pins the stacked inputs, copies them
-    to the card on its own stream, replays, and copies the output into
-    pinned host memory on the same stream; it keeps one dispatch in flight,
-    so the host work on batch N's results overlaps batch N+1's compute.
+    accounts buckets and pads batch N+1 on the host while batch N
+    computes, behind a queue of ``prefetch_depth`` batches. Each input slot
+    is edge-padded straight into its batch buffer, one host copy a pixel
+    (``BatchPadder.bands``), the bands of rows of all slots spread over a
+    few threads (``STAGE_THREADS``). On the card that buffer is
+    page-locked and reused (``_HostBuffers``): each slot keeps a ring of
+    ``prefetch_depth + 3`` buffers of the largest batch it has staged,
+    allocated when a batch outgrows them (a page-locked allocation waits
+    for the card, so one made while it computes stalls the stager for a
+    whole batch), and a buffer goes back to its ring once its batch's
+    copies have completed; however many buckets a stream visits, a slot
+    holds that many buffers. Before it stages a batch, the stager lets the
+    card finish copying in the inputs of the batch last dispatched
+    (``_yield_to_input_copy``, at most ``STAGE_YIELD_S``): both move bytes
+    through host memory, and the copy is on the card's critical path. The
+    stager's allocations and event queries cannot break a capture, which
+    records in thread-local mode. The dispatch thread copies
+    the staged inputs to the card on its own stream (a batch staged in
+    pageable memory, a degraded sub-batch, is pinned there first:
+    ``dispatch.pin``), replays, and copies the output into pinned host
+    memory on the same stream; it keeps one dispatch in flight, so the host
+    work on batch N's results overlaps batch N+1's compute. With
+    ``copy_ahead`` a replay's host-to-card copy runs on a copy stream into
+    the graph's landing buffers, as soon as the replay before has read
+    them, so it overlaps that replay's compute, and the dispatch stream
+    moves them card to card into the static inputs: for a forward short
+    against its inputs' copy (MADNet2's, ~25 ms a 2048x2944 pair against
+    ~3.3 ms of copy), at one batch of inputs more on the card.
 
 **Fault tolerance**, the JAX engine's contract:
 
@@ -122,10 +143,13 @@ launches the card ran (``replayed_launches``).
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import itertools
 import logging
+import math
+import os
 import queue
 import threading
 import time
@@ -147,8 +171,93 @@ _END = object()  # stager sentinel: the request stream is exhausted
 _NOT_STAGED = object()  # eager-finalize peek: nothing waiting in the queue
 
 # A batch that waited on the stager longer than this is an underrun: the
-# host failed to hide decode, padding and stacking behind device compute.
+# host failed to hide decode and padding behind device compute.
 STAGER_UNDERRUN_S = 0.05
+
+
+def _cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        return os.cpu_count() or 1
+
+
+# The stager's copy threads, shared by the engines of a process: at most
+# 8, and two cores fewer than the process may run on, since the copies run
+# without the GIL and would otherwise leave the dispatch thread no core
+# while it launches a batch (the card then waits on the host).
+STAGE_THREADS = max(1, min(8, _cores() - 2))
+# how long the stager waits at most for the card's input copy of the batch
+# last dispatched before it stages the next (``_yield_to_input_copy``)
+STAGE_YIELD_S = 0.25
+STAGE_YIELD_POLL_S = 2e-4
+# numpy dtypes the stager stages page-locked (others are pinned at dispatch)
+_PINNABLE = {np.dtype(n): getattr(torch, n) for n in
+             ("float32", "float16", "float64", "uint8", "int8", "int16", "int32", "int64",
+              "bool")}
+_stage_pool_lock = threading.Lock()
+_stage_pool_of: List[Any] = [None, None]  # (pid, executor): a forked child makes its own
+
+
+def _stage_pool() -> concurrent.futures.ThreadPoolExecutor:
+    with _stage_pool_lock:
+        if _stage_pool_of[0] != os.getpid():
+            _stage_pool_of[:] = [os.getpid(), concurrent.futures.ThreadPoolExecutor(
+                STAGE_THREADS, thread_name_prefix="infer-stage")]
+        return _stage_pool_of[1]
+
+
+class _HostBuffers:
+    """An engine's page-locked batch buffers, reused: for each input slot a
+    ring of ``depth`` flat buffers, all of the size of the largest batch
+    the slot has staged, each lent out for one batch (``take``, stager
+    thread) and returned once the device work that reads it has completed
+    (``give``, consumer thread). A batch larger than the slot's buffers
+    replaces its ring at once: the whole ring is allocated then, never
+    while later batches compute. A buffer taken from an empty ring is
+    allocated and joins the ring on its return while the ring has room;
+    one smaller than its slot's ring is dropped on its return. A slot so
+    holds at most ``depth`` buffers of its largest batch besides those
+    lent out, whatever the number of buckets."""
+
+    def __init__(self, depth: int):
+        self.depth = int(depth)
+        self._size: Dict[int, int] = {}  # slot → bytes of each of its buffers
+        self._free: Dict[int, List[torch.Tensor]] = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _alloc(nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def take(self, slot: int, nbytes: int) -> torch.Tensor:
+        """A flat uint8 buffer of at least ``nbytes`` for input slot ``slot``."""
+        with self._lock:
+            if nbytes > self._size.get(slot, 0):
+                self._size[slot] = nbytes
+                self._free[slot] = [self._alloc(nbytes) for _ in range(self.depth)]
+            free, size = self._free[slot], self._size[slot]
+            if free:
+                return free.pop()
+        return self._alloc(size)
+
+    def give(self, buffers: Tuple[torch.Tensor, ...]) -> None:
+        """Return one batch's buffers, slot by slot."""
+        with self._lock:
+            for slot, buf in enumerate(buffers):
+                free = self._free.get(slot)
+                if (free is not None and buf.numel() == self._size[slot]
+                        and len(free) < self.depth):
+                    free.append(buf)
+
+
+def _run_bands(tasks: List[Callable[[], None]]) -> None:
+    """Run a batch's band writes on the stage threads and wait for all;
+    the first failure is raised once every band has ended."""
+    futures = [_stage_pool().submit(t) for t in tasks]
+    concurrent.futures.wait(futures)
+    for f in futures:
+        f.result()
 
 
 class InferStallError(RuntimeError):
@@ -215,6 +324,10 @@ class CapturedForward:
     launches: Dict[str, int]
     replays: int = 0
     marks: Optional["_MarkNodes"] = None
+    # ``replay(ahead=...)``: the buffers the copy stream fills, and the
+    # event after the last replay's card-to-card copy out of them
+    landing: Optional[Tuple[torch.Tensor, ...]] = None
+    landing_read: Any = None
 
 
 def _graph_event():
@@ -409,12 +522,39 @@ class GraphCache:
             logger.info("GraphCache: evicted the graph of %s", old_key)
         return entry
 
-    def replay(self, entry: CapturedForward, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    def replay(self, entry: CapturedForward, inputs: Tuple[torch.Tensor, ...],
+               copied=None, ahead=None) -> torch.Tensor:
         """Copy ``inputs`` into the entry's static inputs and replay it, on
-        the current stream. The returned static output is valid until the
-        next replay of any graph of this cache."""
-        for dst, src in zip(entry.inputs, inputs):
-            dst.copy_(src, non_blocking=True)
+        the current stream; ``copied``, an event, is recorded once the
+        copies are queued. With ``ahead``, a copy stream, the inputs are
+        copied there into the entry's landing buffers once the previous
+        replay has copied them out, ``copied`` is recorded there, and the
+        current stream waits for it and copies them into the static inputs.
+        The returned static output is valid until the next replay of any
+        graph of this cache."""
+        if ahead is None:
+            for dst, src in zip(entry.inputs, inputs):
+                dst.copy_(src, non_blocking=True)
+            if copied is not None:
+                copied.record()
+        else:
+            stream = torch.cuda.current_stream(entry.inputs[0].device)
+            if entry.landing is None:
+                entry.landing = tuple(torch.empty_like(x) for x in entry.inputs)
+                for x in entry.landing:
+                    x.record_stream(ahead)
+                entry.landing_read = torch.cuda.Event()
+                entry.landing_read.record(stream)
+            copied = copied if copied is not None else torch.cuda.Event()
+            ahead.wait_event(entry.landing_read)
+            with torch.cuda.stream(ahead):
+                for dst, src in zip(entry.landing, inputs):
+                    dst.copy_(src, non_blocking=True)
+                copied.record(ahead)
+            stream.wait_event(copied)
+            for dst, src in zip(entry.inputs, entry.landing):
+                dst.copy_(src, non_blocking=True)
+            entry.landing_read.record(stream)
         entry.graph.replay()
         entry.replays += 1
         self.replays += 1
@@ -613,6 +753,11 @@ class _StagedBatch:
     arrays: Tuple[np.ndarray, ...]  # host [B, Hb, Wb, C] per input slot
     valid: int
     stage_s: float
+    # on the card: the page-locked tensors ``arrays`` are views of, which
+    # the dispatch copies from directly (None: pageable, pinned at dispatch),
+    # and the ring's buffers they lie in
+    pinned: Optional[Tuple[torch.Tensor, ...]] = None
+    buffers: Optional[Tuple[torch.Tensor, ...]] = None
     wait_s: float = 0.0  # the consumer's wait for it
     # per valid item, parallel to payloads
     trace_ids: List[str] = field(default_factory=list)
@@ -634,6 +779,7 @@ class _Launch:
     host: Optional[torch.Tensor] = None
     done: Any = None   # torch.cuda.Event recorded after the output copy
     start: Any = None  # torch.cuda.Event recorded before the input copy
+    copied: Any = None  # torch.cuda.Event recorded after the input copy
     ms: Optional[float] = None  # start → done, once waited on
     # the forward's stage marks (``telemetry.stage_marks``; None with no
     # sink) and, once waited on, the ms of each stage
@@ -698,8 +844,10 @@ class InferStats:
     batches: int = 0
     padded_slots: int = 0
     decode_wait_s: float = 0.0  # consumer blocked on the stager queue
-    h2d_stage_s: float = 0.0    # stager: pad + stack (host)
-    pin_s: float = 0.0          # consumer: the inputs' copy into pinned memory (CUDA)
+    h2d_stage_s: float = 0.0    # stager: pad into the batch buffer (host)
+    # consumer: the inputs' copy into pinned memory (CUDA), 0 for a batch
+    # the stager staged page-locked
+    pin_s: float = 0.0
     device_batch_s: float = 0.0  # consumer blocked on device results
     stream_s: float = 0.0       # wall time inside stream(), captures included
     compile_s: float = 0.0      # new keys: warm-up and capture (CPU: first use)
@@ -712,7 +860,9 @@ class InferStats:
     circuits_open: int = 0   # buckets circuit-broken in the engine's life
     buckets: Dict[Tuple[int, int], int] = field(default_factory=dict)
     # each full batch's device time on CUDA (ms, by CUDA events from the
-    # input copy to the end of the output copy) and its valid items
+    # input copy to the end of the output copy; with ``copy_ahead``, from
+    # the wait for the copy stream's copy and the card-to-card copy) and
+    # its valid items
     batch_ms: List[float] = field(default_factory=list)
     batch_valid: List[int] = field(default_factory=list)
     # aligned with batch_ms: each batch's device ms by model stage, from the
@@ -890,7 +1040,8 @@ class InferenceEngine:
                  eager_finalize: bool = False, idle_watchdog: bool = True,
                  tier: str = "serving", module: Optional[torch.nn.Module] = None,
                  divis_by: int = 32, spatial: Optional[List[torch.device]] = None,
-                 aot_dir: Optional[str] = None, aot_key_extra: Optional[Dict[str, Any]] = None):
+                 aot_dir: Optional[str] = None, aot_key_extra: Optional[Dict[str, Any]] = None,
+                 copy_ahead: bool = False):
         if batch < 1:
             raise ValueError("InferenceEngine batch must be >= 1")
         if prefetch_depth < 1:
@@ -920,6 +1071,8 @@ class InferenceEngine:
                         and len(set(self.spatial or [self.device])) == 1)
         self.graph_key = tuple(graph_key)
         self.graphs = GraphCache(max_executables)
+        # replays copy their inputs on this stream, ahead (module docstring)
+        self._copy_stream = torch.cuda.Stream(self.device) if copy_ahead and self.capture else None
         self.stats = InferStats()
         # degradation memory, by bucket: a broken bucket is served one pair
         # at a time; a capped one at the micro-batch that last fit
@@ -927,6 +1080,14 @@ class InferenceEngine:
         self._bucket_cap: Dict[Tuple[int, int], int] = {}
         self._compiled: set = set()  # eager keys past their first use
         self._batch_seq = itertools.count()  # numbers staged batches (stager)
+        # staged, queued, dispatched and held batches, and the one the
+        # stager fills: the ring a slot needs so the stager never allocates;
+        # used on the card (``_stage_locked``)
+        self._host_buffers = _HostBuffers(self.prefetch_depth + 3)
+        self._stage_locked = self.device.type == "cuda"
+        # the input copy of the batch last dispatched (consumer), which the
+        # stager lets finish before it stages the next batch
+        self._inputs_copied = None
         self._wait_worker: Optional[_WaitWorker] = None
         self.eager_finalize = bool(eager_finalize)
         self.idle_watchdog = bool(idle_watchdog)
@@ -1071,7 +1232,8 @@ class InferenceEngine:
                 return None
             if self.aot_store is not None:
                 self._aot_save(staged.bucket, staged.arrays)
-        return lambda arrays: self._launch(key, arrays, captured=self.capture, batch=staged.seq)
+        return lambda arrays, pinned=None: self._launch(key, arrays, captured=self.capture,
+                                                        batch=staged.seq, pinned=pinned)
 
     # ------------------------------------------------------ graph store
 
@@ -1210,32 +1372,40 @@ class InferenceEngine:
     # -------------------------------------------------- launch and wait
 
     def _launch(self, key, arrays: Tuple[np.ndarray, ...], captured: bool,
-                batch: Optional[int] = None) -> _Launch:
+                batch: Optional[int] = None,
+                pinned: Optional[Tuple[torch.Tensor, ...]] = None) -> _Launch:
         """Launch the forward on host ``arrays`` (one batch, or some rows of
         one): a replay of ``key``'s graph when ``captured``, else eagerly.
-        ``batch`` is the staged batch's number, for spans."""
+        ``batch`` is the staged batch's number, for spans; ``pinned``, the
+        page-locked tensors ``arrays`` are views of, skips the pinned copy."""
         if self.device.type != "cuda":
             inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                            for a in arrays)
             with telemetry.stage_marks(telemetry.HostMark) as marks:
                 out = self.forward_fn(*inputs).detach()
             return _Launch(host=out, marks=marks, batch=batch)
-        t0 = time.perf_counter()
-        with telemetry.span("dispatch.pin", batch=batch):
-            pinned = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                           for a in arrays)
-        self.stats.pin_s += time.perf_counter() - t0
-        launch = _Launch(start=torch.cuda.Event(enable_timing=True), batch=batch)
+        if pinned is None:
+            t0 = time.perf_counter()
+            with telemetry.span("dispatch.pin", batch=batch):
+                pinned = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                               for a in arrays)
+            self.stats.pin_s += time.perf_counter() - t0
+        launch = _Launch(start=torch.cuda.Event(enable_timing=True),
+                         copied=torch.cuda.Event(), batch=batch)
         if captured:
             entry = self.graphs.get(key, self.forward_fn, pinned)
             launch.marks = self.graphs.arm_marks(entry)
             launch.start.record()
-            out = self.graphs.replay(entry, pinned)
+            out = self.graphs.replay(entry, pinned, copied=launch.copied,
+                                     ahead=self._copy_stream)
         else:
             launch.start.record()
+            inputs = tuple(x.to(self.device, non_blocking=True) for x in pinned)
+            launch.copied.record()
             with telemetry.stage_marks(_timing_event) as marks:
-                out = self.forward_fn(*(x.to(self.device, non_blocking=True) for x in pinned))
+                out = self.forward_fn(*inputs)
             launch.marks = marks
+        self._inputs_copied = launch.copied
         # a static output is overwritten by the next replay: copy it out on
         # the stream now
         launch.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -1356,7 +1526,7 @@ class InferenceEngine:
                 break
             self._note_retry("dispatch", attempt, staged.bucket, last, staged.trace_ids)
             try:
-                launch = run(staged.arrays)
+                launch = run(staged.arrays, staged.pinned)
                 return self._wait_device(launch, self.batch, staged.trace_ids), launch
             except _WatchdogTimeout:
                 raise
@@ -1371,9 +1541,37 @@ class InferenceEngine:
 
     # ----------------------------------------------------------- stager
 
+    def _slot_buffer(self, padder: BatchPadder, k: int, slot: List[np.ndarray]):
+        """Input slot ``k``'s batch buffer: (the host array, the page-locked
+        tensor it is a view of and the ring's buffer that tensor lies in,
+        or None and None off the card)."""
+        shape, dtype = padder.slot_shape(slot), np.result_type(*slot)
+        if self._stage_locked and dtype in _PINNABLE:
+            nbytes = math.prod(shape) * dtype.itemsize
+            buf = self._host_buffers.take(k, nbytes)
+            tensor = buf[:nbytes].view(_PINNABLE[dtype]).view(shape)
+            return tensor.numpy(), tensor, buf
+        return np.empty(shape, dtype), None, None
+
+    def _yield_to_input_copy(self) -> None:
+        """Wait, at most ``STAGE_YIELD_S``, for the batch last dispatched to
+        finish its input copy: staging moves a batch's bytes through host
+        memory, and the card's copy of the batch before reads host memory
+        too; run at once they slow each other, and the copy is on the card's
+        critical path (stager thread)."""
+        copied = self._inputs_copied
+        deadline = time.perf_counter() + STAGE_YIELD_S
+        try:
+            while (copied is not None and not copied.query()
+                   and time.perf_counter() < deadline):
+                time.sleep(STAGE_YIELD_POLL_S)
+        except RuntimeError:  # a failed device: the dispatch reports it
+            return
+
     def _stage(self, items: List[_Decoded], bucket) -> _StagedBatch:
         """Pack one bucket's items into a fixed micro-batch on the host,
         numbered by the engine's count of staged batches (stager thread)."""
+        self._yield_to_input_copy()
         valid = len(items)
         items = items + [items[-1]] * (self.batch - valid)  # filler, masked by ``valid``
         trace_ids = [x.trace_id for x in items[:valid]]
@@ -1382,12 +1580,19 @@ class InferenceEngine:
         with telemetry.span("h2d_stage", batch=seq, trace_ids=trace_ids):
             padder = BatchPadder([x.arrays[0].shape[:2] for x in items],
                                  divis_by=self.divis_by, divis_h=self.divis_h)
-            arrays = tuple(padder.pad([x.arrays[k] for x in items])
-                           for k in range(len(items[0].arrays)))
+            inputs = [[x.arrays[k] for x in items] for k in range(len(items[0].arrays))]
+            slots = [self._slot_buffer(padder, k, s) for k, s in enumerate(inputs)]
+            per_item = -(-2 * STAGE_THREADS // self.batch)
+            _run_bands([band for (out, _, _), s in zip(slots, inputs)
+                        for band in padder.bands(out, s, per_item)])
+        tensors, buffers = tuple(t for _, t, _ in slots), tuple(b for _, _, b in slots)
+        locked = None not in tensors
         return _StagedBatch(bucket=bucket, payloads=[x.payload for x in items[:valid]],
-                            padder=padder, arrays=arrays, valid=valid,
-                            stage_s=time.perf_counter() - t0, trace_ids=trace_ids,
-                            t_starts=[x.t_start for x in items[:valid]],
+                            padder=padder, arrays=tuple(a for a, _, _ in slots), valid=valid,
+                            stage_s=time.perf_counter() - t0,
+                            pinned=tensors if locked else None,
+                            buffers=buffers if locked else None,
+                            trace_ids=trace_ids, t_starts=[x.t_start for x in items[:valid]],
                             decode_s=[x.decode_s for x in items[:valid]], seq=seq)
 
     def _stage_put(self, put, items: List[_Decoded], bucket) -> bool:
@@ -1579,7 +1784,7 @@ class InferenceEngine:
         if run is None:  # the compile circuit just opened
             return staged, None, (1, "circuit")
         try:
-            launch = run(staged.arrays)
+            launch = run(staged.arrays, staged.pinned)
         except Exception as e:  # noqa: BLE001 — walks the ladder at finalize
             launch = _DispatchFailure(_released(e))
         return staged, run, launch
@@ -1609,6 +1814,12 @@ class InferenceEngine:
         except BaseException as e:  # noqa: BLE001 — the batch fails, not the stream
             yield from self._fail_batch(staged, e)
             return
+        if staged.buffers is not None:
+            # the copies that read them completed before the output copy
+            # this wait saw: the stager may refill them
+            self._host_buffers.give(staged.buffers)
+            staged.pinned = staged.buffers = None
+            staged.arrays = ()
         t1 = time.perf_counter()
         device_s = t1 - t0
         self.stats.device_batch_s += device_s

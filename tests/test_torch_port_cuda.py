@@ -847,8 +847,9 @@ def test_stage_marks_split_each_replay_of_a_pipelined_stream(tmp_path):
     event-record nodes re-pointed before each replay: every batch of two
     streams (batch N+1 replayed before batch N is read) gets its own
     encode/refine/final split, whose sum is within 3% of the batch's CUDA
-    event time (the input and output copies are the rest). The pinned copy
-    and the warm-up are counted."""
+    event time (the input and output copies are the rest). The warm-up is
+    counted; the stager stages page-locked, so the consumer makes no
+    pinned copy (``pin_s`` 0, no ``dispatch.pin`` span)."""
     _cuda()
     from raft_stereo_tpu_torch.runtime import telemetry
 
@@ -869,10 +870,65 @@ def test_stage_marks_split_each_replay_of_a_pipelined_stream(tmp_path):
         assert list(stages) == ["encode", "refine", "final"], stages
         assert all(v > 0 for v in stages.values())
         assert 0.97 * ms <= sum(stages.values()) <= ms, (s.stage_ms, s.batch_ms)
-    assert s.pin_s > 0
+    assert s.pin_s == 0.0
     assert 0 < graphs.warmup_s < graphs.capture_s
     names = {sp["name"] for sp in tel.spans()}
-    assert {"graph.warmup", "graph.capture", "dispatch.pin", "dispatch"} <= names
+    assert {"graph.warmup", "graph.capture", "dispatch", "h2d_stage"} <= names
+    assert "dispatch.pin" not in names
+
+
+def test_page_locked_staging_serves_the_pageable_bytes(monkeypatch):
+    """The stager's page-locked batch buffers (reused, copied from
+    directly) serve bitwise what pageable staging pinned at dispatch
+    serves, through the same captured graphs."""
+    _cuda()
+    from raft_stereo_tpu_torch.runtime import infer
+
+    model = load_model(PRESETS["raftstereo-realtime"], seed=5)
+    reqs = _engine_requests([(60, 100), (64, 96), (58, 90)] * 3, seed=6)
+    engine = make_engine(model, 3, InferOptions(batch=2))
+    locked = {r.payload: r.output for r in engine.stream(iter(reqs))}
+    assert engine.stats.pin_s == 0.0 and len(locked) == len(reqs)
+    rings = engine._host_buffers._free
+    assert rings and all(t.is_pinned() for ring in rings.values() for t in ring)
+    captures = engine.graphs.captures
+    monkeypatch.setattr(infer, "_PINNABLE", {})  # pageable: pinned at dispatch
+    engine.stats = infer.InferStats()
+    pageable = {r.payload: r.output for r in engine.stream(iter(reqs))}
+    assert engine.stats.pin_s > 0 and engine.graphs.captures == captures
+    assert all(locked[i].tobytes() == pageable[i].tobytes() for i in locked)
+
+
+def test_fusion_stage_marks_split_each_captured_replay(tmp_path):
+    """MADNet2Fusion through ``evaluate_mad``'s engine with a sink at
+    capture: every replay splits into the pyramid, the guidance, each
+    level's correlation, cross-attention and decoder, and the output, each
+    stage's device time positive and their sum within the batch's CUDA
+    event time."""
+    _cuda()
+    from raft_stereo_tpu_torch import evaluate_mad
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+    from raft_stereo_tpu_torch.runtime import telemetry
+
+    stages = ["pyramid", "guidance"] + [f"{s}{k}" for k in (6, 5, 4, 3, 2)
+                                        for s in ("corr", "xattn", "decode")] + ["output"]
+    tel = telemetry.install(telemetry.Telemetry(str(tmp_path)))
+    try:
+        engine = evaluate_mad.make_mad_engine(make_madnet2(fusion=True, seed=3, device="cuda"),
+                                              fusion=True, infer=InferOptions(batch=2))
+        rng = np.random.RandomState(4)
+        reqs = [InferRequest(payload=i, inputs=(
+            (rng.rand(250, 500, 3) * 255).astype(np.float32),
+            (rng.rand(250, 500, 3) * 255).astype(np.float32),
+            (rng.rand(250, 500, 1) * -30).astype(np.float32))) for i in range(6)]
+        assert all(r.ok for r in engine.stream(iter(reqs)))
+    finally:
+        telemetry.uninstall(tel)
+    s = engine.stats
+    assert s.degraded == 0 and len(s.stage_ms) == len(s.batch_ms) == 3
+    for got, ms in zip(s.stage_ms, s.batch_ms):
+        assert list(got) == stages, got
+        assert all(v > 0 for v in got.values()) and sum(got.values()) <= ms
 
 
 def test_no_sink_captures_no_marks():
@@ -921,3 +977,32 @@ def test_a_marked_graph_replays_and_evicts_cleanly(tmp_path):
         assert "a" not in cache and cache.evictions == 1
     finally:
         telemetry.uninstall(tel)
+
+
+def test_copy_ahead_serves_what_the_dispatch_streams_copy_serves():
+    """``evaluate_mad``'s engine copies each replay's inputs on its copy
+    stream into landing buffers while the replay before computes: over two
+    buckets and several batches each, it serves bitwise what the same
+    graphs serve with the inputs copied on the dispatch stream."""
+    _cuda()
+    from raft_stereo_tpu_torch import evaluate_mad
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+
+    engine = evaluate_mad.make_mad_engine(make_madnet2(fusion=True, seed=3, device="cuda"),
+                                          fusion=True, infer=InferOptions(batch=2))
+    assert engine._copy_stream is not None
+    rng = np.random.RandomState(5)
+    reqs = [InferRequest(payload=i, inputs=(
+        (rng.rand(h, w, 3) * 255).astype(np.float32),
+        (rng.rand(h, w, 3) * 255).astype(np.float32),
+        (rng.rand(h, w, 1) * -30).astype(np.float32)))
+        for i, (h, w) in enumerate([(250, 500), (200, 380)] * 6)]
+    ahead = {r.payload: r.output for r in engine.stream(iter(reqs))}
+    assert len(ahead) == len(reqs) and engine.stats.degraded == 0
+    entries = [e for _, e in engine.graphs.items()]
+    assert len(entries) == 2 and all(e.landing is not None for e in entries)
+    captures = engine.graphs.captures
+    engine._copy_stream = None
+    plain = {r.payload: r.output for r in engine.stream(iter(reqs))}
+    assert engine.graphs.captures == captures
+    assert all(ahead[i].tobytes() == plain[i].tobytes() for i in ahead)

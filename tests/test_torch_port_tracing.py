@@ -475,3 +475,72 @@ def test_trace_cell_sums_layout_and_strided_kernels_a_pair():
                    "strided_elementwise_ms_per_pair": 1e3 * 0.75 / 4}
     assert _trace_cell().kernel_family_ms({}, pairs=4) == {
         "layout_convert_ms_per_pair": 0.0, "strided_elementwise_ms_per_pair": 0.0}
+
+
+# ------------------------------------------------- the MADNet2 family's marks
+
+MAD_LEVELS = (6, 5, 4, 3, 2)
+MAD_STAGES = ["pyramid"] + [f"{s}{k}" for k in MAD_LEVELS for s in ("corr", "decode")]
+FUSION_STAGES = ["pyramid", "guidance"] + [f"{s}{k}" for k in MAD_LEVELS
+                                          for s in ("corr", "xattn", "decode")]
+
+
+def _mad_pair(seed=0, guide=False):
+    g = torch.Generator().manual_seed(seed)
+    out = [torch.rand((1, 128, 256, 3), generator=g) * 255 for _ in range(2)]
+    return out + ([torch.rand((1, 128, 256, 1), generator=g) * -20] if guide else [])
+
+
+@pytest.mark.parametrize("fusion", [False, True], ids=["madnet2", "fusion"])
+def test_madnet2_marks_are_free_without_a_sink(fusion):
+    """No sink: the forward records no event and computes what a marked
+    forward computes."""
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+
+    model = make_madnet2(fusion=fusion, seed=1)
+    inputs = _mad_pair(guide=fusion)
+    made = []
+    with torch.no_grad():
+        plain = model(*inputs)
+        with telemetry.stage_marks(lambda: made.append(_FakeEvent()) or made[-1]) as marks:
+            again = model(*inputs)
+    assert marks is None and made == []
+    assert all(torch.equal(a, b) for a, b in zip(plain, again))
+
+
+@pytest.mark.parametrize("fusion", [False, True], ids=["madnet2", "fusion"])
+def test_madnet2_forward_marks_its_stages_in_order(sink, fusion):
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+
+    model = make_madnet2(fusion=fusion, seed=1)
+    inputs = _mad_pair(guide=fusion)
+    with torch.no_grad():
+        plain = model(*inputs)
+        with telemetry.stage_marks(_FakeEvent) as marks:
+            marked = model(*inputs)
+    assert [stage for stage, _ in marks] == ["start"] + (FUSION_STAGES if fusion else MAD_STAGES)
+    assert list(telemetry.stage_ms(marks)) == (FUSION_STAGES if fusion else MAD_STAGES)
+    assert all(torch.equal(a, b) for a, b in zip(plain, marked))
+
+
+def test_fusion_engine_splits_each_batch_into_named_stages(sink, monkeypatch):
+    """Through ``evaluate_mad``'s engine each full batch's device time
+    splits into the named stages, the five levels' cross-attention apart
+    from their correlation and decoder, and the upsampled output last."""
+    from raft_stereo_tpu_torch import evaluate_mad
+    from raft_stereo_tpu_torch.models.madnet2 import make_madnet2
+
+    _with_device_time(monkeypatch)
+    engine = evaluate_mad.make_mad_engine(make_madnet2(fusion=True, seed=2), fusion=True,
+                                          infer=infer.InferOptions(batch=2))
+    rng = np.random.RandomState(3)
+    reqs = [InferRequest(payload=i, inputs=(rng.rand(120, 250, 3).astype(np.float32) * 255,
+                                            rng.rand(120, 250, 3).astype(np.float32) * 255,
+                                            rng.rand(120, 250, 1).astype(np.float32) * -20))
+            for i in range(4)]
+    assert all(r.ok for r in engine.stream(iter(reqs)))
+    s = engine.stats
+    assert len(s.stage_ms) == len(s.batch_ms) == 2
+    for stages in s.stage_ms:
+        assert list(stages) == FUSION_STAGES + ["output"]
+        assert all(ms >= 0 for ms in stages.values())
